@@ -1,0 +1,10 @@
+from texttoaudiogrounding_tpu_torch.models.audio_encoder import Cnn8Rnn
+from texttoaudiogrounding_tpu_torch.models.audio_text_model import (
+    BiEncoder,
+    flagship_model,
+)
+from texttoaudiogrounding_tpu_torch.models.match import DotProduct
+from texttoaudiogrounding_tpu_torch.models.text_encoder import EmbeddingAgg
+
+__all__ = ["BiEncoder", "Cnn8Rnn", "DotProduct", "EmbeddingAgg",
+           "flagship_model"]

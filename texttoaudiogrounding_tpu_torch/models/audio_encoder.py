@@ -1,0 +1,81 @@
+"""Cnn8Rnn audio encoder: waveform → frame embeddings + frame lengths.
+
+Port of ``texttoaudiogrounding_tpu/models/audio_encoder.py:60-144``
+(reference models/audio_encoder.py:89-232): log-mel (64 slaney mels) →
+bn0 over the mel axis → 4 PANNs conv blocks (64→128→256→512, avg+max
+pools, time ÷4, mel ÷16) → mean over mel → FC512 + ReLU → BiGRU(256×2).
+``length = (waveform_len // hop + 1) // 4``.
+
+The JAX package picks the serving kernels with environment variables
+(``TTG_FUSED_CONV``, ``TTG_B1_QUANT``); here the constructor says it:
+``Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8")`` is the flagship int8
+serving path (log-mel kernel, the three conv-block kernels, bf16 BiGRU),
+``Cnn8Rnn()`` the plain f32 reference.  The bf16 cast points of the JAX
+serving path are kept: the log-mel kernel's output and bn0 in f32, a bf16
+cast before block 1, the mel mean of the bf16 block-4 output in bf16
+feeding the f32 ``fc1``, and the BiGRU with bf16 operands and carry.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from texttoaudiogrounding_tpu_torch.models.layers import (
+    BiGRU,
+    ConvBlock,
+    batch_norm_eval,
+)
+from texttoaudiogrounding_tpu_torch.ops.frontend import (
+    cnn8rnn_mel_config,
+    log_mel_spectrogram,
+)
+from texttoaudiogrounding_tpu_torch.ops.kernels.logmel import (
+    fused_log_mel_spectrogram,
+)
+
+_BLOCKS = ((1, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (1, 2)),
+           (256, 512, (1, 2)))
+
+
+class Cnn8Rnn(nn.Module):
+    downsample_ratio = 4
+    time_resolution = 0.04
+    embed_dim = 512
+
+    def __init__(self, sample_rate: int = 32000,
+                 dtype: torch.dtype = torch.float32,
+                 conv_mode: str | None = None):
+        super().__init__()
+        if (dtype == torch.float32) != (conv_mode is None):
+            raise ValueError("use dtype=float32 with conv_mode=None (the "
+                             "plain path) or dtype=bfloat16 with conv_mode "
+                             "'bf16' or 'int8' (the serving kernels)")
+        self.sample_rate = sample_rate
+        self.dtype = dtype
+        self.conv_mode = conv_mode
+        self.mel_config = cnn8rnn_mel_config(sample_rate)
+        self.bn0 = nn.BatchNorm1d(64)
+        for i, (cin, cout, _) in enumerate(_BLOCKS, start=1):
+            setattr(self, f"conv_block{i}", ConvBlock(cin, cout, conv_mode))
+        self.fc1 = nn.Linear(512, 512)
+        self.rnn = BiGRU(512, 256, dtype=dtype)
+
+    def forward(self, input_dict: dict) -> dict:
+        waveform = input_dict["waveform"]
+        cfg = self.mel_config
+        if self.conv_mode is None:
+            x = log_mel_spectrogram(waveform, cfg)          # [B, T, 64]
+        else:
+            x = fused_log_mel_spectrogram(waveform, cfg)
+        x = batch_norm_eval(x, self.bn0)                    # f32, per mel
+        x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
+        for i, (_, _, pool) in enumerate(_BLOCKS, start=1):
+            x = getattr(self, f"conv_block{i}")(x, pool)
+        # mean over mel in the blocks' dtype (f32 sum, as jnp.mean)
+        x = x.float().mean(dim=2).to(self.dtype)            # [B, T/4, 512]
+        x = torch.relu(F.linear(x.float(), self.fc1.weight, self.fc1.bias))
+        x = self.rnn(x)
+        length = input_dict["waveform_len"] // cfg.hop_length + 1
+        return {"embedding": x, "length": length // self.downsample_ratio}

@@ -1,0 +1,175 @@
+"""Fused PANNs block 1 (1 → 64 → 64, 2×2 pool): ``csrc/conv_block1_pair.cu``.
+
+Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block1_pair.py:346
+fused_block1_pair`` in its serving mode ``quantize="conv1"`` and in
+``quantize=False`` (bf16).  The TPU kernel's banded conv1 matrix and its
+packed output order serve the TPU's matrix unit; the port keeps their
+arithmetic, not their layout:
+
+* ``"conv1"``: x is int8 with one scale per clip, ``max|x| / 127`` floored
+  at 1e-6, all in bf16 arithmetic as the TPU path computes it
+  (``conv_block1_pair.py:432-436``).  w1 is quantized per column of the
+  banded matrix (``:77-96``, ``:412-415``), i.e. per (output mel,
+  channel): output mels 0 and 63 see only 6 in-band taps, and their scale
+  is the max over those.  conv1 sums in int32, then ``acc (a1 s_w) s_x +
+  b1``, ReLU, bf16 — y1 is not requantized;
+* ``False``: conv1 in bf16 with f32 accumulation;
+* conv2 in bf16 with f32 accumulation, BN, ReLU, y2 rounded to bf16 and
+  pooled in bf16, time pairs first, then mel pairs.
+
+``quantize=True`` (int8 conv2 with a per-chunk y1 scale) is not ported
+yet; see ROADMAP.md.
+
+:func:`fused_block1_pair` launches the kernel for a CUDA tensor and runs
+:func:`block1_plain` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from texttoaudiogrounding_tpu_torch.ops.kernels import _build
+from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
+    _quant_i8,
+    check_device,
+    fold_bn,
+    over127,
+)
+
+__all__ = ["fused_block1_pair", "block1_plain", "fold_bn"]
+
+launches = 0          # kernel launches through fused_block1_pair
+
+_M = 64
+
+
+def conv1_weights(w1: torch.Tensor) -> tuple:
+    """Banded-column int8 quantization of w1 ``[3, 3, 1, C]``:
+    ``(wq [64 mel, 9 taps, C] int8, scales [64 mel, C])``; a tap whose
+    input mel falls outside the axis is zero."""
+    w = w1[:, :, 0, :].float()                      # [dt, dm, C]
+    c = w.shape[-1]
+    absw = w.abs()
+    s = absw.amax(dim=(0, 1))[None].repeat(_M, 1)
+    s[0] = absw[:, 1:].amax(dim=(0, 1))             # mel -1 is padding
+    s[_M - 1] = absw[:, :2].amax(dim=(0, 1))        # mel 64 is padding
+    s = over127(torch.clamp(s, min=1e-8))
+    inv = 1.0 / s                                   # [64, C]
+    wq = _quant_i8(w.reshape(9, c)[None], inv[:, None])   # [64, 9, C]
+    band = torch.ones(_M, 3, 3, 1, dtype=torch.int8, device=w.device)
+    band[0, :, 0] = 0
+    band[_M - 1, :, 2] = 0
+    return (wq * band.reshape(_M, 9, 1)).contiguous(), s
+
+
+def clip_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-clip int8 scale of the conv1 input, in bf16 arithmetic."""
+    return over127(torch.clamp(x.abs().amax(dim=(1, 2)), min=1e-6))
+
+
+def _taps(x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, 64]`` → ``[B, T, 64, 9]`` zero-padded 3×3 neighbourhoods,
+    tap = dt * 3 + dm."""
+    xp = F.pad(x, (1, 1, 1, 1))
+    p = xp.unfold(1, 3, 1).unfold(2, 3, 1)          # [B, T, 64, 3, 3]
+    return p.reshape(*x.shape, 9)
+
+
+def _pool_bf16(y: torch.Tensor) -> torch.Tensor:
+    """bf16 avg+max 2×2 pool of ``[B, T, 64, C]``, time pairs first."""
+    b, t, m, c = y.shape
+    v = y[:, :t // 2 * 2].reshape(b, t // 2, 2, m // 2, 2, c)
+    s, mx = v[:, :, 0] + v[:, :, 1], torch.maximum(v[:, :, 0], v[:, :, 1])
+    s = s[..., 0, :] + s[..., 1, :]
+    mx = torch.maximum(mx[..., 0, :], mx[..., 1, :])
+    return s * 0.25 + mx
+
+
+def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1") -> torch.Tensor:
+    """The block-1 kernel's arithmetic in plain PyTorch.  x ``[B, T, 64]``
+    bf16 → ``[B, T // 2, 32, 64]`` bf16."""
+    a1, b1 = (v.float() for v in ab1)
+    a2, b2 = (v.float() for v in ab2)
+    if quantize == "conv1":
+        sx = clip_scale(x)
+        xq = _quant_i8(x.float(), (1.0 / sx).float()[:, None, None])
+        wq, s1 = conv1_weights(w1)
+        acc = torch.einsum("btmk,mkc->btmc", _taps(xq.double()),
+                           wq.double()).float()
+        mul = (a1[None] * s1)[None] * sx.float()[:, None, None]
+        y1 = acc * mul[:, None] + b1
+    else:
+        wb = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).float()
+        acc = torch.einsum("btmk,kc->btmc", _taps(x.float()), wb)
+        y1 = acc * a1 + b1
+    y1 = torch.relu(y1).to(torch.bfloat16)
+    acc2 = F.conv2d(y1.float().permute(0, 3, 1, 2),
+                    w2.to(torch.bfloat16).float().permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1)
+    y2 = torch.relu(acc2 * a2 + b2).to(torch.bfloat16)
+    return _pool_bf16(y2)
+
+
+_P, _I = _build.P, _build.I
+_ARGS = [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+
+
+def kernel_weights(w1, ab1, w2, ab2, quantize) -> tuple:
+    """(w1, alpha1, beta1, w2 [64, 9 * 64], alpha2, beta2) in the
+    kernel's layout: for ``"conv1"`` w1 is the banded int8 ``[64 mel, 9,
+    C]`` with its scales folded into alpha1 ``[64 mel, C]``, else bf16
+    ``[9, C]``; w2 is bf16, k = (dt * 3 + dm) * 64 + ci."""
+    a1, b1 = (v.float().contiguous() for v in ab1)
+    a2, b2 = (v.float().contiguous() for v in ab2)
+    if quantize == "conv1":
+        wk1, s1 = conv1_weights(w1)
+        ak1 = (a1[None] * s1).contiguous()
+    else:
+        wk1 = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).contiguous()
+        ak1 = a1
+    wk2 = w2.to(torch.bfloat16).permute(3, 0, 1, 2).reshape(64, -1)
+    return wk1, ak1, b1, wk2.contiguous(), a2, b2
+
+
+def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                      w2: torch.Tensor, ab2: tuple, *,
+                      quantize="conv1",
+                      prepared: tuple | None = None) -> torch.Tensor:
+    """Fused (conv3x3 → BN → ReLU) × 2 → avg+max 2×2 pool for Cin = 1.
+
+    x ``[B, T, 64]`` bf16 (the bn0 output); w1 ``[3, 3, 1, 64]``, w2
+    ``[3, 3, 64, 64]`` HWIO f32; ab from :func:`fold_bn`; ``prepared``,
+    if given, is :func:`kernel_weights` of the same weights and mode, kept
+    by the caller so that a forward does not lay them out again.  Returns
+    ``[B, T // 2, 32, 64]`` bf16.  Serving only (running BN statistics).
+    """
+    global launches
+    if quantize is True:
+        raise NotImplementedError("block 1 with an int8 conv2 is not ported")
+    if quantize not in (False, "conv1"):
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
+    if x.dim() != 3 or x.shape[2] != _M or x.dtype != torch.bfloat16 \
+            or not x.is_contiguous():
+        raise ValueError("x must be a contiguous [B, T, 64] bf16 tensor")
+    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
+        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
+    check_device(x, w1, w2, *ab1, *ab2)
+    if not x.is_cuda:
+        return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize)
+    b, t, _ = x.shape
+    wk1, ak1, b1, wk2, a2, b2 = prepared or kernel_weights(
+        w1, ab1, w2, ab2, quantize)
+    check_device(x, wk1, ak1, b1, wk2, a2, b2)
+    sx = torch.empty(b, 2, device=x.device)
+    y1 = torch.empty(b, t, _M, 64, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.function("conv_block1_pair", "ttg_conv_block1", _ARGS)
+    err = fn(int(quantize == "conv1"), x.data_ptr(), b, t, wk1.data_ptr(),
+             ak1.data_ptr(), b1.data_ptr(), wk2.data_ptr(), a2.data_ptr(),
+             b2.data_ptr(), sx.data_ptr(), y1.data_ptr(), out.data_ptr(),
+             _build.stream())
+    launches += 1
+    _build.check(err, "ttg_conv_block1")
+    return out
