@@ -1,27 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card (an H100).
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
-    python3 chip_smoke.py [--out DIR] [--trace]
+    python3 chip_smoke.py [--out DIR]
 
 Phases, each printing one line:
 
 1. build: compile every kernel of ``texttoaudiogrounding_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print the card's name and
    power limit as ``nvidia-smi`` reports them;
-2. kernels: run each of the four kernels at the flagship's shapes of the
-   largest request (32 clips of 10 s at 32 kHz, one batch bucket) against
+2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
-   stated tolerance, and time both with CUDA events;
+   stated tolerance, and time both with CUDA events: the four serving
+   kernels at the largest request's bucket (32 clips of 10 s at 32 kHz),
+   and the BiGRU recurrence (forward with an f32 and a bf16 carry,
+   backward) at T = 250, 2B = 64, H = 256, beside ``torch.nn.GRU`` (cuDNN)
+   on the same weights as a yardstick and a third opinion;
 3. serving: ``GroundingPredictor`` over the flagship ``BiEncoder`` at full
    width (Cnn8Rnn 64/128/256/512, BiGRU 2x256, vocabulary 5000, embedding
    512, shared 512) with random weights from a numpy seed answers requests
    of several batch sizes and lengths, the largest 32 clips x 10 s; every
    kernel's launch count must rise as each sub-batch's forward requires,
    ``frame_sim`` must be finite in (0, 1] with the reference length
-   arithmetic, and within 0.05 of the port's plain f32 path on the card;
-   the audio embedding of every sub-batch, taken from the very forward
-   that served the request, must lie within 5 % relative RMS of the plain
-   f32 path on the same padded input.
+   arithmetic, and within 0.05 of the port's all-plain f32 path on the
+   card; the audio embedding of every sub-batch, taken from the very
+   forward that served the request, must lie within 5 % relative RMS of
+   the plain path on the same padded input.  A batch-32 request is then
+   timed and profiled on the default path (grouped-loop BiGRU) and with
+   the bf16 GRU kernel opted in, which is checked the same way;
+4. train: ``StrongRunner.fit`` on the strong-supervision config's model
+   (``configs/strong/biencoder_train.yaml``: BiEncoder(Cnn8Rnn f32,
+   EmbeddingAgg(5000, 512), ExpNegL2, shared 512), FrameBceLoss, Adam 1e-3
+   with global-norm clipping at 1.0, plateau LR) at full width, batches of
+   32 clips x 10 s built in memory in ``AudioPhraseDataset``'s item
+   format, 2 epochs of 4 steps with a validation pass each; the GRU
+   kernels' counts must rise by one forward and one backward per train
+   step and one forward per validation step, the checkpoints must exist,
+   the loss must be finite and fall over 8 steps on one fixed batch, and
+   every parameter's gradient must lie within a stated relative RMS of
+   the all-plain path's on the same batch and weights; then train steps
+   are timed with CUDA events and one is profiled.  TF32 is off (full f32
+   convolutions and products) for all of it, as the trainer's default.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -235,6 +253,142 @@ def kernel_phase(clips: int, rng) -> list:
     return out
 
 
+GRU_T, GRU_H, GRU_IN = 250, 256, 512     # the BiGRU at the main path's shapes
+
+
+def gru_kernel_phase(clips: int, rng) -> list:
+    """The GRU kernels against their plain versions at T = 250, 2B = 64,
+    H = 256, beside ``torch.nn.GRU`` on the same weights."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    dev = torch.device(DEVICE)
+    t, b, h, d = GRU_T, clips, GRU_H, GRU_IN
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x = tensor(rng.normal(0, 1, (b, t, d)))
+    w_ih = tensor(rng.normal(0, 1 / np.sqrt(d), (2, 3 * h, d)))
+    w_hh = tensor(rng.normal(0, 1 / np.sqrt(h), (2, 3 * h, h)))
+    b_ih = tensor(rng.normal(0, 0.05, (2, 3 * h)))
+    b_hh = tensor(rng.normal(0, 0.05, (2, 3 * h)))
+    gy = tensor(rng.normal(0, 1, (t, 2 * b, h)))
+    # the port's layout (models/layers.py BiGRU): time-major, direction 1
+    # time-flipped, the r/z recurrent biases folded into the input ones
+    bi = b_ih + torch.cat([b_hh[:, :2 * h], torch.zeros_like(b_hh[:, :h])],
+                          dim=1)
+    xg = torch.stack([x, torch.flip(x, dims=(1,))])
+    proj = (torch.matmul(xg, w_ih.transpose(1, 2)[:, None])
+            + bi[:, None, None]).permute(2, 0, 1, 3).reshape(
+                t, 2 * b, 3 * h).contiguous()
+    wh = w_hh.transpose(1, 2).contiguous()
+    bn = b_hh[:, 2 * h:].contiguous()
+
+    lib = torch.nn.GRU(d, h, bidirectional=True, batch_first=True).to(dev)
+    with torch.no_grad():
+        for i, sfx in enumerate(("", "_reverse")):
+            getattr(lib, f"weight_ih_l0{sfx}").copy_(w_ih[i])
+            getattr(lib, f"weight_hh_l0{sfx}").copy_(w_hh[i])
+            getattr(lib, f"bias_ih_l0{sfx}").copy_(b_ih[i])
+            getattr(lib, f"bias_hh_l0{sfx}").copy_(b_hh[i])
+    lib16 = torch.nn.GRU(d, h, bidirectional=True, batch_first=True).to(
+        dev, torch.bfloat16)
+    lib16.load_state_dict(lib.state_dict())
+    lib.flatten_parameters()
+    lib16.flatten_parameters()
+    x16 = x.to(torch.bfloat16)
+    gy_lib = torch.randn(b, t, 2 * h, device=dev)
+
+    def lib_fwd_bwd():
+        out, _ = lib(x)
+        out.backward(gy_lib)
+
+    def as_batch_first(ys):
+        ys = ys.reshape(t, 2, b, h).permute(1, 2, 0, 3)
+        return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)
+
+    ys = gru.gru_forward(proj, wh, bn)
+    ys_plain = gru.gru_forward_plain(proj, wh, bn)
+    with torch.no_grad():
+        lib_out, _ = lib(x)
+    lib_gap = float((as_batch_first(ys) - lib_out).abs().max())
+    if lib_gap > 1e-3:
+        raise AssertionError(f"gru_fwd: off torch.nn.GRU by {lib_gap}")
+    ys16 = gru.gru_forward(proj, wh, bn, torch.bfloat16)
+    ys16_plain = gru.gru_forward_plain(proj, wh, bn, torch.bfloat16)
+    grads = gru.gru_backward(proj, ys_plain, gy, wh, bn)
+    grads_plain = gru.gru_backward_plain(proj, ys_plain, gy, wh, bn)
+
+    # the per-step launch floor: the same walks at B = 1, H = 4
+    tiny = (torch.zeros(t, 2, 12, device=dev), torch.zeros(2, 4, 12,
+                                                           device=dev),
+            torch.zeros(2, 4, device=dev))
+    tiny_ys = gru.gru_forward(*tiny)
+    floor_fwd = _cuda_ms(lambda: gru.gru_forward(*tiny), 10)
+    floor_bwd = _cuda_ms(lambda: gru.gru_backward(
+        tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:]), 10)
+
+    fwd_bytes = 4 * (proj.numel() + ys.numel() + wh.numel() + bn.numel())
+    fwd_ops = 2.0 * t * 2 * b * h * 3 * h
+    bwd_bytes = 4 * (2 * proj.numel() + 2 * ys.numel() + 2 * wh.numel()
+                     + 2 * bn.numel())
+    lib_fwd_ms = _cuda_ms(lambda: lib(x), 10)
+    lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
+    with torch.no_grad():
+        lib16_ms = _cuda_ms(lambda: lib16(x16), 10)
+    rows = [
+        dict(name="gru_fwd", got=ys, ref=ys_plain, tol=1e-4,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
+             kernel=lambda: gru.gru_forward(proj, wh, bn),
+             plain=lambda: gru.gru_forward_plain(proj, wh, bn),
+             bound=_bound(fwd_bytes, {"f32": fwd_ops}),
+             library_ms=lib_fwd_ms, latency_floor_ms=floor_fwd,
+             library_max_abs_diff=lib_gap),
+        dict(name="gru_bwd", got=torch.cat([g.reshape(-1) for g in grads]),
+             ref=torch.cat([g.reshape(-1) for g in grads_plain]), tol=1e-4,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
+             kernel=lambda: gru.gru_backward(proj, ys_plain, gy, wh, bn),
+             plain=lambda: gru.gru_backward_plain(proj, ys_plain, gy, wh,
+                                                  bn),
+             bound=_bound(bwd_bytes, {"f32": 3 * fwd_ops}),
+             library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+             library_fwd_bwd_ms=lib_fwd_bwd_ms, latency_floor_ms=floor_bwd),
+        dict(name="gru_fwd_bf16", got=ys16, ref=ys16_plain, tol=1e-2,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
+             kernel=lambda: gru.gru_forward(proj, wh, bn, torch.bfloat16),
+             plain=lambda: gru.gru_forward_plain(proj, wh, bn,
+                                                 torch.bfloat16),
+             bound=_bound(fwd_bytes, {"bf16": fwd_ops}),
+             library_ms=lib16_ms, latency_floor_ms=floor_fwd),
+    ]
+    out = []
+    for row in rows:
+        max_abs, rel = _err(row["got"], row["ref"])
+        if rel > row["tol"]:
+            raise AssertionError(f"{row['name']}: kernel disagrees with its "
+                                 f"plain version: rel_rms {rel} > "
+                                 f"{row['tol']} (max_abs {max_abs})")
+        kernel_ms = _cuda_ms(row["kernel"], 10)
+        plain_ms = _cuda_ms(row["plain"], 2)
+        extra = {k: row[k] for k in ("library_fwd_bwd_ms",
+                                     "library_max_abs_diff") if k in row}
+        out.append({
+            "name": row["name"], "route": "cuda",
+            "source": "texttoaudiogrounding_tpu_torch/csrc/gru.cu",
+            "replaces": row["replaces"], "max_abs_err": max_abs,
+            "rel_rms_err": rel, "tolerance": f"rel_rms <= {row['tol']}",
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "latency_floor_ms": row["latency_floor_ms"],
+            "library_ms": row["library_ms"], "library": "torch.nn.GRU "
+            "(cuDNN; includes the input projection)", "T": t,
+            "rows": 2 * b, "H": h, **extra})
+    return out
+
+
 def _embedding_gap(plain, served: list) -> float:
     """Largest relative RMS gap of the served audio embeddings to the plain
     path's on the same inputs; ``served`` holds (input, embedding) pairs
@@ -250,30 +404,24 @@ def _embedding_gap(plain, served: list) -> float:
     return max(gaps)
 
 
-def serving_phase(rng, trace: bool = False) -> dict:
+def serving_phase(rng, tok) -> dict:
     import numpy as np
     import torch
 
     from texttoaudiogrounding_tpu_torch import (
         GroundingPredictor, flagship_model, random_state_dict)
-    from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
-    from texttoaudiogrounding_tpu_torch.data.vocabulary import Vocabulary
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        conv_block, conv_block1_pair, conv_block_pair, logmel)
+        conv_block, conv_block1_pair, conv_block_pair, gru, logmel)
 
     counters = {"logmel": logmel, "conv_block1_pair": conv_block1_pair,
                 "conv_block_pair": conv_block_pair, "conv_block": conv_block}
     per_forward = {"logmel": 1, "conv_block1_pair": 1, "conv_block_pair": 1,
                    "conv_block": 2}
 
-    vocab = Vocabulary()
-    for word in ["<pad>", "<unk>"] + [f"w{i}" for i in range(2, 5000)]:
-        vocab.add_word(word)
-    tok = DictTokenizer(vocab)
     model = flagship_model(serving=True, device=DEVICE)
     sd = random_state_dict(model, seed=0)
     model.load_state_dict(sd)
-    plain = flagship_model(serving=False, device=DEVICE)
+    plain = flagship_model(serving=False, device=DEVICE, gru_kernel=False)
     plain.load_state_dict(sd)
     pred = GroundingPredictor(model, tok)
     pred_plain = GroundingPredictor(plain, tok)
@@ -342,36 +490,264 @@ def serving_phase(rng, trace: bool = False) -> dict:
     hook.remove()
     served.clear()
 
-    # steady-state throughput of the largest request
+    # the bf16 GRU kernel opted in (JAX: TTG_PALLAS_GRU=1), held to the
+    # plain path on the largest request as the default path is
     label, lens = requests[-1]
     audio = (rng.normal(0, 0.1, (len(lens), n))).astype(np.float32)
-    text = ["w2 w3 w4"] * len(lens)
-    pred.predict(audio, lens, text)
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pred.predict(audio, lens, text)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    secs = float(np.median(times))
-    out = {"requests": results, "launches": totals,
-           "clips_per_s": len(lens) / secs, "request_s": secs,
-           "request_s_all": times, "largest": label}
-    if trace:
-        out["trace"] = _trace(lambda: pred.predict(audio, lens, text),
-                              secs * 1e3)
+    text = [" ".join(f"w{int(v)}" for v in rng.integers(2, 5000, 3))
+            for _ in lens]
+    model_gk = flagship_model(serving=True, device=DEVICE, gru_kernel=True)
+    model_gk.load_state_dict(sd)
+    pred_gk = GroundingPredictor(model_gk, tok)
+    hook = model_gk.audio_encoder.register_forward_hook(
+        lambda mod, args, out: served.append((args[0], out["embedding"])))
+    gru.launches["gru_fwd_bf16"] = 0
+    probs = pred_gk.predict(audio, lens, text)
+    torch.cuda.synchronize()
+    gru_launches = gru.launches["gru_fwd_bf16"]
+    hook.remove()
+    if gru_launches != len(pred_gk._chunk_plan(len(lens))):
+        raise AssertionError(f"bf16 GRU kernel launched {gru_launches} "
+                             "times for one request")
+    delta = float(np.max(np.abs(probs - pred_plain.predict(audio, lens,
+                                                           text))))
+    emb_rel = _embedding_gap(plain, served)
+    served.clear()
+    if delta >= 0.05 or emb_rel >= 0.05:
+        raise AssertionError(f"bf16 GRU kernel path: |frame_sim - plain| "
+                             f"{delta}, embedding {emb_rel} (limits 0.05)")
+
+    # steady-state throughput of the largest request, both ways
+    paths = {}
+    for name, p in (("default", pred), ("gru_kernel", pred_gk)):
+        p.predict(audio, lens, text)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.predict(audio, lens, text)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        secs = float(np.median(times))
+        paths[name] = {"clips_per_s": len(lens) / secs, "request_s": secs,
+                       "request_s_all": times,
+                       "trace": _trace(lambda p=p: p.predict(audio, lens,
+                                                             text),
+                                       secs * 1e3)}
+    paths["gru_kernel"].update(max_abs_vs_plain_f32=delta,
+                               embedding_rel_rms_vs_plain_f32=emb_rel)
+    return {"requests": results, "launches": totals,
+            "gru_fwd_bf16_launches": gru_launches,
+            "clips_per_s": paths["default"]["clips_per_s"],
+            "largest": label, "paths": paths}
+
+
+TRAIN_CLIPS, TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 32, 2, 4, 2
+_TONES = (400.0, 800.0, 1600.0, 3000.0, 240.0, 5000.0, 1200.0, 2200.0)
+
+
+def _strong_config(exp_dir: str) -> dict:
+    """``configs/strong/biencoder_train.yaml``'s model, loss, optimizer and
+    trainer, with the epochs cut to ``TRAIN_EPOCHS`` of ``TRAIN_STEPS``."""
+    return {
+        "experiment_path": exp_dir, "seed": 1,
+        "model": {"type": "BiEncoder",
+                  "args": {"shared_dim": 512, "add_proj": True},
+                  "audio_encoder": {"type": "Cnn8Rnn",
+                                    "args": {"sample_rate": SR}},
+                  "text_encoder": {"type": "EmbeddingAgg",
+                                   "args": {"vocab_size": 5000,
+                                            "embed_dim": 512,
+                                            "aggregation": "mean"}},
+                  "match_fn": {"type": "ExpNegL2", "args": {}}},
+        "loss": {"type": "FrameBceLoss", "args": {}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "factor": 0.1,
+                                  "patience": 3}},
+        "trainer": {"epochs": TRAIN_EPOCHS, "epoch_length": TRAIN_STEPS,
+                    "early_stop": 10, "save_interval": 1,
+                    "max_grad_norm": 1.0,
+                    "metric_monitor": {"mode": "min", "name": "loss"},
+                    "include_optim_in_ckpt": True},
+    }
+
+
+def _clip_items(count: int, seed: int):
+    """A dataset of ``AudioPhraseDataset`` items made in memory: 10 s of
+    noise with a tone over one labelled segment, the phrase naming the
+    tone, the waveform stored in float16 as the packed HDF5 files are."""
+    import numpy as np
+    from torch.utils.data import Dataset
+
+    from texttoaudiogrounding_tpu_torch.data.datasets import frame_labels
+
+    class Items(Dataset):
+        def __len__(self):
+            return count
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng((seed, i))
+            n = SR * CLIP_S
+            wav = rng.normal(0, 0.01, n).astype(np.float32)
+            k = int(rng.integers(len(_TONES)))
+            on = float(rng.uniform(0.05, 0.7)) * CLIP_S
+            off = on + float(rng.uniform(0.05, 0.25)) * CLIP_S
+            idx = np.arange(int(on * SR), int(off * SR))
+            wav[idx] += 0.3 * np.sin(2 * np.pi * _TONES[k] * idx / SR)
+            return {"audio_id": f"clip{i}", "audiocap_id": i,
+                    "start_index": 0, "end_index": 1,
+                    "waveform": wav.astype(np.float16),
+                    "phrase": f"w{2 + k} w{20 + k}",
+                    "caption": f"w{2 + k} w{20 + k}",
+                    "label": frame_labels(n, [[on, off]], SR, 0.04)}
+
+    return Items()
+
+
+def _grad_gaps(model, ref_model, batch, output_transform, loss_fn) -> dict:
+    """Relative RMS of each parameter's gradient to ``ref_model``'s, both
+    in train mode on ``batch`` from the same weights."""
+    import torch
+    grads = []
+    for m in (model, ref_model):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss_fn(output_transform(m(batch), batch)).backward()
+        grads.append({n: p.grad.double() for n, p in m.named_parameters()})
+    out = {}
+    for name, ref in grads[1].items():
+        d = grads[0][name] - ref
+        out[name] = float(torch.sqrt((d ** 2).mean()
+                                     / (ref ** 2).mean().clamp_min(1e-30)))
     return out
 
 
+def training_phase(tok) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.data.collate import TextCollate
+    from texttoaudiogrounding_tpu_torch.data.loader import (
+        build_loader, to_device)
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner, strong_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    collate = TextCollate(tok, text_key="phrase",
+                          pad_keys=["waveform", "label"],
+                          pad_buckets={"waveform": 32000, "label": 100},
+                          text_bucket=4)
+    train_items = _clip_items(TRAIN_CLIPS * TRAIN_STEPS * TRAIN_EPOCHS, 1)
+    val_items = _clip_items(TRAIN_CLIPS * VAL_STEPS, 2)
+    report: dict = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
+                    "tf32": False}
+    with tempfile.TemporaryDirectory(prefix="ttg_train_") as tmp:
+        runner = StrongRunner(device=DEVICE)
+        config = runner.setup(_strong_config(tmp))
+        exp_dir = runner.prepare_experiment()
+        train_loader = build_loader(train_items, collate, config["seed"],
+                                    batch_size=TRAIN_CLIPS, shuffle=True,
+                                    drop_last=True)
+        val_loader = build_loader(val_items, collate, config["seed"],
+                                  batch_size=TRAIN_CLIPS)
+        model = runner.build_model()
+        sd = random_state_dict(model, seed=1)
+        model.load_state_dict(sd)
+        loss_fn = runner.build_loss()
+
+        for k in gru.launches:
+            gru.launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = runner.fit(model, loss_fn, train_loader, val_loader,
+                            strong_output_transform, exp_dir)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(gru.launches)
+        steps = TRAIN_EPOCHS * TRAIN_STEPS
+        want = {"gru_fwd": steps + TRAIN_EPOCHS * VAL_STEPS,
+                "gru_bwd": steps, "gru_fwd_bf16": 0}
+        if launches != want:
+            raise AssertionError(f"fit: GRU launches {launches}, expected "
+                                 f"{want}")
+        if not all(np.isfinite(record["step_loss"] + record["val_loss"])):
+            raise AssertionError(f"fit: loss not finite {record}")
+        for name in ("best.pth", "last.pth", "train.log"):
+            if not (exp_dir / name).is_file():
+                raise AssertionError(f"fit: {name} not written")
+        report.update(fit_s=fit_s, fit_launches=launches,
+                      fit_step_loss=record["step_loss"],
+                      fit_val_loss=record["val_loss"])
+
+    # gradients: kernel path against the all-plain path, dropout off
+    batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
+    plain_cfg = _strong_config("")["model"]
+    plain_cfg["audio_encoder"]["args"].update(gru_kernel=False,
+                                              dropout=[0.0, 0.0])
+    ref_model = instantiate(plain_cfg, device=DEVICE)
+    ref_model.load_state_dict(sd)
+    model.load_state_dict(sd)
+    model.audio_encoder.dropout = (0.0, 0.0)
+    gaps = _grad_gaps(model, ref_model, batch, strong_output_transform,
+                      loss_fn)
+    trunk = {n: g for n, g in gaps.items()
+             if "conv_block" in n or "bn0" in n}
+    rest = {n: g for n, g in gaps.items() if n not in trunk}
+    worst_trunk, worst_rest = max(trunk.values()), max(rest.values())
+    if worst_trunk > 2e-2 or worst_rest > 1e-4:
+        raise AssertionError(
+            f"gradients off the plain path: trunk {worst_trunk}, rest "
+            f"{worst_rest} (limits 2e-2, 1e-4): "
+            f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:6]}")
+    del ref_model
+    model.audio_encoder.dropout = (0.2, 0.5)
+
+    # the loss falls over 8 steps on one fixed batch
+    model.load_state_dict(sd)
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = [float(runner.train_step(model, loss_fn, opt, batch,
+                                      strong_output_transform))
+              for _ in range(8)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"loss on a fixed batch does not fall: {losses}")
+
+    # step time on the card, TF32 off (the trainer's default), then on
+    def step():
+        runner.train_step(model, loss_fn, opt, batch,
+                          strong_output_transform)
+
+    step_ms = _cuda_ms(step, 5)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    step_ms_tf32 = _cuda_ms(step, 5)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report.update(
+        grad_rel_rms_trunk_max=worst_trunk, grad_rel_rms_rest_max=worst_rest,
+        fixed_batch_loss=losses, step_ms=step_ms,
+        steps_per_s=1e3 / step_ms, clips_per_s=TRAIN_CLIPS * 1e3 / step_ms,
+        step_ms_tf32=step_ms_tf32, trace=_trace(step, step_ms))
+    return report
+
+
 _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
-                 "conv1_kernel", "clip_scale_kernel")
+                 "conv1_kernel", "clip_scale_kernel", "gru_fwd_step",
+                 "gru_bwd_step")
+_CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
 def _trace(fn, request_ms: float) -> dict:
-    """Device time by kernel name over one profiled request, and the
-    device's idle share of the untraced request time ``request_ms``
-    (kernels run on one stream, so their times add up)."""
+    """Device time by kernel name over one profiled call of ``fn``, and the
+    device's idle share of the untraced time ``request_ms`` (kernels run
+    on one stream, so their times add up).  ``gru_ms`` sums the port's
+    GRU kernels, ``conv_ms`` the device time under PyTorch's convolution
+    operators, forward and backward (the plain path's convolutions)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -381,7 +757,13 @@ def _trace(fn, request_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
     kernels = {}
+    conv_ms = 0.0
     for evt in prof.key_averages():
+        if evt.key in _CONV_OPS:
+            total = getattr(evt, "device_time_total", None)
+            if total is None:
+                total = evt.cuda_time_total
+            conv_ms += total / 1e3
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -392,10 +774,11 @@ def _trace(fn, request_ms: float) -> dict:
     busy = sum(ms for ms, _ in kernels.values())
     port = sum(ms for k, (ms, _) in kernels.items()
                if any(p in k for p in _PORT_KERNELS))
+    gru_ms = sum(ms for k, (ms, _) in kernels.items() if "gru_" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"request_ms": request_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / request_ms,
-            "port_kernels_ms": port,
+            "port_kernels_ms": port, "gru_ms": gru_ms, "conv_ms": conv_ms,
             "launches": sum(c for _, c in kernels.values()),
             "top": [{"kernel": k[:90], "ms": ms, "count": c}
                     for k, (ms, c) in top]}
@@ -405,9 +788,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for a JSON report and the build logs")
-    ap.add_argument("--trace", action="store_true",
-                    help="profile one largest request (device time by "
-                         "kernel, idle share) into the report")
     args = ap.parse_args()
 
     import numpy as np
@@ -426,6 +806,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
+    from texttoaudiogrounding_tpu_torch.data.vocabulary import Vocabulary
     from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
     smi = subprocess.run(
@@ -438,21 +820,45 @@ def main() -> int:
                       "card": smi}), flush=True)
     report = {"card": smi, "build_s": build_s}
     rng = np.random.default_rng(0)
-    kernels = kernel_phase(KERNEL_CLIPS, rng)
+    kernels = (kernel_phase(KERNEL_CLIPS, rng)
+               + gru_kernel_phase(KERNEL_CLIPS, rng))
     print(json.dumps({"phase": "kernels", "card": smi, "kernels": [
         {k: row[k] for k in ("name", "max_abs_err", "rel_rms_err",
                              "tolerance", "kernel_ms", "plain_ms")}
         for row in kernels]}), flush=True)
-    serving = serving_phase(rng, args.trace)
+
+    vocab = Vocabulary()
+    for word in ["<pad>", "<unk>"] + [f"w{i}" for i in range(2, 5000)]:
+        vocab.add_word(word)
+    tok = DictTokenizer(vocab)
+    serving = serving_phase(rng, tok)
     report["serving"] = serving
     print(json.dumps({"phase": "serving", "card": smi,
                       "clips_per_s": serving["clips_per_s"],
                       "largest": serving["largest"],
-                      "requests": serving["requests"]}), flush=True)
-    if "trace" in serving:
-        print(json.dumps({"phase": "trace", **serving["trace"]}), flush=True)
+                      "requests": serving["requests"],
+                      "paths": {k: {"clips_per_s": v["clips_per_s"],
+                                    "launches": v["trace"]["launches"],
+                                    "device_idle_share":
+                                        v["trace"]["device_idle_share"]}
+                                for k, v in serving["paths"].items()}}),
+          flush=True)
+    train = training_phase(tok)
+    report["train"] = train
+    print(json.dumps({"phase": "train", "card": smi, **{
+        k: train[k] for k in ("steps_per_s", "clips_per_s", "step_ms",
+                              "step_ms_tf32", "tf32", "fit_launches",
+                              "fixed_batch_loss", "grad_rel_rms_trunk_max",
+                              "grad_rel_rms_rest_max")},
+        "gru_ms": train["trace"]["gru_ms"],
+        "conv_ms": train["trace"]["conv_ms"],
+        "device_idle_share": train["trace"]["device_idle_share"]}),
+        flush=True)
+
+    launches = {**serving["launches"], **train["fit_launches"],
+                "gru_fwd_bf16": serving["gru_fwd_bf16_launches"]}
     for row in kernels:
-        row["launches"] = serving["launches"][row["name"]]
+        row["launches"] = launches[row["name"]]
     report["kernels"] = kernels
     if args.out:
         out = Path(args.out)

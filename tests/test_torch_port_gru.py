@@ -1,0 +1,122 @@
+"""The port's BiGRU recurrence against the JAX package's Pallas GRU.
+
+``texttoaudiogrounding_tpu_torch/ops/kernels/gru.py`` holds the plain
+PyTorch versions of the forward and backward kernels (``csrc/gru.cu``);
+for CPU tensors the wrappers run them.  The same inputs, made with numpy
+from a seed, go through the JAX kernels in interpret mode and the port:
+
+* f32 forward and the backward (``dproj``, ``dwh``, ``dbn``) against
+  ``bigru_pallas_trainable(..., interpret=True)`` and its ``jax.grad``:
+  rtol 2e-4, atol 2e-5 (``tests/test_pallas_gru.py``'s tolerance);
+* the bf16-carry forward against ``bigru_pallas(dtype=bf16)``: rtol 1e-5,
+  atol 1e-5 (same bf16 roundings, f32 sums in another order);
+* the port's ``autograd.Function`` against torch autograd through the
+  plain forward: rtol 1e-5, atol 1e-6;
+* the ``BiGRU`` module through the kernel path against its grouped loop.
+The kernels themselves run only on a CUDA card; ``chip_smoke.py`` holds
+them against these plain versions there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from texttoaudiogrounding_tpu.ops.pallas.gru import (
+    bigru_pallas,
+    bigru_pallas_trainable,
+)
+from texttoaudiogrounding_tpu_torch.models.layers import BiGRU
+from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+T, B, H = 10, 3, 8
+
+
+def _case(seed):
+    rng = np.random.default_rng(seed)
+    proj = (rng.normal(size=(T, 2 * B, 3 * H)) * 0.5).astype(np.float32)
+    wh = (rng.normal(size=(2, H, 3 * H)) * 0.4).astype(np.float32)
+    bn = (rng.normal(size=(2, H)) * 0.2).astype(np.float32)
+    gy = rng.normal(size=(T, 2 * B, H)).astype(np.float32)
+    return proj, wh, bn, gy
+
+
+def test_forward_and_backward_match_the_jax_kernel():
+    proj, wh, bn, gy = _case(5)
+
+    def loss(p, w, c):
+        return jnp.sum(bigru_pallas_trainable(p, w, c, interpret=True) * gy)
+
+    ref_ys = bigru_pallas_trainable(jnp.asarray(proj), jnp.asarray(wh),
+                                    jnp.asarray(bn), interpret=True)
+    ref_grads = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(proj), jnp.asarray(wh), jnp.asarray(bn))
+
+    tp, tw, tb, tg = (torch.from_numpy(a) for a in (proj, wh, bn, gy))
+    ys = gru.gru_forward(tp, tw, tb)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ref_ys),
+                               rtol=2e-4, atol=2e-5)
+    grads = gru.gru_backward(tp, ys, tg, tw, tb)
+    for name, got, ref in zip(("dproj", "dwh", "dbn"), grads, ref_grads):
+        assert got.shape == ref.shape, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_bf16_carry_forward_matches_the_jax_kernel():
+    proj, wh, bn, _ = _case(7)
+    ref = bigru_pallas(jnp.asarray(proj), jnp.asarray(wh), jnp.asarray(bn),
+                       dtype=jnp.bfloat16, interpret=True)
+    got = gru.gru_forward(torch.from_numpy(proj), torch.from_numpy(wh),
+                          torch.from_numpy(bn), torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    f32 = gru.gru_forward(torch.from_numpy(proj), torch.from_numpy(wh),
+                          torch.from_numpy(bn))
+    assert float((got - f32).abs().max()) > 1e-4   # the carry is bf16
+
+
+def test_autograd_function_matches_autograd_of_the_plain_forward():
+    proj, wh, bn, gy = _case(9)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (proj, wh, bn)]
+    (gru.bigru_trainable(*leaves) * torch.from_numpy(gy)).sum().backward()
+    got = [x.grad.clone() for x in leaves]
+    for x in leaves:
+        x.grad = None
+    (gru.gru_forward_plain(*leaves) * torch.from_numpy(gy)).sum().backward()
+    for name, g, x in zip(("proj", "wh", "bn"), got, leaves):
+        np.testing.assert_allclose(g.numpy(), x.grad.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bigru_kernel_path_matches_the_grouped_loop(dtype):
+    rng = np.random.default_rng(3)
+    loop = BiGRU(12, H, dtype=dtype, kernel=False)
+    sd = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)
+                              * 0.3) for k, v in loop.state_dict().items()}
+    loop.load_state_dict(sd)
+    kern = BiGRU(12, H, dtype=dtype)
+    kern.load_state_dict(sd)
+    assert kern.kernel == (dtype == torch.float32)
+    kern.kernel = True
+    x = torch.from_numpy(rng.normal(size=(B, T, 12)).astype(np.float32))
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya, yb = loop(xa), kern(xb)
+    np.testing.assert_allclose(yb.detach().numpy(), ya.detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    if dtype == torch.bfloat16:
+        return
+    g = torch.from_numpy(rng.normal(size=ya.shape).astype(np.float32))
+    (ya * g).sum().backward()
+    (yb * g).sum().backward()
+    np.testing.assert_allclose(xb.grad.numpy(), xa.grad.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    for (name, pa), pb in zip(loop.named_parameters(), kern.parameters()):
+        np.testing.assert_allclose(pb.grad.numpy(), pa.grad.numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    # the r/z recurrent biases are folded in detached: no gradient
+    assert not kern.bias_hh_l0.grad[:2 * H].any()
+    assert kern.bias_hh_l0.grad[2 * H:].any()

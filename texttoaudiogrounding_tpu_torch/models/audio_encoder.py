@@ -10,10 +10,19 @@ The JAX package picks the serving kernels with environment variables
 (``TTG_FUSED_CONV``, ``TTG_B1_QUANT``); here the constructor says it:
 ``Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8")`` is the flagship int8
 serving path (log-mel kernel, the three conv-block kernels, bf16 BiGRU),
-``Cnn8Rnn()`` the plain f32 reference.  The bf16 cast points of the JAX
-serving path are kept: the log-mel kernel's output and bn0 in f32, a bf16
-cast before block 1, the mel mean of the bf16 block-4 output in bf16
-feeding the f32 ``fc1``, and the BiGRU with bf16 operands and carry.
+``Cnn8Rnn()`` the f32 path, whose BiGRU runs through the GRU kernels
+(``gru_kernel=False`` keeps it on the plain loop).  The bf16 cast points
+of the JAX serving path are kept: the log-mel kernel's output and bn0 in
+f32, a bf16 cast before block 1, the mel mean of the bf16 block-4 output
+in bf16 feeding the f32 ``fc1``, and the BiGRU with bf16 operands and
+carry.
+
+In train mode (the f32 path only, ``audio_encoder.py:85-144``) bn0 and the
+blocks' BatchNorms use batch statistics, ``Dropout(0.2)`` follows each
+block and ``Dropout(0.5)`` the mel mean, with masks drawn from the
+module's own ``torch.Generator`` (seeded, when first used, from the
+torch seed: the trainer's config seed), and the BiGRU is f32.
+Spec-augment and mixup are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     BiGRU,
     ConvBlock,
     batch_norm_eval,
+    batch_norm_train,
 )
 from texttoaudiogrounding_tpu_torch.ops.frontend import (
     cnn8rnn_mel_config,
@@ -39,6 +49,16 @@ _BLOCKS = ((1, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (1, 2)),
            (256, 512, (1, 2)))
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - p``, scale kept
+    values by ``1 / (1 - p)``; the mask comes from ``generator``."""
+    if p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
 class Cnn8Rnn(nn.Module):
     downsample_ratio = 4
     time_resolution = 0.04
@@ -46,7 +66,9 @@ class Cnn8Rnn(nn.Module):
 
     def __init__(self, sample_rate: int = 32000,
                  dtype: torch.dtype = torch.float32,
-                 conv_mode: str | None = None):
+                 conv_mode: str | None = None,
+                 gru_kernel: bool | None = None,
+                 dropout: tuple = (0.2, 0.5)):
         super().__init__()
         if (dtype == torch.float32) != (conv_mode is None):
             raise ValueError("use dtype=float32 with conv_mode=None (the "
@@ -56,25 +78,41 @@ class Cnn8Rnn(nn.Module):
         self.dtype = dtype
         self.conv_mode = conv_mode
         self.mel_config = cnn8rnn_mel_config(sample_rate)
+        self.dropout = tuple(dropout)            # (after blocks, after mean)
+        self._generator = None
         self.bn0 = nn.BatchNorm1d(64)
         for i, (cin, cout, _) in enumerate(_BLOCKS, start=1):
             setattr(self, f"conv_block{i}", ConvBlock(cin, cout, conv_mode))
         self.fc1 = nn.Linear(512, 512)
-        self.rnn = BiGRU(512, 256, dtype=dtype)
+        self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel)
+
+    def _dropout_generator(self, device: torch.device) -> torch.Generator:
+        if self._generator is None or self._generator.device != device:
+            self._generator = torch.Generator(device=device)
+            self._generator.manual_seed(torch.initial_seed())
+        return self._generator
 
     def forward(self, input_dict: dict) -> dict:
         waveform = input_dict["waveform"]
         cfg = self.mel_config
+        train = self.training
+        if train and self.conv_mode is not None:
+            raise ValueError("training runs the plain path: conv_mode=None")
         if self.conv_mode is None:
             x = log_mel_spectrogram(waveform, cfg)          # [B, T, 64]
         else:
             x = fused_log_mel_spectrogram(waveform, cfg)
-        x = batch_norm_eval(x, self.bn0)                    # f32, per mel
+        # bn0 over the mel axis: f32, per mel
+        x = (batch_norm_train if train else batch_norm_eval)(x, self.bn0)
         x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
+        gen = self._dropout_generator(x.device) if train else None
+        p_block, p_mean = self.dropout if train else (0.0, 0.0)
         for i, (_, _, pool) in enumerate(_BLOCKS, start=1):
-            x = getattr(self, f"conv_block{i}")(x, pool)
+            x = dropout(getattr(self, f"conv_block{i}")(x, pool), p_block,
+                        gen)
         # mean over mel in the blocks' dtype (f32 sum, as jnp.mean)
         x = x.float().mean(dim=2).to(self.dtype)            # [B, T/4, 512]
+        x = dropout(x, p_mean, gen)
         x = torch.relu(F.linear(x.float(), self.fc1.weight, self.fc1.bias))
         x = self.rnn(x)
         length = input_dict["waveform_len"] // cfg.hop_length + 1

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair
+from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair, gru
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     fold_bn,
     fused_double_conv_pool,
@@ -36,6 +36,22 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     return (x - bn.running_mean) * mul + bn.bias
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
+                     ) -> torch.Tensor:
+    """Batch-statistics BN over the last axis, in flax's arithmetic
+    (``layers.py:265``): ``var = mean(x²) - mean(x)²`` (biased, clipped at
+    0), and the running statistics move to ``0.9 · running + 0.1 · batch``
+    (``nn.BatchNorm2d`` would keep the unbiased variance)."""
+    dims = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=dims)
+    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
+        bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean) * mul + bn.bias
 
 
 class ConvBlock(nn.Module):
@@ -96,17 +112,20 @@ class ConvBlock(nn.Module):
         return self._kept[1]
 
     def _plain(self, x: torch.Tensor, pool_size) -> torch.Tensor:
+        norm = batch_norm_train if self.training else batch_norm_eval
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
             y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, padding=1)
-            x = torch.relu(batch_norm_eval(y.permute(0, 2, 3, 1), bn))
+            x = torch.relu(norm(y.permute(0, 2, 3, 1), bn))
         y = x.permute(0, 3, 1, 2)
         y = F.avg_pool2d(y, pool_size) + F.max_pool2d(y, pool_size)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, pool_size=(2, 2)) -> torch.Tensor:
-        """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``."""
-        if self.training:
-            raise NotImplementedError("training is not ported yet")
+        """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``.  In
+        train mode the block runs the plain path with batch statistics (the
+        JAX package runs its train-mode blocks in XLA, without kernels)."""
+        if self.training and self.conv_mode is not None:
+            raise ValueError("train mode runs the plain path: conv_mode=None")
         if self.conv_mode is None:
             return self._plain(x, tuple(pool_size))
         quantize = self.conv_mode == "int8"
@@ -132,17 +151,31 @@ class BiGRU(nn.Module):
     Like the JAX module it runs without packing: the backward direction
     reads the flipped padded input, so padded frames enter its recurrence
     first (``nn.GRU`` over packed sequences would give another result for
-    every clip shorter than its bucket).  Both directions step together
-    (a grouped recurrent product per step).  ``dtype`` is the operand type
+    every clip shorter than its bucket).  ``dtype`` is the operand type
     of the input projection and the recurrent product and of the carry;
     gates and outputs are f32 (``layers.py:452-459``, ``:528-538``).
+
+    ``kernel`` takes the place of the JAX package's ``TTG_PALLAS_GRU``: the
+    recurrence runs through ``ops/kernels/gru.py`` (on the card, the
+    hand-written kernels; f32 with its backward kernel, bf16 forward only)
+    instead of the grouped loop, in which both directions step together
+    (one grouped recurrent product per step).  ``None`` follows the JAX
+    default: the kernel for f32 (training), the loop for bf16 (serving).
+    The input projection stays one ``torch.matmul`` either way.
+
+    The parameters keep ``nn.GRU``'s names.  The JAX tree has no r/z
+    recurrent biases, so ``bias_hh_l0[:2H]`` folds into the input bias
+    detached: it gets no gradient, and stays where it was (zero for weights
+    from the JAX package) under the optimizer.
     """
 
     def __init__(self, input_size: int, hidden: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 kernel: bool | None = None):
         super().__init__()
         self.hidden = hidden
         self.dtype = dtype
+        self.kernel = dtype == torch.float32 if kernel is None else kernel
         h3 = 3 * hidden
         for sfx in ("", "_reverse"):
             self.register_parameter(
@@ -158,10 +191,8 @@ class BiGRU(nn.Module):
     def _direction(self, sfx: str) -> tuple:
         h = self.hidden
         b_hh = getattr(self, f"bias_hh_l0{sfx}")
-        # the r/z recurrent biases fold into the input biases (the JAX
-        # parameter tree keeps only the n one on the recurrent side)
         bi = getattr(self, f"bias_ih_l0{sfx}") + torch.cat(
-            [b_hh[:2 * h], torch.zeros_like(b_hh[2 * h:])])
+            [b_hh[:2 * h].detach(), torch.zeros_like(b_hh[2 * h:])])
         return (getattr(self, f"weight_ih_l0{sfx}").t(), bi,
                 getattr(self, f"weight_hh_l0{sfx}").t(), b_hh[2 * h:])
 
@@ -172,14 +203,25 @@ class BiGRU(nn.Module):
             self._direction(""), self._direction("_reverse"))
         # operands rounded to ``dtype``, products accumulated in f32
         wi = torch.stack([wi0, wi1]).to(dt).float()         # [2, In, 3H]
-        wh = torch.stack([wh0, wh1]).to(dt).float()         # [2, H, 3H]
         bi = torch.stack([bi0, bi1])                        # [2, 3H]
-        bn = torch.stack([bn0, bn1])[:, None]               # [2, 1, H]
         xg = torch.stack([x, torch.flip(x, dims=(1,))]).to(dt).float()
         proj = torch.matmul(xg, wi[:, None]) + bi[:, None, None]
-        hid = torch.zeros(2, x.shape[0], h, dtype=dt, device=x.device)
+        bsz, tlen = x.shape[0], x.shape[1]
+        if self.kernel:
+            wh = torch.stack([wh0, wh1])                    # [2, H, 3H]
+            bn = torch.stack([bn0, bn1])                    # [2, H]
+            tproj = proj.permute(2, 0, 1, 3).reshape(tlen, 2 * bsz, 3 * h)
+            if dt == torch.float32:
+                ys = gru.bigru_trainable(tproj, wh, bn)
+            else:
+                ys = gru.gru_forward(tproj, wh, bn, dt)
+            ys = ys.reshape(tlen, 2, bsz, h).permute(1, 2, 0, 3)
+            return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)
+        wh = torch.stack([wh0, wh1]).to(dt).float()         # [2, H, 3H]
+        bn = torch.stack([bn0, bn1])[:, None]               # [2, 1, H]
+        hid = torch.zeros(2, bsz, h, dtype=dt, device=x.device)
         ys = []
-        for t in range(x.shape[1]):
+        for t in range(tlen):
             pp = proj[:, :, t]
             rzn = torch.bmm(hid.float(), wh)
             r = torch.sigmoid(pp[..., :h] + rzn[..., :h])

@@ -1,7 +1,7 @@
-"""Scaled sigmoid dot-product match: per-frame similarity in (0, 1].
+"""Frame-vs-text match functions: per-frame similarity in (0, 1].
 
-Port of ``texttoaudiogrounding_tpu/models/match.py:73-111`` (reference
-models/match.py:36-60).
+Ports of ``texttoaudiogrounding_tpu/models/match.py:32-72`` (``ExpNegL2``)
+and ``:73-111`` (``DotProduct``; reference models/match.py:10-60).
 """
 
 from __future__ import annotations
@@ -19,6 +19,24 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(norm, min=_EPS)
 
 
+def _text(text, text_level: str) -> torch.Tensor:
+    if isinstance(text, dict):
+        return text["seq_emb" if text_level == "seq" else "token_emb"]
+    return text
+
+
+class ExpNegL2(nn.Module):
+    """``exp(-sqrt(Σ (a - t)² + 1e-12))`` on L2-normalized inputs (the JAX
+    default, ``l2norm=True``): ``audio [P, T, D]`` × the sequence-level
+    text ``[P, D]`` → ``[P, T]``."""
+
+    def forward(self, audio: torch.Tensor, text) -> torch.Tensor:
+        audio = l2_normalize(audio)
+        text = l2_normalize(_text(text, "seq"))[:, None, :]
+        diff = audio - text
+        return torch.exp(-torch.sqrt(torch.sum(diff * diff, dim=-1) + _EPS))
+
+
 class DotProduct(nn.Module):
     def __init__(self, l2norm: bool = False, scale: bool = True,
                  text_level: str = "seq"):
@@ -30,9 +48,7 @@ class DotProduct(nn.Module):
     def logits(self, audio: torch.Tensor, text) -> torch.Tensor:
         """``audio [P, T, D]`` × ``text [P, D]`` (or a text dict) → the
         pre-sigmoid scores ``[P, T]``."""
-        if isinstance(text, dict):
-            text = text["seq_emb" if self.text_level == "seq"
-                        else "token_emb"]
+        text = _text(text, self.text_level)
         if self.l2norm:
             audio = l2_normalize(audio)
             text = l2_normalize(text)

@@ -1,0 +1,212 @@
+"""Bidirectional GRU recurrence, forward and backward: ``csrc/gru.cu``.
+
+Port of ``texttoaudiogrounding_tpu/ops/pallas/gru.py``: ``:62
+bigru_pallas`` (the forward, with an f32 or a bf16 carry), ``:199
+_bigru_bwd`` (its reversed-walk backward) and ``:608
+bigru_pallas_trainable`` (the two joined as a custom VJP, here
+:class:`BiGRUFunction`).
+
+Contract: time-major ``proj [T, 2B, 3H]`` f32 (the hoisted input
+projections plus biases; direction-0 rows, then direction-1 rows already
+time-flipped), ``wh [2, H, 3H]``, ``bn [2, H]`` → ``ys [T, 2B, H]`` f32.
+
+Each wrapper launches the kernel for CUDA tensors and runs the plain
+PyTorch version of the same arithmetic for CPU tensors; ``launches``
+counts the kernel launches by wrapper (one call of the C entry point runs
+the whole walk, one CUDA launch per step).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from texttoaudiogrounding_tpu_torch.ops.kernels import _build
+
+# kernel launches through gru_forward (by carry type) and gru_backward
+launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0}
+
+_SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
+_JT = 4               # hidden units per block (csrc/gru.cu)
+
+
+def _dims(proj: torch.Tensor) -> tuple:
+    t, b2, h3 = proj.shape
+    return t, b2 // 2, h3 // 3
+
+
+def gru_forward_plain(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The forward recurrence in plain PyTorch.  ``dtype`` is the carry's
+    and the recurrent product's operand type; products accumulate in f32,
+    gates and outputs are f32 (``gru.py:33-56``)."""
+    t, b, h = _dims(proj)
+    whd = wh.to(dtype).float()                          # [2, H, 3H]
+    bnb = bn.float()[:, None]                           # [2, 1, H]
+    hid = torch.zeros(2, b, h, dtype=dtype, device=proj.device)
+    ys = []
+    for step in range(t):
+        pp = proj[step].float().reshape(2, b, 3 * h)
+        rzn = torch.bmm(hid.float(), whd)
+        r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
+        z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
+        n = torch.tanh(pp[..., 2 * h:] + r * (rzn[..., 2 * h:] + bnb))
+        out = (1 - z) * n + z * hid.float()
+        ys.append(out.reshape(2 * b, h))
+        hid = out.to(dtype)
+    return torch.stack(ys)
+
+
+def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
+                       gy: torch.Tensor, wh: torch.Tensor,
+                       bn: torch.Tensor) -> tuple:
+    """The reversed walk in plain PyTorch, as ``_bwd_kernel``
+    (``gru.py:113-190``): the gates are recomputed from ``ysp`` (the
+    outputs shifted by one step), and the walk returns
+    ``(dproj [T, 2B, 3H], dwh [2, H, 3H], dbn [2, H])``."""
+    t, b, h = _dims(proj)
+    ysp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    wh = wh.float()
+    bnb = bn.float()[:, None]
+    dh = torch.zeros(2, b, h, dtype=torch.float32, device=proj.device)
+    dproj = torch.empty_like(proj, dtype=torch.float32)
+    dwh = torch.zeros_like(wh)
+    dbn = torch.zeros(2, h, dtype=torch.float32, device=proj.device)
+    for step in range(t - 1, -1, -1):
+        pp = proj[step].float().reshape(2, b, 3 * h)
+        h_prev = ysp[step].reshape(2, b, h)
+        rzn = torch.bmm(h_prev, wh)
+        r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
+        z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
+        an = rzn[..., 2 * h:] + bnb
+        n = torch.tanh(pp[..., 2 * h:] + r * an)
+
+        dhp = gy[step].reshape(2, b, h) + dh
+        dn = dhp * (1 - z)
+        dz = dhp * (h_prev - n)
+        da_n = dn * (1 - n * n)
+        da_r = da_n * an * r * (1 - r)
+        da_z = dz * z * (1 - z)
+        drzn_n = da_n * r
+        dproj[step] = torch.cat([da_r, da_z, da_n], -1).reshape(2 * b, 3 * h)
+        dcol = torch.cat([da_r, da_z, drzn_n], -1)          # [2, B, 3H]
+        dh = dhp * z + torch.bmm(dcol, wh.transpose(1, 2))
+        dwh += torch.bmm(h_prev.transpose(1, 2), dcol)
+        dbn += drzn_n.sum(dim=1)
+    return dproj, dwh, dbn
+
+
+def _check(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor) -> None:
+    if proj.dim() != 3 or proj.shape[1] % 2 or proj.shape[2] % 3:
+        raise ValueError("proj must be [T, 2B, 3H]")
+    t, b, h = _dims(proj)
+    if tuple(wh.shape) != (2, h, 3 * h) or tuple(bn.shape) != (2, h):
+        raise ValueError("wh must be [2, H, 3H] and bn [2, H]")
+
+
+def _kernel_ready(*tensors: torch.Tensor) -> list:
+    """f32, contiguous views of CUDA tensors on one device."""
+    dev = tensors[0].device
+    if any(x.device != dev for x in tensors):
+        raise ValueError("the GRU kernel's inputs must lie on one device")
+    return [x.float().contiguous() for x in tensors]
+
+
+def _hs_floats(b: int, h: int) -> int:
+    return -(-b * (h + 1) // 4) * 4
+
+
+def _check_shape_for_kernel(b: int, h: int, smem: int) -> None:
+    if h % _JT:
+        raise ValueError(f"the GRU kernel needs H divisible by {_JT}")
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the GRU kernel needs {smem} bytes of shared "
+                         f"memory at B={b}, H={h}; the card has "
+                         f"{_SMEM_MAX}")
+
+
+_P, _I = _build.P, _build.I
+
+
+def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]`` f32, with an f32 or a bf16
+    carry (``dtype``)."""
+    _check(proj, wh, bn)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the carry is float32 or bfloat16")
+    if not proj.is_cuda:
+        return gru_forward_plain(proj, wh, bn, dtype)
+    t, b, h = _dims(proj)
+    _check_shape_for_kernel(b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT))
+    proj, wh, bn = _kernel_ready(proj, wh, bn)
+    ys = torch.empty(t, 2 * b, h, dtype=torch.float32, device=proj.device)
+    if dtype == torch.float32:
+        fn = _build.function("gru", "ttg_gru_fwd_f32",
+                             [_P, _P, _P, _P, _I, _I, _I, _P])
+        err = fn(proj.data_ptr(), wh.data_ptr(), bn.data_ptr(),
+                 ys.data_ptr(), t, b, h, _build.stream())
+        name = "gru_fwd"
+    else:
+        whr = wh.to(torch.bfloat16).float()           # the bf16 operands
+        hbuf = torch.empty(2, 2 * b, h, dtype=torch.bfloat16,
+                           device=proj.device)
+        fn = _build.function("gru", "ttg_gru_fwd_bf16",
+                             [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+        err = fn(proj.data_ptr(), whr.data_ptr(), bn.data_ptr(),
+                 ys.data_ptr(), hbuf.data_ptr(), t, b, h, _build.stream())
+        name = "gru_fwd_bf16"
+    launches[name] += 1
+    _build.check(err, f"ttg_{name}")
+    return ys
+
+
+def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
+                 wh: torch.Tensor, bn: torch.Tensor) -> tuple:
+    """Gradients ``(dproj, dwh, dbn)`` of the f32 recurrence, given its
+    inputs, its outputs ``ys`` and their gradient ``gy``."""
+    _check(proj, wh, bn)
+    if not proj.is_cuda:
+        return gru_backward_plain(proj, ys, gy, wh, bn)
+    t, b, h = _dims(proj)
+    _check_shape_for_kernel(
+        b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)
+                   + b * 3 * _JT))
+    proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
+    dev = proj.device
+    dproj = torch.empty_like(proj)
+    dwh = torch.zeros_like(wh)
+    dbn = torch.zeros_like(bn)
+    dcol = torch.empty(2, 2 * b, 3 * h, dtype=torch.float32, device=dev)
+    part = torch.empty(2 * b, h, dtype=torch.float32, device=dev)
+    fn = _build.function("gru", "ttg_gru_bwd", [_P] * 10 + [_I] * 3 + [_P])
+    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
+             bn.data_ptr(), dproj.data_ptr(), dwh.data_ptr(), dbn.data_ptr(),
+             dcol.data_ptr(), part.data_ptr(), t, b, h, _build.stream())
+    launches["gru_bwd"] += 1
+    _build.check(err, "ttg_gru_bwd")
+    return dproj, dwh, dbn
+
+
+class BiGRUFunction(torch.autograd.Function):
+    """The f32 recurrence with the hand-written backward
+    (``bigru_pallas_trainable``): the forward saves ``(proj, ys, wh, bn)``
+    as ``_bigru_fwd`` does, and the backward walks them reversed."""
+
+    @staticmethod
+    def forward(ctx, proj, wh, bn):
+        ys = gru_forward(proj, wh, bn, torch.float32)
+        ctx.save_for_backward(proj, ys, wh, bn)
+        return ys
+
+    @staticmethod
+    def backward(ctx, gy):
+        proj, ys, wh, bn = ctx.saved_tensors
+        dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn)
+        return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype)
+
+
+def bigru_trainable(proj: torch.Tensor, wh: torch.Tensor,
+                    bn: torch.Tensor) -> torch.Tensor:
+    """f32 ``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]``, differentiable in all
+    three inputs."""
+    return BiGRUFunction.apply(proj, wh, bn)

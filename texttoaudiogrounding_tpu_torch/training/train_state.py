@@ -1,0 +1,35 @@
+"""Training checkpoints: ``best.pth`` and ``last.pth``, written with
+``torch.save``.
+
+Each holds the model's state dict in the reference naming (the layout
+``weights.from_jax_variables`` produces, which the JAX package's
+``training/torch_import.py:import_biencoder`` reads), the optimizer and
+learning-rate scheduler state, the epoch, the metric monitor and the
+not-improved count.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+
+def save_checkpoint(path: str | Path, model: torch.nn.Module, optimizer,
+                    scheduler, epoch: int, metric_monitor: dict,
+                    not_improve_cnt: int,
+                    include_optim: bool = True) -> None:
+    payload = {
+        "model": {k: v.detach().cpu() for k, v in
+                  model.state_dict().items()},
+        "epoch": epoch,
+        "metric_monitor": metric_monitor,
+        "not_improve_cnt": not_improve_cnt,
+    }
+    if include_optim:
+        payload["optimizer"] = optimizer.state_dict()
+        payload["lr_scheduler"] = scheduler.state_dict()
+    path = Path(path)
+    tmp = path.with_suffix(".tmp")
+    torch.save(payload, tmp)
+    tmp.replace(path)

@@ -88,7 +88,8 @@ def from_jax_variables(variables: dict) -> dict:
 def random_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
     """Random weights for every entry of ``model``'s state dict, made with
     numpy from ``seed``: xavier-uniform convs and dense layers,
-    1/sqrt(fan-in) GRU weights, BatchNorm affines near identity, and bn0
+    1/sqrt(fan-in) GRU weights (r/z recurrent biases zero, as in the JAX
+    parameter tree), BatchNorm affines near identity, and bn0
     running statistics at the scale of log-mel dB values."""
     rng = np.random.default_rng(seed)
     out = {}
@@ -118,5 +119,8 @@ def random_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
             v = rng.uniform(-lim, lim, shape)
         else:                                   # biases
             v = rng.normal(0.0, 0.05, shape)
+            if "bias_hh" in name:
+                # the JAX tree has no r/z recurrent biases (see _gru)
+                v[:2 * shape[0] // 3] = 0.0
         out[name] = torch.from_numpy(np.asarray(v, np.float32))
     return out
