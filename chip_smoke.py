@@ -11,10 +11,18 @@ Phases, each printing one line:
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
-   kernels at the largest request's bucket (32 clips of 10 s at 32 kHz),
-   and the BiGRU recurrence (forward with an f32 and a bf16 carry,
-   backward) at T = 250, 2B = 64, H = 256, beside ``torch.nn.GRU`` (cuDNN)
-   on the same weights as a yardstick and a third opinion;
+   kernels at the largest request's bucket (32 clips of 10 s at 32 kHz);
+   the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
+   with f32 and with bf16 operands, each gradient held on its own) at
+   T = 250, 2B = 64, H = 256, the bf16-operand backward also at T = 2,
+   where its bf16 roundings are held tight enough that the backward
+   without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
+   the same weights as a yardstick and a third opinion; and the training
+   path's pool kernels (``dual_pool_fwd``/``_bwd``,
+   ``bn_pool_fwd``/``_bwd``) at the four conv blocks' outputs of a
+   batch-32 x 10 s bf16 step, and block 1 in f32,
+   beside the plain PyTorch chain they replace (ReLU or train-mode BN, then
+   ``F.avg_pool2d + F.max_pool2d``, forward + backward) for information;
 3. serving: ``GroundingPredictor`` over the flagship ``BiEncoder`` at full
    width (Cnn8Rnn 64/128/256/512, BiGRU 2x256, vocabulary 5000, embedding
    512, shared 512) with random weights from a numpy seed answers requests
@@ -39,7 +47,20 @@ Phases, each printing one line:
    every parameter's gradient must lie within a stated relative RMS of
    the all-plain path's on the same batch and weights; then train steps
    are timed with CUDA events and one is profiled.  TF32 is off (full f32
-   convolutions and products) for all of it, as the trainer's default.
+   convolutions and products) for all of it, as the trainer's default;
+5. train_bf16: the same fit in the bf16 mixed-precision mode with the
+   training kernels opted in (``audio_encoder.args``: ``dtype: bfloat16``,
+   ``gru_bwd: bf16``, ``bn_pool: [64, 128]``, ``pool_vjp: [256, 512]``);
+   the counts must rise by one log-mel, two of each pool kernel, one bf16
+   GRU forward and one bf16 GRU backward per train step, and one log-mel
+   and two ``dual_pool_fwd`` per validation step (the bf16 grouped GRU loop
+   there, no GRU kernel); checkpoints, a finite loss that falls over 8
+   steps on one batch, and gradients within stated relative RMS limits of
+   the plain bf16 route's and within twice that route's own change when
+   the waveform is scaled by 1 + 1e-6; then three routes are timed (CUDA
+   events, 5 steps, in turns a b c c b a) and profiled once each: (a)
+   plain bf16 with the f32 GRU kernel, (b) ``bn_pool`` on all four blocks
+   + the bf16 GRU, (c) ``pool_vjp`` on all four blocks + the bf16 GRU.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -254,6 +275,52 @@ def kernel_phase(clips: int, rng) -> list:
 
 
 GRU_T, GRU_H, GRU_IN = 250, 256, 512     # the BiGRU at the main path's shapes
+# The bf16-operand backward against its plain version, by relative RMS of
+# each gradient (dproj, dwh, dbn), on an H100 80GB HBM3 at 700 W: at most
+# 8.8e-4 at T = 250, where a dcol summed in another f32 order rounds to
+# the other bf16 neighbour and the walk carries it on, and the f32
+# backward lies about as far off (1e-3).  So the bf16 roundings are held
+# at T = 2: there one such flip reads 2.5e-6 / 1.6e-5 / 2.4e-6, and the
+# same backward without its roundings of h_{t-1} and dcol (the f32
+# backward given the bf16-rounded Wh) 3.7e-4 / 2.4e-3 / 3.6e-4, which
+# must miss the tolerance by GRU_B16_MISS times in the same run.
+GRU_B16_TOL, GRU_B16_SHORT_TOL, GRU_B16_MISS = 2e-3, (2e-5, 1e-4, 2e-5), 10
+
+
+def _max_err(got, ref) -> tuple:
+    """(max abs, max relative RMS) over the tensors of ``got``."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        return _err(got, ref)
+    errs = [_err(a, b) for a, b in zip(got, ref)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _gru_bf16_short(proj, gy, wh, bn) -> dict:
+    """The bf16-operand backward at T = 2 (the first two steps of the main
+    path's inputs), per gradient against its plain version, beside the
+    unrounded backward's gap, which must be GRU_B16_MISS times the
+    tolerance."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    b16 = torch.bfloat16
+    proj2, gy2 = proj[:2].contiguous(), gy[:2].contiguous()
+    ys2 = gru.gru_forward_plain(proj2, wh, bn, b16)
+    ref = gru.gru_backward_plain(proj2, ys2, gy2, wh, bn, b16)
+    got = gru.gru_backward(proj2, ys2, gy2, wh, bn, b16)
+    unrounded = gru.gru_backward(proj2, ys2, gy2, wh.to(b16).float(), bn)
+    rel = [_err(a, r)[1] for a, r in zip(got, ref)]
+    miss = [_err(a, r)[1] for a, r in zip(unrounded, ref)]
+    if any(e > tol or m < GRU_B16_MISS * tol
+           for e, m, tol in zip(rel, miss, GRU_B16_SHORT_TOL)):
+        raise AssertionError(
+            f"gru_bwd_bf16 at T = 2: rel_rms (dproj, dwh, dbn) {rel} "
+            f"(limits {GRU_B16_SHORT_TOL}); without the bf16 roundings "
+            f"{miss} (must reach {GRU_B16_MISS} times the limits)")
+    return {"T": 2, "rel_rms_err": rel, "tolerance": GRU_B16_SHORT_TOL,
+            "unrounded_rel_rms": miss}
 
 
 def gru_kernel_phase(clips: int, rng) -> list:
@@ -321,6 +388,10 @@ def gru_kernel_phase(clips: int, rng) -> list:
     ys16_plain = gru.gru_forward_plain(proj, wh, bn, torch.bfloat16)
     grads = gru.gru_backward(proj, ys_plain, gy, wh, bn)
     grads_plain = gru.gru_backward_plain(proj, ys_plain, gy, wh, bn)
+    b16 = torch.bfloat16
+    grads16 = gru.gru_backward(proj, ys16_plain, gy, wh, bn, b16)
+    grads16_plain = gru.gru_backward_plain(proj, ys16_plain, gy, wh, bn, b16)
+    short = _gru_bf16_short(proj, gy, wh, bn)
 
     # the per-step launch floor: the same walks at B = 1, H = 4
     tiny = (torch.zeros(t, 2, 12, device=dev), torch.zeros(2, 4, 12,
@@ -339,6 +410,14 @@ def gru_kernel_phase(clips: int, rng) -> list:
     lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
     with torch.no_grad():
         lib16_ms = _cuda_ms(lambda: lib16(x16), 10)
+    gy16_lib = gy_lib.to(b16)
+
+    def lib16_fwd_bwd():
+        out, _ = lib16(x16)
+        out.backward(gy16_lib)
+
+    lib16_grad_fwd_ms = _cuda_ms(lambda: lib16(x16), 10)
+    lib16_fwd_bwd_ms = _cuda_ms(lib16_fwd_bwd, 10)
     rows = [
         dict(name="gru_fwd", got=ys, ref=ys_plain, tol=1e-4,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
@@ -347,8 +426,7 @@ def gru_kernel_phase(clips: int, rng) -> list:
              bound=_bound(fwd_bytes, {"f32": fwd_ops}),
              library_ms=lib_fwd_ms, latency_floor_ms=floor_fwd,
              library_max_abs_diff=lib_gap),
-        dict(name="gru_bwd", got=torch.cat([g.reshape(-1) for g in grads]),
-             ref=torch.cat([g.reshape(-1) for g in grads_plain]), tol=1e-4,
+        dict(name="gru_bwd", got=grads, ref=grads_plain, tol=1e-4,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
              kernel=lambda: gru.gru_backward(proj, ys_plain, gy, wh, bn),
              plain=lambda: gru.gru_backward_plain(proj, ys_plain, gy, wh,
@@ -363,10 +441,20 @@ def gru_kernel_phase(clips: int, rng) -> list:
                                                  torch.bfloat16),
              bound=_bound(fwd_bytes, {"bf16": fwd_ops}),
              library_ms=lib16_ms, latency_floor_ms=floor_fwd),
+        dict(name="gru_bwd_bf16", got=grads16, ref=grads16_plain,
+             tol=GRU_B16_TOL, short_T=short,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:283",
+             kernel=lambda: gru.gru_backward(proj, ys16_plain, gy, wh, bn,
+                                             b16),
+             plain=lambda: gru.gru_backward_plain(proj, ys16_plain, gy, wh,
+                                                  bn, b16),
+             bound=_bound(bwd_bytes, {"bf16": 3 * fwd_ops}),
+             library_ms=lib16_fwd_bwd_ms - lib16_grad_fwd_ms,
+             library_fwd_bwd_ms=lib16_fwd_bwd_ms, latency_floor_ms=floor_bwd),
     ]
     out = []
     for row in rows:
-        max_abs, rel = _err(row["got"], row["ref"])
+        max_abs, rel = _max_err(row["got"], row["ref"])
         if rel > row["tol"]:
             raise AssertionError(f"{row['name']}: kernel disagrees with its "
                                  f"plain version: rel_rms {rel} > "
@@ -374,19 +462,180 @@ def gru_kernel_phase(clips: int, rng) -> list:
         kernel_ms = _cuda_ms(row["kernel"], 10)
         plain_ms = _cuda_ms(row["plain"], 2)
         extra = {k: row[k] for k in ("library_fwd_bwd_ms",
-                                     "library_max_abs_diff") if k in row}
+                                     "library_max_abs_diff", "short_T")
+                 if k in row}
         out.append({
             "name": row["name"], "route": "cuda",
             "source": "texttoaudiogrounding_tpu_torch/csrc/gru.cu",
             "replaces": row["replaces"], "max_abs_err": max_abs,
-            "rel_rms_err": rel, "tolerance": f"rel_rms <= {row['tol']}",
+            "rel_rms_err": rel, "tolerance": "rel_rms{} <= {}".format(
+                "" if isinstance(row["got"], torch.Tensor)
+                else " of each gradient", row["tol"]),
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "latency_floor_ms": row["latency_floor_ms"],
             "library_ms": row["library_ms"], "library": "torch.nn.GRU "
-            "(cuDNN; includes the input projection)", "T": t,
+            f"({'bf16, ' if 'bf16' in row['name'] else ''}cuDNN; includes "
+            "the input projection)", "T": t,
             "rows": 2 * b, "H": h, **extra})
     return out
+
+
+# the conv2 outputs the pool kernels see in a batch-32 x 10 s step
+POOL_GEOMETRIES = (("block1", 1001, 64, 64, (2, 2)),
+                   ("block2", 500, 32, 128, (2, 2)),
+                   ("block3", 250, 16, 256, (1, 2)),
+                   ("block4", 250, 8, 512, (1, 2)))
+POOL_SOURCES = {"dual_pool": ("texttoaudiogrounding_tpu_torch/csrc/"
+                              "dual_pool.cu",
+                              "texttoaudiogrounding_tpu/ops/pallas/"
+                              "dual_pool.py:263"),
+                "bn_pool": ("texttoaudiogrounding_tpu_torch/csrc/bn_pool.cu",
+                            "texttoaudiogrounding_tpu/ops/pallas/"
+                            "bn_pool.py:376")}
+def _pool_chains(x, g, gamma, beta, pool):
+    """The plain PyTorch chains the pool kernels replace, forward +
+    backward (ReLU, or train-mode BN with f32 statistics then ReLU, and
+    ``F.avg_pool2d + F.max_pool2d``), and the same work through the
+    kernels' autograd functions."""
+    import torch
+    import torch.nn.functional as F
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import bn_pool, dual_pool
+
+    def pools(h):
+        h = h.permute(0, 3, 1, 2)
+        return (F.avg_pool2d(h, pool) + F.max_pool2d(h, pool)).permute(
+            0, 2, 3, 1)
+
+    def relu_chain():
+        xx = x.detach().requires_grad_()
+        pools(torch.relu(xx)).backward(g)
+
+    def bn_chain():
+        xx, gg, bb = (v.detach().requires_grad_() for v in (x, gamma, beta))
+        xf = xx.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
+                              0.0)
+        h = ((xx - mean) * (torch.rsqrt(var + 1e-5) * gg) + bb).to(x.dtype)
+        pools(torch.relu(h)).backward(g)
+
+    def relu_kernel():
+        xx = x.detach().requires_grad_()
+        dual_pool.dual_pool_relu(xx, pool).backward(g)
+
+    def bn_kernel():
+        xx, gg, bb = (v.detach().requires_grad_() for v in (x, gamma, beta))
+        bn_pool.bn_relu_dual_pool(xx, gg, bb, pool)[0].backward(g)
+
+    return {"dual_pool": (relu_chain, relu_kernel),
+            "bn_pool": (bn_chain, bn_kernel)}
+
+
+def pool_kernel_phase(clips: int) -> list:
+    """The pool kernels against their plain versions at the four blocks'
+    bf16 geometries (and block 1 in f32); one row per kernel, its times
+    the sum over the four bf16 blocks, each geometry listed."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import bn_pool, dual_pool
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = [(n, t, m, c, p, torch.bfloat16)
+             for n, t, m, c, p in POOL_GEOMETRIES]
+    cases.append(("block1_f32", 1001, 64, 64, (2, 2), torch.float32))
+    geos = {k: [] for k in ("dual_pool_fwd", "dual_pool_bwd", "bn_pool_fwd",
+                            "bn_pool_bwd")}
+    tol = {"dual_pool_fwd": 1e-5, "dual_pool_bwd": 1e-5, "bn_pool_fwd": 1e-5,
+           "bn_pool_bwd": 1e-4}
+    for label, t, m, c, pool, dtype in cases:
+        pt = pool[0]
+        # a conv output's spread, in bf16 with the ties bf16 makes
+        x = torch.randn(clips, t, m, c, device=dev, generator=gen).to(dtype)
+        g = torch.randn(clips, t // pt, m // 2, c, device=dev,
+                        generator=gen).to(dtype)
+        gamma = torch.rand(c, device=dev, generator=gen) + 0.5
+        beta = torch.randn(c, device=dev, generator=gen) * 0.1
+        mean, var = bn_pool.batch_stats(x)
+        inv = torch.rsqrt(var + 1e-5)
+        sc, sh = gamma * inv, beta - mean * gamma * inv
+        calls = {
+            "dual_pool_fwd": (lambda: dual_pool.dual_pool_fwd(x, pool),
+                              lambda: dual_pool.dual_pool_fwd_plain(x, pool)),
+            "dual_pool_bwd": (
+                lambda: dual_pool.dual_pool_bwd(x, g, pool),
+                lambda: dual_pool.dual_pool_bwd_plain(x, g, pool)),
+            "bn_pool_fwd": (
+                lambda: bn_pool.bn_pool_fwd(x, sc, sh, pool),
+                lambda: bn_pool.bn_pool_fwd_plain(x, sc, sh, pool)),
+            "bn_pool_bwd": (
+                lambda: bn_pool.bn_pool_bwd(x, g, mean, inv, gamma, beta,
+                                            pool),
+                lambda: bn_pool.bn_pool_bwd_plain(x, g, mean, inv, gamma,
+                                                  beta, pool)),
+        }
+        # bytes moved; at under 20 f32 operations per input element their
+        # time is below a third of the bytes' on every row
+        es, nx = x.element_size(), x.numel()
+        nbytes = {"dual_pool_fwd": nx * es * (1 + 0.5 / pt),
+                  "dual_pool_bwd": nx * es * (2 + 0.5 / pt),
+                  "bn_pool_fwd": nx * es * (1 + 0.5 / pt) + 8 * c,
+                  "bn_pool_bwd": nx * es * (2 + 0.5 / pt) + 28 * c}
+        chains = _pool_chains(x, g, gamma, beta, pool)
+        for name, (kern, plain) in calls.items():
+            got, ref = kern(), plain()
+            if isinstance(got, torch.Tensor):
+                got, ref = (got,), (ref,)
+            errs = [_err(a, b) for a, b in zip(got, ref)]
+            max_abs = max(e[0] for e in errs)
+            rel = max(e[1] for e in errs)
+            if rel > tol[name]:
+                raise AssertionError(f"{name} ({label}): kernel disagrees "
+                                     f"with its plain version: rel_rms "
+                                     f"{rel} > {tol[name]} (max_abs "
+                                     f"{max_abs})")
+            del got, ref
+            ms = _cuda_ms(kern, 10)
+            device_ms = _trace(lambda kern=kern: [kern() for _ in range(10)],
+                               10 * ms)["pool_ms"] / 10
+            entry = {"geometry": label, "dtype": str(dtype).split(".")[1],
+                     "x_shape": [clips, t, m, c], "pool": list(pool),
+                     "max_abs_err": max_abs, "rel_rms_err": rel,
+                     "ms": ms, "device_ms": device_ms,
+                     "plain_ms": _cuda_ms(plain, 3),
+                     "bound": _bound(nbytes[name], {})}
+            if name.endswith("_bwd"):      # forward + backward, information
+                chain, through = chains[name.split("_bwd")[0]]
+                entry["chain_fwd_bwd_ms"] = _cuda_ms(chain, 5)
+                entry["kernel_fwd_bwd_ms"] = _cuda_ms(through, 5)
+            geos[name].append(entry)
+        del x, g
+        torch.cuda.empty_cache()
+    rows = []
+    for name, entries in geos.items():
+        main = [e for e in entries if e["dtype"] == "bfloat16"]
+        source, replaces = POOL_SOURCES[name.rsplit("_", 1)[0]]
+        for e in entries:
+            e["bound_ms"], e["bound_by"] = e.pop("bound")
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "max_abs_err": max(e["max_abs_err"] for e in entries),
+            "rel_rms_err": max(e["rel_rms_err"] for e in entries),
+            "tolerance": f"rel_rms <= {tol[name]}",
+            "ms": sum(e["ms"] for e in main),
+            "kernel_ms": sum(e["ms"] for e in main),
+            "device_ms": sum(e["device_ms"] for e in main),
+            "plain_ms": sum(e["plain_ms"] for e in main),
+            "bound_ms": sum(e["bound_ms"] for e in main),
+            "bound_by": main[0]["bound_by"], "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "times": "sum over the four bf16 blocks of a batch-32 x 10 s "
+                     "step", "clips": clips, "geometries": entries})
+    return rows
 
 
 def _embedding_gap(plain, served: list) -> float:
@@ -546,15 +795,17 @@ TRAIN_CLIPS, TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 32, 2, 4, 2
 _TONES = (400.0, 800.0, 1600.0, 3000.0, 240.0, 5000.0, 1200.0, 2200.0)
 
 
-def _strong_config(exp_dir: str) -> dict:
+def _strong_config(exp_dir: str, **audio_args) -> dict:
     """``configs/strong/biencoder_train.yaml``'s model, loss, optimizer and
-    trainer, with the epochs cut to ``TRAIN_EPOCHS`` of ``TRAIN_STEPS``."""
+    trainer, with the epochs cut to ``TRAIN_EPOCHS`` of ``TRAIN_STEPS`` and
+    ``audio_args`` added to ``audio_encoder.args``."""
     return {
         "experiment_path": exp_dir, "seed": 1,
         "model": {"type": "BiEncoder",
                   "args": {"shared_dim": 512, "add_proj": True},
                   "audio_encoder": {"type": "Cnn8Rnn",
-                                    "args": {"sample_rate": SR}},
+                                    "args": {"sample_rate": SR,
+                                             **audio_args}},
                   "text_encoder": {"type": "EmbeddingAgg",
                                    "args": {"vocab_size": 5000,
                                             "embed_dim": 512,
@@ -605,22 +856,67 @@ def _clip_items(count: int, seed: int):
     return Items()
 
 
-def _grad_gaps(model, ref_model, batch, output_transform, loss_fn) -> dict:
-    """Relative RMS of each parameter's gradient to ``ref_model``'s, both
-    in train mode on ``batch`` from the same weights."""
+def _grads(model, batch, output_transform, loss_fn) -> dict:
+    """Every parameter's gradient of one train-mode step on ``batch``."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss_fn(output_transform(model(batch), batch)).backward()
+    return {n: p.grad.double() for n, p in model.named_parameters()}
+
+
+def _gaps(grads: dict, ref: dict) -> dict:
+    """Relative RMS of each gradient to ``ref``'s."""
     import torch
-    grads = []
-    for m in (model, ref_model):
-        m.train()
-        m.zero_grad(set_to_none=True)
-        loss_fn(output_transform(m(batch), batch)).backward()
-        grads.append({n: p.grad.double() for n, p in m.named_parameters()})
-    out = {}
-    for name, ref in grads[1].items():
-        d = grads[0][name] - ref
-        out[name] = float(torch.sqrt((d ** 2).mean()
-                                     / (ref ** 2).mean().clamp_min(1e-30)))
+    return {name: float(torch.sqrt(((grads[name] - r) ** 2).mean()
+                                   / (r ** 2).mean().clamp_min(1e-30)))
+            for name, r in ref.items()}
+
+
+def _worst(gaps: dict) -> tuple:
+    """(largest gap in the conv trunk, largest gap after it)."""
+    trunk = [g for n, g in gaps.items() if "conv_block" in n or "bn0" in n]
+    rest = [g for n, g in gaps.items()
+            if not ("conv_block" in n or "bn0" in n)]
+    return max(trunk), max(rest)
+
+
+def _counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        bn_pool, dual_pool, gru, logmel)
+    out = {"logmel": logmel.launches}
+    for mod in (gru, dual_pool, bn_pool):
+        out.update(mod.launches)
     return out
+
+
+def _reset_counts() -> None:
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        bn_pool, dual_pool, gru, logmel)
+    logmel.launches = 0
+    for mod in (gru, dual_pool, bn_pool):
+        for k in mod.launches:
+            mod.launches[k] = 0
+
+
+def _want(**nonzero) -> dict:
+    return {k: nonzero.get(k, 0) for k in _counts()}
+
+
+def _loaders(tok, seed: int) -> tuple:
+    """(train, validation) loaders over the in-memory clips."""
+    from texttoaudiogrounding_tpu_torch.data.collate import TextCollate
+    from texttoaudiogrounding_tpu_torch.data.loader import build_loader
+
+    collate = TextCollate(tok, text_key="phrase",
+                          pad_keys=["waveform", "label"],
+                          pad_buckets={"waveform": 32000, "label": 100},
+                          text_bucket=4)
+    train_items = _clip_items(TRAIN_CLIPS * TRAIN_STEPS * TRAIN_EPOCHS, 1)
+    val_items = _clip_items(TRAIN_CLIPS * VAL_STEPS, 2)
+    return (build_loader(train_items, collate, seed, batch_size=TRAIN_CLIPS,
+                         shuffle=True, drop_last=True),
+            build_loader(val_items, collate, seed, batch_size=TRAIN_CLIPS))
 
 
 def training_phase(tok) -> dict:
@@ -630,52 +926,37 @@ def training_phase(tok) -> dict:
     import torch
 
     from texttoaudiogrounding_tpu_torch import random_state_dict
-    from texttoaudiogrounding_tpu_torch.data.collate import TextCollate
-    from texttoaudiogrounding_tpu_torch.data.loader import (
-        build_loader, to_device)
-    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
     from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
     from texttoaudiogrounding_tpu_torch.training.runner_strong import (
         StrongRunner, strong_output_transform)
     from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
 
-    collate = TextCollate(tok, text_key="phrase",
-                          pad_keys=["waveform", "label"],
-                          pad_buckets={"waveform": 32000, "label": 100},
-                          text_bucket=4)
-    train_items = _clip_items(TRAIN_CLIPS * TRAIN_STEPS * TRAIN_EPOCHS, 1)
-    val_items = _clip_items(TRAIN_CLIPS * VAL_STEPS, 2)
     report: dict = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
                     "tf32": False}
     with tempfile.TemporaryDirectory(prefix="ttg_train_") as tmp:
         runner = StrongRunner(device=DEVICE)
         config = runner.setup(_strong_config(tmp))
         exp_dir = runner.prepare_experiment()
-        train_loader = build_loader(train_items, collate, config["seed"],
-                                    batch_size=TRAIN_CLIPS, shuffle=True,
-                                    drop_last=True)
-        val_loader = build_loader(val_items, collate, config["seed"],
-                                  batch_size=TRAIN_CLIPS)
+        train_loader, val_loader = _loaders(tok, config["seed"])
         model = runner.build_model()
         sd = random_state_dict(model, seed=1)
         model.load_state_dict(sd)
         loss_fn = runner.build_loss()
 
-        for k in gru.launches:
-            gru.launches[k] = 0
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         record = runner.fit(model, loss_fn, train_loader, val_loader,
                             strong_output_transform, exp_dir)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = dict(gru.launches)
+        launches = _counts()
         steps = TRAIN_EPOCHS * TRAIN_STEPS
-        want = {"gru_fwd": steps + TRAIN_EPOCHS * VAL_STEPS,
-                "gru_bwd": steps, "gru_fwd_bf16": 0}
+        want = _want(gru_fwd=steps + TRAIN_EPOCHS * VAL_STEPS, gru_bwd=steps)
         if launches != want:
-            raise AssertionError(f"fit: GRU launches {launches}, expected "
-                                 f"{want}")
+            raise AssertionError(f"fit: kernel launches {launches}, "
+                                 f"expected {want}")
         if not all(np.isfinite(record["step_loss"] + record["val_loss"])):
             raise AssertionError(f"fit: loss not finite {record}")
         for name in ("best.pth", "last.pth", "train.log"):
@@ -694,12 +975,9 @@ def training_phase(tok) -> dict:
     ref_model.load_state_dict(sd)
     model.load_state_dict(sd)
     model.audio_encoder.dropout = (0.0, 0.0)
-    gaps = _grad_gaps(model, ref_model, batch, strong_output_transform,
-                      loss_fn)
-    trunk = {n: g for n, g in gaps.items()
-             if "conv_block" in n or "bn0" in n}
-    rest = {n: g for n, g in gaps.items() if n not in trunk}
-    worst_trunk, worst_rest = max(trunk.values()), max(rest.values())
+    gaps = _gaps(_grads(model, batch, strong_output_transform, loss_fn),
+                 _grads(ref_model, batch, strong_output_transform, loss_fn))
+    worst_trunk, worst_rest = _worst(gaps)
     if worst_trunk > 2e-2 or worst_rest > 1e-4:
         raise AssertionError(
             f"gradients off the plain path: trunk {worst_trunk}, rest "
@@ -736,9 +1014,148 @@ def training_phase(tok) -> dict:
     return report
 
 
+BF16_ARGS = {"dtype": "bfloat16", "gru_bwd": "bf16", "bn_pool": [64, 128],
+             "pool_vjp": [256, 512]}
+BF16_ROUTES = {
+    "a_plain_bf16": {"dtype": "bfloat16"},
+    "b_bn_pool_gru_bf16": {"dtype": "bfloat16", "gru_bwd": "bf16",
+                           "bn_pool": [64, 128, 256, 512]},
+    "c_pool_vjp_gru_bf16": {"dtype": "bfloat16", "gru_bwd": "bf16",
+                            "pool_vjp": [64, 128, 256, 512]},
+}
+# Gradients of the kernel route against the plain bf16 route (pool
+# kernels off, the f32 GRU loop), by relative RMS: (conv trunk, after it).
+# bf16 roundings flip max-pool and ReLU routings, so a bf16 step's
+# gradients move when the waveform is scaled by 1 + 1e-6: the plain route
+# itself by 0.214 / 0.0085, while the kernel route lies 0.153 / 0.0056 off
+# it (on an H100 80GB HBM3 at 700 W).  The kernel route is held to
+# GRAD_LIMITS_BF16, and to GRAD_SELF_MULT times the plain route's own
+# change in the same run; a trunk gradient halved, or one after it 2 %
+# wrong, fails.
+GRAD_LIMITS_BF16, GRAD_SELF_MULT = (0.3, 0.02), 2.0
+
+
+def training_bf16_phase(tok) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner, strong_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    report: dict = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
+                    "audio_encoder_args": BF16_ARGS}
+    with tempfile.TemporaryDirectory(prefix="ttg_train_bf16_") as tmp:
+        runner = StrongRunner(device=DEVICE)
+        config = runner.setup(_strong_config(tmp, **BF16_ARGS))
+        exp_dir = runner.prepare_experiment()
+        train_loader, val_loader = _loaders(tok, config["seed"])
+        model = runner.build_model()
+        if model.audio_encoder.dtype != torch.bfloat16:
+            raise AssertionError("the config did not build the bf16 model")
+        sd = random_state_dict(model, seed=1)
+        model.load_state_dict(sd)
+        loss_fn = runner.build_loss()
+
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = runner.fit(model, loss_fn, train_loader, val_loader,
+                            strong_output_transform, exp_dir)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        steps = TRAIN_EPOCHS * TRAIN_STEPS
+        vals = TRAIN_EPOCHS * VAL_STEPS
+        want = _want(logmel=steps + vals, bn_pool_fwd=2 * steps,
+                     bn_pool_bwd=2 * steps, dual_pool_fwd=2 * (steps + vals),
+                     dual_pool_bwd=2 * steps, gru_fwd_bf16=steps,
+                     gru_bwd_bf16=steps)
+        if launches != want:
+            raise AssertionError(f"bf16 fit: kernel launches {launches}, "
+                                 f"expected {want}")
+        if not all(np.isfinite(record["step_loss"] + record["val_loss"])):
+            raise AssertionError(f"bf16 fit: loss not finite {record}")
+        for name in ("best.pth", "last.pth", "train.log"):
+            if not (exp_dir / name).is_file():
+                raise AssertionError(f"bf16 fit: {name} not written")
+        report.update(fit_s=fit_s, fit_launches=launches,
+                      fit_step_loss=record["step_loss"],
+                      fit_val_loss=record["val_loss"])
+
+    # gradients: the kernel route against the plain bf16 route, dropout
+    # off, beside the plain route's own change under a 1e-6 scaling
+    batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
+    scaled = dict(batch, waveform=batch["waveform"] * (1 + 1e-6))
+    ref_model = instantiate(_strong_config(
+        "", dtype="bfloat16", gru_kernel=False,
+        dropout=[0.0, 0.0])["model"], device=DEVICE)
+    ref_model.load_state_dict(sd)
+    model.load_state_dict(sd)
+    model.audio_encoder.dropout = (0.0, 0.0)
+    ref = _grads(ref_model, batch, strong_output_transform, loss_fn)
+    gaps = _gaps(_grads(model, batch, strong_output_transform, loss_fn), ref)
+    self_gaps = _gaps(_grads(ref_model, scaled, strong_output_transform,
+                             loss_fn), ref)
+    worst = _worst(gaps)
+    limits = [min(lim, GRAD_SELF_MULT * own)
+              for lim, own in zip(GRAD_LIMITS_BF16, _worst(self_gaps))]
+    if worst[0] > limits[0] or worst[1] > limits[1]:
+        raise AssertionError(
+            f"bf16 gradients off the plain bf16 route: trunk {worst[0]}, "
+            f"rest {worst[1]} (limits {limits}): "
+            f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:6]}")
+    del ref_model, ref
+    model.audio_encoder.dropout = (0.2, 0.5)
+
+    # the loss falls over 8 steps on one fixed batch
+    model.load_state_dict(sd)
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = [float(runner.train_step(model, loss_fn, opt, batch,
+                                      strong_output_transform))
+              for _ in range(8)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 loss on a fixed batch does not fall: "
+                             f"{losses}")
+    del model, opt
+
+    # three routes, timed in turns a b c c b a, each profiled once
+    models = {}
+    for name, args in BF16_ROUTES.items():
+        m = instantiate(_strong_config("", **args)["model"], device=DEVICE)
+        m.load_state_dict(sd)
+        models[name] = (m, Optimizer(config["optimizer"], m.parameters(),
+                                     1.0))
+    runs = {name: [] for name in BF16_ROUTES}
+    for name in list(BF16_ROUTES) + list(reversed(BF16_ROUTES)):
+        m, opt = models[name]
+        runs[name].append(_cuda_ms(lambda: runner.train_step(
+            m, loss_fn, opt, batch, strong_output_transform), 5))
+    routes = {}
+    for name, (m, opt) in models.items():
+        ms = float(np.mean(runs[name]))
+        routes[name] = {
+            "audio_encoder_args": BF16_ROUTES[name], "step_ms": ms,
+            "step_ms_runs": runs[name], "clips_per_s": TRAIN_CLIPS * 1e3 / ms,
+            "trace": _trace(lambda: runner.train_step(
+                m, loss_fn, opt, batch, strong_output_transform), ms)}
+    report.update(
+        grad_rel_rms_trunk_max=worst[0], grad_rel_rms_rest_max=worst[1],
+        grad_limits=limits,
+        plain_self_rel_rms_trunk_max=_worst(self_gaps)[0],
+        plain_self_rel_rms_rest_max=_worst(self_gaps)[1],
+        fixed_batch_loss=losses, routes=routes)
+    return report
+
+
 _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
                  "conv1_kernel", "clip_scale_kernel", "gru_fwd_step",
-                 "gru_bwd_step")
+                 "gru_bwd_step", "dual_pool_", "bn_pool_")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
@@ -747,7 +1164,8 @@ def _trace(fn, request_ms: float) -> dict:
     device's idle share of the untraced time ``request_ms`` (kernels run
     on one stream, so their times add up).  ``gru_ms`` sums the port's
     GRU kernels, ``conv_ms`` the device time under PyTorch's convolution
-    operators, forward and backward (the plain path's convolutions)."""
+    operators, forward and backward (the plain path's convolutions),
+    ``pool_ms`` the pool kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -775,10 +1193,13 @@ def _trace(fn, request_ms: float) -> dict:
     port = sum(ms for k, (ms, _) in kernels.items()
                if any(p in k for p in _PORT_KERNELS))
     gru_ms = sum(ms for k, (ms, _) in kernels.items() if "gru_" in k)
+    pool_ms = sum(ms for k, (ms, _) in kernels.items()
+                  if "dual_pool_" in k or "bn_pool_" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"request_ms": request_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / request_ms,
-            "port_kernels_ms": port, "gru_ms": gru_ms, "conv_ms": conv_ms,
+            "port_kernels_ms": port, "gru_ms": gru_ms, "pool_ms": pool_ms,
+            "conv_ms": conv_ms,
             "launches": sum(c for _, c in kernels.values()),
             "top": [{"kernel": k[:90], "ms": ms, "count": c}
                     for k, (ms, c) in top]}
@@ -821,7 +1242,8 @@ def main() -> int:
     report = {"card": smi, "build_s": build_s}
     rng = np.random.default_rng(0)
     kernels = (kernel_phase(KERNEL_CLIPS, rng)
-               + gru_kernel_phase(KERNEL_CLIPS, rng))
+               + gru_kernel_phase(KERNEL_CLIPS, rng)
+               + pool_kernel_phase(KERNEL_CLIPS))
     print(json.dumps({"phase": "kernels", "card": smi, "kernels": [
         {k: row[k] for k in ("name", "max_abs_err", "rel_rms_err",
                              "tolerance", "kernel_ms", "plain_ms")}
@@ -855,10 +1277,33 @@ def main() -> int:
         "device_idle_share": train["trace"]["device_idle_share"]}),
         flush=True)
 
-    launches = {**serving["launches"], **train["fit_launches"],
-                "gru_fwd_bf16": serving["gru_fwd_bf16_launches"]}
+    train16 = training_bf16_phase(tok)
+    report["train_bf16"] = train16
+    print(json.dumps({"phase": "train_bf16", "card": smi, **{
+        k: train16[k] for k in ("fit_launches", "fixed_batch_loss",
+                                "grad_rel_rms_trunk_max",
+                                "grad_rel_rms_rest_max", "grad_limits",
+                                "plain_self_rel_rms_trunk_max",
+                                "plain_self_rel_rms_rest_max")},
+        "routes": {k: {"step_ms": v["step_ms"],
+                       "step_ms_runs": v["step_ms_runs"],
+                       "clips_per_s": v["clips_per_s"],
+                       **{m: v["trace"][m] for m in (
+                           "device_idle_share", "launches", "pool_ms",
+                           "gru_ms", "conv_ms")}}
+                   for k, v in train16["routes"].items()}}), flush=True)
+
+    # launches on each path, counted from zero just before it
+    by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
+                           serving["gru_fwd_bf16_launches"]},
+               "train": train["fit_launches"],
+               "train_bf16": train16["fit_launches"]}
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {p: c.get(row["name"], 0)
+                                   for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on any path")
     report["kernels"] = kernels
     if args.out:
         out = Path(args.out)

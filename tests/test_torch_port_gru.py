@@ -10,6 +10,10 @@ from a seed, go through the JAX kernels in interpret mode and the port:
   rtol 2e-4, atol 2e-5 (``tests/test_pallas_gru.py``'s tolerance);
 * the bf16-carry forward against ``bigru_pallas(dtype=bf16)``: rtol 1e-5,
   atol 1e-5 (same bf16 roundings, f32 sums in another order);
+* the bf16 trainable recurrence (bf16 carry forward, bf16-operand
+  backward) against ``bigru_pallas_trainable_bf16(..., interpret=True)``
+  and its ``jax.grad``: rtol 1e-5 / atol 1e-5 (the same bf16 roundings;
+  measured at most 5e-7 apart on these cases);
 * the port's ``autograd.Function`` against torch autograd through the
   plain forward: rtol 1e-5, atol 1e-6;
 * the ``BiGRU`` module through the kernel path against its grouped loop.
@@ -26,6 +30,7 @@ import torch
 from texttoaudiogrounding_tpu.ops.pallas.gru import (
     bigru_pallas,
     bigru_pallas_trainable,
+    bigru_pallas_trainable_bf16,
 )
 from texttoaudiogrounding_tpu_torch.models.layers import BiGRU
 from texttoaudiogrounding_tpu_torch.ops.kernels import gru
@@ -78,6 +83,31 @@ def test_bf16_carry_forward_matches_the_jax_kernel():
     assert float((got - f32).abs().max()) > 1e-4   # the carry is bf16
 
 
+def test_bf16_trainable_matches_the_jax_kernel():
+    proj, wh, bn, gy = _case(11)
+
+    def loss(p, w, c):
+        return jnp.sum(bigru_pallas_trainable_bf16(p, w, c, interpret=True)
+                       * gy)
+
+    args = [jnp.asarray(a) for a in (proj, wh, bn)]
+    ref_ys = bigru_pallas_trainable_bf16(*args, interpret=True)
+    ref_grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (proj, wh, bn)]
+    ys = gru.bigru_trainable(*leaves, torch.bfloat16)
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(ref_ys),
+                               rtol=1e-5, atol=1e-5)
+    (ys * torch.from_numpy(gy)).sum().backward()
+    for name, x, ref in zip(("dproj", "dwh", "dbn"), leaves, ref_grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    # the bf16 operands make a difference the tolerance can see
+    f32 = gru.gru_backward(*(torch.from_numpy(a) for a in (proj,)),
+                           ys.detach(), torch.from_numpy(gy),
+                           *(torch.from_numpy(a) for a in (wh, bn)))
+    assert float((f32[1] - leaves[1].grad).abs().max()) > 1e-3
+
+
 def test_autograd_function_matches_autograd_of_the_plain_forward():
     proj, wh, bn, gy = _case(9)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (proj, wh, bn)]
@@ -91,6 +121,21 @@ def test_autograd_function_matches_autograd_of_the_plain_forward():
                                    atol=1e-6, err_msg=name)
 
 
+def test_bigru_initialises_like_the_jax_tree():
+    torch.manual_seed(0)
+    rnn = BiGRU(512, 64)
+    for sfx in ("", "_reverse"):
+        wi = getattr(rnn, f"weight_ih_l0{sfx}").detach()
+        assert abs(float(wi.std()) * 512 ** 0.5 - 1.0) < 0.05   # lecun
+        wh = getattr(rnn, f"weight_hh_l0{sfx}").detach()
+        for g in range(3):
+            blk = wh[g * 64:(g + 1) * 64]
+            np.testing.assert_allclose((blk @ blk.T).numpy(), np.eye(64),
+                                       atol=1e-5)           # orthogonal
+        for name in ("bias_ih_l0", "bias_hh_l0"):
+            assert not getattr(rnn, name + sfx).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bigru_kernel_path_matches_the_grouped_loop(dtype):
     rng = np.random.default_rng(3)
@@ -98,10 +143,10 @@ def test_bigru_kernel_path_matches_the_grouped_loop(dtype):
     sd = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)
                               * 0.3) for k, v in loop.state_dict().items()}
     loop.load_state_dict(sd)
-    kern = BiGRU(12, H, dtype=dtype)
+    assert BiGRU(12, H, dtype=dtype).route() == (
+        dtype, dtype == torch.float32, dtype)
+    kern = BiGRU(12, H, dtype=dtype, kernel=True)
     kern.load_state_dict(sd)
-    assert kern.kernel == (dtype == torch.float32)
-    kern.kernel = True
     x = torch.from_numpy(rng.normal(size=(B, T, 12)).astype(np.float32))
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
     ya, yb = loop(xa), kern(xb)

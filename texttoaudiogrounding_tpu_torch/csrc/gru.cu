@@ -30,6 +30,15 @@
 // dcol ping-pongs between two buffers so a launch never reads what it
 // writes.
 //
+// The bf16-operand backward (gru.py:199 with dot_dtype=bfloat16, the
+// backward of :283 bigru_pallas_trainable_bf16) is the same walk with every
+// product's operands rounded to bf16 and f32 sums: the staged h_{t-1}, Wh
+// (rounded by the wrapper) and the dcol rows that feed the dh chain and
+// dWh.  Rounding the saved f32 outputs reproduces the bf16 forward's carry
+// exactly, so the recomputed gates match that forward bit for bit.  The
+// gate arithmetic, dz's h_{t-1}, dproj, dh, dbn and the accumulators stay
+// f32.
+//
 // Bound on the H100 at T = 250, B = 32, H = 256: the forward moves 67 MB
 // (proj 49 MB, ys 16 MB) for 6.3 GFLOP f32 (0.094 ms at 67 TFLOP/s); the
 // backward 131 MB for 18.9 GFLOP (0.28 ms).  Both are really limited by
@@ -64,6 +73,12 @@ __host__ __device__ __forceinline__ int hs_floats(int B, int H) {
   return (B * (H + 1) + 3) & ~3;
 }
 
+// v rounded to bf16 (kept as f32) when RB, else v
+template <bool RB>
+__device__ __forceinline__ float op(float v) {
+  return RB ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 __device__ __forceinline__ void store_c(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_c(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -79,10 +94,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// hs[b][k] (row stride H + 1) <- carry rows of direction g, zero at t = 0;
-// wc[k][gate][jl] <- Wh[g][k][gate * H + j0 + jl].  Vector loads, unrolled
-// so that several are in flight per thread (each waits on L2).
-template <typename C>
+// hs[b][k] (row stride H + 1) <- carry rows of direction g, zero at t = 0,
+// rounded to bf16 when RB; wc[k][gate][jl] <- Wh[g][k][gate * H + j0 + jl].
+// Vector loads, unrolled so that several are in flight per thread (each
+// waits on L2).
+template <typename C, bool RB = false>
 __device__ __forceinline__ void stage(const C* __restrict__ hprev,
                                       const float* __restrict__ wh,
                                       float* hs, float* wc, int g, int j0,
@@ -94,10 +110,10 @@ __device__ __forceinline__ void stage(const C* __restrict__ hprev,
     const float4 v = hprev ? load4(hprev + (size_t)(g * B + b) * H + k)
                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float* d = hs + b * ldh + k;
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
+    d[0] = op<RB>(v.x);
+    d[1] = op<RB>(v.y);
+    d[2] = op<RB>(v.z);
+    d[3] = op<RB>(v.w);
   }
   const float* w = wh + (size_t)g * H * 3 * H;
 #pragma unroll 4
@@ -158,6 +174,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <bool B16>
 __global__ void __launch_bounds__(THREADS)
     gru_bwd_step(const float* __restrict__ proj, const float* __restrict__ ys,
                  const float* __restrict__ gy, const float* __restrict__ wh,
@@ -172,10 +189,12 @@ __global__ void __launch_bounds__(THREADS)
   float* wc = hs + hs_floats(B, H);          // [H][3][JT]   Wh columns
   float* wr = wc + H * 3 * JT;               // [JT][3H + 1] Wh rows
   float* dc = wr + JT * ldr;                 // [B][3][JT]   this step's dcol
+  float* dnr = dc + B * 3 * JT;              // [B][JT]      f32 drzn_n (B16)
   const int g = blockIdx.y, j0 = blockIdx.x * JT;
   const int H3 = 3 * H;
-  stage(t > 0 ? ys + (size_t)(t - 1) * 2 * B * H : (const float*)nullptr,
-        wh, hs, wc, g, j0, B, H);
+  const float* yprev =
+      t > 0 ? ys + (size_t)(t - 1) * 2 * B * H : (const float*)nullptr;
+  stage<float, B16>(yprev, wh, hs, wc, g, j0, B, H);
   const bool chain = t < T - 1;
   if (chain) {
     const float* w = wh + (size_t)g * H * H3;
@@ -222,7 +241,10 @@ __global__ void __launch_bounds__(THREADS)
     const float z = sigmoid_f(pp[H + j] + az);
     const float an = arn + bn[g * H + j];
     const float n = tanhf(pp[2 * H + j] + r * an);
-    const float hp = hs[b * (H + 1) + j];
+    // h_{t-1} in dz is the f32 output, whatever the products' operands
+    const float hp = !B16 ? hs[b * (H + 1) + j]
+                     : yprev ? yprev[(size_t)brow * H + j]
+                             : 0.0f;
 
     const float dhp = gy[row * H + j] + dh;
     const float dn = dhp * (1.0f - z);
@@ -237,13 +259,14 @@ __global__ void __launch_bounds__(THREADS)
     dq[H + j] = da_z;
     dq[2 * H + j] = da_n;
     float* dcw = dcol_cur + (size_t)brow * H3;
-    dcw[j] = da_r;
-    dcw[H + j] = da_z;
-    dcw[2 * H + j] = drzn_n;
+    dcw[j] = op<B16>(da_r);
+    dcw[H + j] = op<B16>(da_z);
+    dcw[2 * H + j] = op<B16>(drzn_n);
     part[(size_t)brow * H + j] = dhp * z;
-    dc[(b * 3 + 0) * JT + jl] = da_r;
-    dc[(b * 3 + 1) * JT + jl] = da_z;
-    dc[(b * 3 + 2) * JT + jl] = drzn_n;
+    dc[(b * 3 + 0) * JT + jl] = op<B16>(da_r);
+    dc[(b * 3 + 1) * JT + jl] = op<B16>(da_z);
+    dc[(b * 3 + 2) * JT + jl] = op<B16>(drzn_n);
+    if (B16) dnr[b * JT + jl] = drzn_n;
   }
   __syncthreads();
 
@@ -262,7 +285,8 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x < JT) {
     const int jl = threadIdx.x;
     float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dc[(b * 3 + 2) * JT + jl];
+    for (int b = 0; b < B; ++b)
+      s += B16 ? dnr[b * JT + jl] : dc[(b * 3 + 2) * JT + jl];
     dbn[g * H + j0 + jl] += s;
   }
 }
@@ -271,9 +295,32 @@ size_t fwd_smem(int B, int H) {
   return sizeof(float) * ((size_t)hs_floats(B, H) + (size_t)H * 3 * JT);
 }
 
-size_t bwd_smem(int B, int H) {
+size_t bwd_smem(int B, int H, bool b16) {
   return sizeof(float) * ((size_t)hs_floats(B, H) + (size_t)H * 3 * JT +
-                          (size_t)JT * (3 * H + 1) + (size_t)B * 3 * JT);
+                          (size_t)JT * (3 * H + 1) +
+                          (size_t)B * (b16 ? 4 : 3) * JT);
+}
+
+template <bool B16>
+int bwd(const float* proj, const float* ys, const float* gy, const float* wh,
+        const float* bn, float* dproj, float* dwh, float* dbn, float* dcol,
+        float* part, int T, int B, int H, cudaStream_t s) {
+  if (H % JT) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(B, H, B16);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_step<B16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H / JT, 2);
+  const size_t half = (size_t)2 * B * 3 * H;
+  for (int t = T - 1; t >= 0; --t) {
+    gru_bwd_step<B16><<<grid, THREADS, smem, s>>>(
+        proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol + ((t + 1) % 2) * half,
+        dcol + (t % 2) * half, part, t, T, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename C>
@@ -333,20 +380,17 @@ extern "C" int ttg_gru_bwd(const float* proj, const float* ys,
                            const float* gy, const float* wh, const float* bn,
                            float* dproj, float* dwh, float* dbn, float* dcol,
                            float* part, int T, int B, int H, void* stream) {
-  if (H % JT) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_smem(B, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_step, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H / JT, 2);
-  const size_t half = (size_t)2 * B * 3 * H;
-  for (int t = T - 1; t >= 0; --t) {
-    gru_bwd_step<<<grid, THREADS, smem, s>>>(
-        proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol + ((t + 1) % 2) * half,
-        dcol + (t % 2) * half, part, t, T, B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return bwd<false>(proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol, part, T, B,
+                    H, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-operand backward, with the arguments of ttg_gru_bwd; wh holds
+// bf16-rounded values (as f32), as for ttg_gru_fwd_bf16.
+extern "C" int ttg_gru_bwd_bf16(const float* proj, const float* ys,
+                                const float* gy, const float* wh,
+                                const float* bn, float* dproj, float* dwh,
+                                float* dbn, float* dcol, float* part, int T,
+                                int B, int H, void* stream) {
+  return bwd<true>(proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol, part, T, B,
+                   H, static_cast<cudaStream_t>(stream));
 }

@@ -6,23 +6,32 @@ bn0 over the mel axis → 4 PANNs conv blocks (64→128→256→512, avg+max
 pools, time ÷4, mel ÷16) → mean over mel → FC512 + ReLU → BiGRU(256×2).
 ``length = (waveform_len // hop + 1) // 4``.
 
-The JAX package picks the serving kernels with environment variables
-(``TTG_FUSED_CONV``, ``TTG_B1_QUANT``); here the constructor says it:
-``Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8")`` is the flagship int8
-serving path (log-mel kernel, the three conv-block kernels, bf16 BiGRU),
-``Cnn8Rnn()`` the f32 path, whose BiGRU runs through the GRU kernels
-(``gru_kernel=False`` keeps it on the plain loop).  The bf16 cast points
-of the JAX serving path are kept: the log-mel kernel's output and bn0 in
-f32, a bf16 cast before block 1, the mel mean of the bf16 block-4 output
-in bf16 feeding the f32 ``fc1``, and the BiGRU with bf16 operands and
-carry.
+The JAX package picks its kernels with environment variables
+(``TTG_FUSED_CONV``, ``TTG_B1_QUANT``, ``TTG_BN_POOL``, ``TTG_POOL_VJP``,
+``TTG_GRU_BWD``, ``TTG_PALLAS_GRU``); here the constructor says it:
 
-In train mode (the f32 path only, ``audio_encoder.py:85-144``) bn0 and the
-blocks' BatchNorms use batch statistics, ``Dropout(0.2)`` follows each
-block and ``Dropout(0.5)`` the mel mean, with masks drawn from the
-module's own ``torch.Generator`` (seeded, when first used, from the
-torch seed: the trainer's config seed), and the BiGRU is f32.
-Spec-augment and mixup are not ported.
+* ``Cnn8Rnn()``: the f32 path, whose BiGRU runs through the GRU kernels
+  (``gru_kernel=False`` keeps it on the plain loop);
+* ``Cnn8Rnn(dtype=torch.bfloat16)``: the bf16 mixed-precision mode, in
+  train and eval: the log-mel kernel, bn0 in f32 per mel, the blocks
+  (PyTorch convolutions with bf16 operands, f32 BN statistics and
+  normalisation) and dropout in bf16, the mel mean in bf16 feeding the f32
+  ``fc1``;
+* ``Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8")`` (or ``"bf16"``):
+  the serving kernels for the blocks, eval mode only; ``"int8"`` is the
+  flagship serving path.
+
+``bn_pool`` and ``pool_vjp`` list the out-channels of the blocks that run
+the pool kernels (``ConvBlock``); ``gru_bwd="bf16"`` picks the bf16
+trainable GRU (``BiGRU``'s ``bwd``).  The BiGRU is f32 in train mode and
+in the module's dtype in eval mode (``audio_encoder.py:133``): in bf16,
+the grouped loop with bf16 operands and carry unless ``gru_kernel``.
+
+In train mode (``audio_encoder.py:85-144``) bn0 and the blocks'
+BatchNorms use batch statistics, ``Dropout(0.2)`` follows each block and
+``Dropout(0.5)`` the mel mean, with masks drawn from the module's own
+``torch.Generator`` (seeded, when first used, from the torch seed: the
+trainer's config seed).  Spec-augment and mixup are not ported.
 """
 
 from __future__ import annotations
@@ -68,12 +77,15 @@ class Cnn8Rnn(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  conv_mode: str | None = None,
                  gru_kernel: bool | None = None,
-                 dropout: tuple = (0.2, 0.5)):
+                 dropout: tuple = (0.2, 0.5),
+                 bn_pool: tuple = (), pool_vjp: tuple = (),
+                 gru_bwd: str | None = None):
         super().__init__()
-        if (dtype == torch.float32) != (conv_mode is None):
-            raise ValueError("use dtype=float32 with conv_mode=None (the "
-                             "plain path) or dtype=bfloat16 with conv_mode "
-                             "'bf16' or 'int8' (the serving kernels)")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("dtype must be torch.float32 or torch.bfloat16")
+        if conv_mode is not None and dtype != torch.bfloat16:
+            raise ValueError("the serving kernels (conv_mode 'bf16' or "
+                             "'int8') run with dtype=bfloat16")
         self.sample_rate = sample_rate
         self.dtype = dtype
         self.conv_mode = conv_mode
@@ -82,9 +94,12 @@ class Cnn8Rnn(nn.Module):
         self._generator = None
         self.bn0 = nn.BatchNorm1d(64)
         for i, (cin, cout, _) in enumerate(_BLOCKS, start=1):
-            setattr(self, f"conv_block{i}", ConvBlock(cin, cout, conv_mode))
+            setattr(self, f"conv_block{i}", ConvBlock(
+                cin, cout, conv_mode, bn_pool=cout in bn_pool,
+                pool_vjp=cout in pool_vjp))
         self.fc1 = nn.Linear(512, 512)
-        self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel)
+        self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel,
+                         bwd=gru_bwd)
 
     def _dropout_generator(self, device: torch.device) -> torch.Generator:
         if self._generator is None or self._generator.device != device:
@@ -98,10 +113,10 @@ class Cnn8Rnn(nn.Module):
         train = self.training
         if train and self.conv_mode is not None:
             raise ValueError("training runs the plain path: conv_mode=None")
-        if self.conv_mode is None:
-            x = log_mel_spectrogram(waveform, cfg)          # [B, T, 64]
+        if self.dtype == torch.bfloat16:       # the kernel (frontend.py:229)
+            x = fused_log_mel_spectrogram(waveform, cfg)    # [B, T, 64]
         else:
-            x = fused_log_mel_spectrogram(waveform, cfg)
+            x = log_mel_spectrogram(waveform, cfg)
         # bn0 over the mel axis: f32, per mel
         x = (batch_norm_train if train else batch_norm_eval)(x, self.bn0)
         x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
@@ -114,6 +129,6 @@ class Cnn8Rnn(nn.Module):
         x = x.float().mean(dim=2).to(self.dtype)            # [B, T/4, 512]
         x = dropout(x, p_mean, gen)
         x = torch.relu(F.linear(x.float(), self.fc1.weight, self.fc1.bias))
-        x = self.rnn(x)
+        x = self.rnn(x, dtype=torch.float32 if train else self.dtype)
         length = input_dict["waveform_len"] // cfg.hop_length + 1
         return {"embedding": x, "length": length // self.downsample_ratio}

@@ -1,11 +1,11 @@
 """Shared building blocks: the PANNs ConvBlock and the grouped-scan BiGRU.
 
-Ports of ``texttoaudiogrounding_tpu/models/layers.py:58-292`` (ConvBlock)
-and ``:425-543`` (BiGRU).  Activations are channel-last, ``[B, T, M, C]``,
-as in the JAX package; parameters and state-dict names follow the
-reference torch modules (``conv1.weight`` is ``[Cout, Cin, 3, 3]``, BN
-keeps running statistics, the GRU is named like ``nn.GRU``), which is the
-layout ``weights.from_jax_variables`` produces.
+Ports of ``texttoaudiogrounding_tpu/models/layers.py:21-292``
+(``_FusedBNPool``, ConvBlock) and ``:425-543`` (BiGRU).  Activations are
+channel-last, ``[B, T, M, C]``, as in the JAX package; parameters and
+state-dict names follow the reference torch modules (``conv1.weight`` is
+``[Cout, Cin, 3, 3]``, BN keeps running statistics, the GRU is named like
+``nn.GRU``), which is the layout ``weights.from_jax_variables`` produces.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair, gru
+from texttoaudiogrounding_tpu_torch.ops.kernels.bn_pool import (
+    bn_relu_dual_pool,
+)
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     fold_bn,
     fused_double_conv_pool,
@@ -26,8 +29,13 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block1_pair import (
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block_pair import (
     fused_block2_pair,
 )
+from texttoaudiogrounding_tpu_torch.ops.kernels.dual_pool import (
+    POOLS,
+    dual_pool_relu,
+)
 
 CONV_MODES = (None, "bf16", "int8")
+GRU_BWD = (None, "bf16")
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
@@ -38,18 +46,27 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
     return (x - bn.running_mean) * mul + bn.bias
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
-                     ) -> torch.Tensor:
-    """Batch-statistics BN over the last axis, in flax's arithmetic
-    (``layers.py:265``): ``var = mean(x²) - mean(x)²`` (biased, clipped at
-    0), and the running statistics move to ``0.9 · running + 0.1 · batch``
-    (``nn.BatchNorm2d`` would keep the unbiased variance)."""
-    dims = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=dims)
-    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+def update_running(bn: nn.BatchNorm1d | nn.BatchNorm2d, mean: torch.Tensor,
+                   var: torch.Tensor) -> None:
+    """flax's running-statistics rule: ``0.9 · running + 0.1 · batch``."""
     with torch.no_grad():
         bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
         bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
+                     ) -> torch.Tensor:
+    """Batch-statistics BN over the last axis, in flax's arithmetic
+    (``layers.py:265``): f32 statistics, ``var = mean(x²) - mean(x)²``
+    (biased, clipped at 0), the running statistics moved by
+    :func:`update_running` (``nn.BatchNorm2d`` would keep the unbiased
+    variance).  The result is f32 also for bf16 ``x``, as flax's
+    ``_normalize`` promotes ``x - mean``; the caller casts it."""
+    dims = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+    update_running(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean) * mul + bn.bias
 
@@ -70,14 +87,30 @@ class ConvBlock(nn.Module):
 
     The kernels' weights (HWIO, BN folded, quantized and laid out for the
     card) are made once and kept until a parameter or buffer changes.
+
+    On the plain path the block computes in x's type (f32, or bf16 in the
+    mixed-precision mode): convolutions with operands in that type, BN with
+    f32 statistics and f32 normalisation cast back to it, ReLU and pools in
+    it.  Two opt-ins replace the segment after conv2 with a kernel, as
+    ``TTG_BN_POOL`` / ``TTG_POOL_VJP`` list a block's channels in the JAX
+    package (``layers.py:252-280``):
+
+    * ``bn_pool``: train-mode BN2 + ReLU + pool in one custom VJP
+      (``ops/kernels/bn_pool.py``), train mode only; wins over
+      ``pool_vjp``;
+    * ``pool_vjp``: ReLU + pool after BN2 with the mask-recompute backward
+      (``ops/kernels/dual_pool.py``), in train and eval mode.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
-                 conv_mode: str | None = None):
+                 conv_mode: str | None = None, bn_pool: bool = False,
+                 pool_vjp: bool = False):
         super().__init__()
         if conv_mode not in CONV_MODES:
             raise ValueError(f"conv_mode must be one of {CONV_MODES}")
         self.conv_mode = conv_mode
+        self.bn_pool = bn_pool
+        self.pool_vjp = pool_vjp
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
                                bias=False)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
@@ -111,19 +144,56 @@ class ConvBlock(nn.Module):
             self._kept = (key, (w1, ab1, w2, ab2, prep))
         return self._kept[1]
 
+    @staticmethod
+    def _pool_kernel_ok(y: torch.Tensor, pool) -> bool:
+        """The JAX gate of the pool kernels (``_chan_flag_ok``,
+        ``_pool_vjp_shape``, ``layers.py:73-118``): pool (2, 2) or (1, 2), M
+        even, at least one pooled row, and C a multiple of 128 or block 1's
+        M = C = 64 with pool (2, 2).  The JAX gate also turns a shape down
+        when its TPU chunk picker finds no chunk (a prime T, say); the
+        card's kernels take any T, and compute the same function, so the
+        port routes those shapes to them."""
+        _, t, m, c = y.shape
+        if pool not in POOLS or m % 2 or t // pool[0] == 0:
+            return False
+        return c % 128 == 0 or (m == 64 and c == 64 and pool == (2, 2))
+
     def _plain(self, x: torch.Tensor, pool_size) -> torch.Tensor:
         norm = batch_norm_train if self.training else batch_norm_eval
+        dt = x.dtype
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, padding=1)
-            x = torch.relu(norm(y.permute(0, 2, 3, 1), bn))
-        y = x.permute(0, 3, 1, 2)
-        y = F.avg_pool2d(y, pool_size) + F.max_pool2d(y, pool_size)
-        return y.permute(0, 2, 3, 1)
+            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
+                         padding=1).permute(0, 2, 3, 1)
+            if bn is self.bn2 and self._pool_kernel_ok(y, pool_size):
+                if self.bn_pool and self.training:
+                    out, mean, var = bn_relu_dual_pool(
+                        y, bn.weight, bn.bias, pool_size, bn.eps)
+                    update_running(bn, mean, var)
+                    return out
+                if self.pool_vjp:
+                    return dual_pool_relu(norm(y, bn).to(dt), pool_size)
+            x = torch.relu(norm(y, bn).to(dt))
+        mx = F.max_pool2d(x.permute(0, 3, 1, 2), pool_size)
+        if dt == torch.float32:
+            avg = F.avg_pool2d(x.permute(0, 3, 1, 2), pool_size)
+            return (avg + mx).permute(0, 2, 3, 1)
+        # flax's avg_pool in bf16 is XLA's reduce_window: the window sum
+        # rounds after every add, in window order (F.avg_pool2d would sum
+        # in f32 and round once)
+        kt, km = pool_size
+        b, t, m, c = x.shape
+        v = x[:, :t // kt * kt, :m // km * km].reshape(
+            b, t // kt, kt, m // km, km, c)
+        s = v[:, :, 0, :, 0]
+        for k in range(1, kt * km):
+            s = s + v[:, :, k // km, :, k % km]
+        return s / (kt * km) + mx.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, pool_size=(2, 2)) -> torch.Tensor:
         """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``.  In
         train mode the block runs the plain path with batch statistics (the
-        JAX package runs its train-mode blocks in XLA, without kernels)."""
+        JAX package runs its train-mode convolutions in XLA), through the
+        pool kernels where they are opted in."""
         if self.training and self.conv_mode is not None:
             raise ValueError("train mode runs the plain path: conv_mode=None")
         if self.conv_mode is None:
@@ -163,6 +233,17 @@ class BiGRU(nn.Module):
     default: the kernel for f32 (training), the loop for bf16 (serving).
     The input projection stays one ``torch.matmul`` either way.
 
+    ``bwd`` takes the place of ``TTG_GRU_BWD`` on the f32 kernel path:
+    ``None`` (the JAX ``"v1"``) is the f32 recurrence
+    (``bigru_pallas_trainable``),
+    ``"bf16"`` the bf16 one (``bigru_pallas_trainable_bf16``: bf16 carry,
+    bf16-operand backward), which also rounds the input projection's
+    operands to bf16 (``layers.py:485-492``).  ``forward``'s ``dtype``
+    overrides the module's for one call: ``Cnn8Rnn`` in bf16 runs its one
+    set of parameters in f32 for training and in bf16 for serving.
+    :meth:`route` alone turns the call's dtype, ``kernel`` and ``bwd`` into
+    the way the call runs.
+
     The parameters keep ``nn.GRU``'s names.  The JAX tree has no r/z
     recurrent biases, so ``bias_hh_l0[:2H]`` folds into the input bias
     detached: it gets no gradient, and stays where it was (zero for weights
@@ -171,11 +252,18 @@ class BiGRU(nn.Module):
 
     def __init__(self, input_size: int, hidden: int,
                  dtype: torch.dtype = torch.float32,
-                 kernel: bool | None = None):
+                 kernel: bool | None = None, bwd: str | None = None):
         super().__init__()
+        if bwd in ("v2", "v3"):
+            raise NotImplementedError(
+                f"the {bwd} GRU backward is not ported yet (ROADMAP.md, "
+                "Queue 2: gru.py bigru_pallas_trainable_v2 / _v3)")
+        if bwd not in GRU_BWD:
+            raise ValueError(f"bwd must be one of {GRU_BWD}")
         self.hidden = hidden
         self.dtype = dtype
-        self.kernel = dtype == torch.float32 if kernel is None else kernel
+        self.bwd = bwd
+        self._kernel = kernel
         h3 = 3 * hidden
         for sfx in ("", "_reverse"):
             self.register_parameter(
@@ -187,6 +275,26 @@ class BiGRU(nn.Module):
                 f"bias_ih_l0{sfx}", nn.Parameter(torch.zeros(h3)))
             self.register_parameter(
                 f"bias_hh_l0{sfx}", nn.Parameter(torch.zeros(h3)))
+        # the JAX tree's initialisers (layers.py:336-340): lecun-normal
+        # input kernels, an orthogonal [H, H] recurrent kernel per gate,
+        # zero biases
+        with torch.no_grad():
+            for sfx in ("", "_reverse"):
+                getattr(self, f"weight_ih_l0{sfx}").normal_(
+                    0.0, input_size ** -0.5)
+                wh = getattr(self, f"weight_hh_l0{sfx}")
+                for g in range(3):
+                    nn.init.orthogonal_(wh[g * hidden:(g + 1) * hidden])
+
+    def route(self, dtype: torch.dtype | None = None) -> tuple:
+        """How a call in ``dtype`` (the module's when None) runs:
+        ``(carry type, through the kernels, the products' operand type)``.
+        The operands are bf16 for the bf16 trainable recurrence (an f32 call
+        on the kernels with ``bwd="bf16"``), else the carry's type."""
+        dt = self.dtype if dtype is None else dtype
+        kernel = dt == torch.float32 if self._kernel is None else self._kernel
+        b16 = kernel and dt == torch.float32 and self.bwd == "bf16"
+        return dt, kernel, torch.bfloat16 if b16 else dt
 
     def _direction(self, sfx: str) -> tuple:
         h = self.hidden
@@ -196,23 +304,26 @@ class BiGRU(nn.Module):
         return (getattr(self, f"weight_ih_l0{sfx}").t(), bi,
                 getattr(self, f"weight_hh_l0{sfx}").t(), b_hh[2 * h:])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x ``[B, T, In]`` → ``[B, T, 2H]`` f32."""
-        h, dt = self.hidden, self.dtype
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """x ``[B, T, In]`` → ``[B, T, 2H]`` f32; ``dtype`` as the module's
+        when None."""
+        h = self.hidden
+        dt, kernel, pd = self.route(dtype)
         (wi0, bi0, wh0, bn0), (wi1, bi1, wh1, bn1) = (
             self._direction(""), self._direction("_reverse"))
-        # operands rounded to ``dtype``, products accumulated in f32
-        wi = torch.stack([wi0, wi1]).to(dt).float()         # [2, In, 3H]
+        # operands rounded to ``pd``, products accumulated in f32
+        wi = torch.stack([wi0, wi1]).to(pd).float()         # [2, In, 3H]
         bi = torch.stack([bi0, bi1])                        # [2, 3H]
-        xg = torch.stack([x, torch.flip(x, dims=(1,))]).to(dt).float()
+        xg = torch.stack([x, torch.flip(x, dims=(1,))]).to(pd).float()
         proj = torch.matmul(xg, wi[:, None]) + bi[:, None, None]
         bsz, tlen = x.shape[0], x.shape[1]
-        if self.kernel:
+        if kernel:
             wh = torch.stack([wh0, wh1])                    # [2, H, 3H]
             bn = torch.stack([bn0, bn1])                    # [2, H]
             tproj = proj.permute(2, 0, 1, 3).reshape(tlen, 2 * bsz, 3 * h)
             if dt == torch.float32:
-                ys = gru.bigru_trainable(tproj, wh, bn)
+                ys = gru.bigru_trainable(tproj, wh, bn, pd)
             else:
                 ys = gru.gru_forward(tproj, wh, bn, dt)
             ys = ys.reshape(tlen, 2, bsz, h).permute(1, 2, 0, 3)

@@ -2,9 +2,10 @@
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/gru.py``: ``:62
 bigru_pallas`` (the forward, with an f32 or a bf16 carry), ``:199
-_bigru_bwd`` (its reversed-walk backward) and ``:608
-bigru_pallas_trainable`` (the two joined as a custom VJP, here
-:class:`BiGRUFunction`).
+_bigru_bwd`` (its reversed-walk backward, with f32 or bf16 product
+operands) and ``:608 bigru_pallas_trainable`` / ``:283
+bigru_pallas_trainable_bf16`` (forward and backward joined as a custom
+VJP, here :class:`BiGRUFunction` with ``dtype`` f32 or bf16).
 
 Contract: time-major ``proj [T, 2B, 3H]`` f32 (the hoisted input
 projections plus biases; direction-0 rows, then direction-1 rows already
@@ -22,8 +23,8 @@ import torch
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
-# kernel launches through gru_forward (by carry type) and gru_backward
-launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0}
+# kernel launches through gru_forward and gru_backward, by operand type
+launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0, "gru_bwd_bf16": 0}
 
 _SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
 _JT = 4               # hidden units per block (csrc/gru.cu)
@@ -58,14 +59,23 @@ def gru_forward_plain(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
 
 def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
                        gy: torch.Tensor, wh: torch.Tensor,
-                       bn: torch.Tensor) -> tuple:
+                       bn: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> tuple:
     """The reversed walk in plain PyTorch, as ``_bwd_kernel``
     (``gru.py:113-190``): the gates are recomputed from ``ysp`` (the
     outputs shifted by one step), and the walk returns
-    ``(dproj [T, 2B, 3H], dwh [2, H, 3H], dbn [2, H])``."""
+    ``(dproj [T, 2B, 3H], dwh [2, H, 3H], dbn [2, H])``.  ``dtype`` is the
+    products' operand type (``dot_dtype``): with bf16, ``h_{t-1}``, ``Wh``
+    and the ``dcol`` rows are rounded to bf16 before each product (the
+    rounded ``h_{t-1}`` is the bf16 forward's carry, bit for bit), while
+    ``dz``'s ``h_{t-1}``, the gates, ``dbn`` and the sums stay f32."""
     t, b, h = _dims(proj)
+
+    def op(v):
+        return v.to(dtype).float()
+
     ysp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
-    wh = wh.float()
+    wh = op(wh.float())
     bnb = bn.float()[:, None]
     dh = torch.zeros(2, b, h, dtype=torch.float32, device=proj.device)
     dproj = torch.empty_like(proj, dtype=torch.float32)
@@ -74,7 +84,8 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
     for step in range(t - 1, -1, -1):
         pp = proj[step].float().reshape(2, b, 3 * h)
         h_prev = ysp[step].reshape(2, b, h)
-        rzn = torch.bmm(h_prev, wh)
+        h_op = op(h_prev)
+        rzn = torch.bmm(h_op, wh)
         r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
         z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
         an = rzn[..., 2 * h:] + bnb
@@ -88,9 +99,9 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
         da_z = dz * z * (1 - z)
         drzn_n = da_n * r
         dproj[step] = torch.cat([da_r, da_z, da_n], -1).reshape(2 * b, 3 * h)
-        dcol = torch.cat([da_r, da_z, drzn_n], -1)          # [2, B, 3H]
+        dcol = op(torch.cat([da_r, da_z, drzn_n], -1))      # [2, B, 3H]
         dh = dhp * z + torch.bmm(dcol, wh.transpose(1, 2))
-        dwh += torch.bmm(h_prev.transpose(1, 2), dcol)
+        dwh += torch.bmm(h_op.transpose(1, 2), dcol)
         dbn += drzn_n.sum(dim=1)
     return dproj, dwh, dbn
 
@@ -161,52 +172,61 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
 
 
 def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
-                 wh: torch.Tensor, bn: torch.Tensor) -> tuple:
-    """Gradients ``(dproj, dwh, dbn)`` of the f32 recurrence, given its
-    inputs, its outputs ``ys`` and their gradient ``gy``."""
+                 wh: torch.Tensor, bn: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> tuple:
+    """Gradients ``(dproj, dwh, dbn)`` of the recurrence, given its inputs,
+    its outputs ``ys`` and their gradient ``gy``, with f32 or bf16 product
+    operands (``dtype``)."""
     _check(proj, wh, bn)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the operands are float32 or bfloat16")
     if not proj.is_cuda:
-        return gru_backward_plain(proj, ys, gy, wh, bn)
+        return gru_backward_plain(proj, ys, gy, wh, bn, dtype)
     t, b, h = _dims(proj)
     _check_shape_for_kernel(
         b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)
-                   + b * 3 * _JT))
+                   + b * (4 if dtype == torch.bfloat16 else 3) * _JT))
     proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
+    name = "gru_bwd" if dtype == torch.float32 else "gru_bwd_bf16"
+    whk = wh if dtype == torch.float32 else wh.to(dtype).float()
     dev = proj.device
     dproj = torch.empty_like(proj)
     dwh = torch.zeros_like(wh)
     dbn = torch.zeros_like(bn)
     dcol = torch.empty(2, 2 * b, 3 * h, dtype=torch.float32, device=dev)
     part = torch.empty(2 * b, h, dtype=torch.float32, device=dev)
-    fn = _build.function("gru", "ttg_gru_bwd", [_P] * 10 + [_I] * 3 + [_P])
-    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
+    fn = _build.function("gru", f"ttg_{name}", [_P] * 10 + [_I] * 3 + [_P])
+    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), whk.data_ptr(),
              bn.data_ptr(), dproj.data_ptr(), dwh.data_ptr(), dbn.data_ptr(),
              dcol.data_ptr(), part.data_ptr(), t, b, h, _build.stream())
-    launches["gru_bwd"] += 1
-    _build.check(err, "ttg_gru_bwd")
+    launches[name] += 1
+    _build.check(err, f"ttg_{name}")
     return dproj, dwh, dbn
 
 
 class BiGRUFunction(torch.autograd.Function):
-    """The f32 recurrence with the hand-written backward
-    (``bigru_pallas_trainable``): the forward saves ``(proj, ys, wh, bn)``
-    as ``_bigru_fwd`` does, and the backward walks them reversed."""
+    """The recurrence with the hand-written backward: with ``dtype`` f32,
+    ``bigru_pallas_trainable``; with bf16, ``bigru_pallas_trainable_bf16``
+    (bf16 carry forward, bf16-operand backward).  The forward saves
+    ``(proj, ys, wh, bn)`` as ``_bigru_fwd`` does, and the backward walks
+    them reversed."""
 
     @staticmethod
-    def forward(ctx, proj, wh, bn):
-        ys = gru_forward(proj, wh, bn, torch.float32)
+    def forward(ctx, proj, wh, bn, dtype):
+        ys = gru_forward(proj, wh, bn, dtype)
         ctx.save_for_backward(proj, ys, wh, bn)
+        ctx.dtype = dtype
         return ys
 
     @staticmethod
     def backward(ctx, gy):
         proj, ys, wh, bn = ctx.saved_tensors
-        dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn)
-        return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype)
+        dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype)
+        return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype), None
 
 
-def bigru_trainable(proj: torch.Tensor, wh: torch.Tensor,
-                    bn: torch.Tensor) -> torch.Tensor:
+def bigru_trainable(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """f32 ``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]``, differentiable in all
-    three inputs."""
-    return BiGRUFunction.apply(proj, wh, bn)
+    three inputs; ``dtype`` is the recurrence's operand type."""
+    return BiGRUFunction.apply(proj, wh, bn, dtype)

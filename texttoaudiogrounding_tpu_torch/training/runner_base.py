@@ -145,8 +145,12 @@ class BaseRunner:
         else:
             scheduler = ReduceLROnPlateau(mode=monitor["mode"])
         n_params = sum(p.numel() for p in model.parameters())
+        # f32 parameters; the audio encoder computes in its own dtype
+        compute = getattr(getattr(model, "audio_encoder", model), "dtype",
+                          torch.float32)
         self.logger.info(
-            f"{n_params} parameters; device {self.device}; TF32 "
+            f"{n_params} parameters; device {self.device}; compute "
+            f"{str(compute).replace('torch.', '')}; TF32 "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 
         record = {"train_loss": [], "val_loss": [], "step_loss": []}

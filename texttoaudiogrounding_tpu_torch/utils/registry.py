@@ -5,15 +5,20 @@ strong-supervision config (``configs/strong/biencoder_train.yaml``) uses,
 resolved to the port's classes, and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
-dicts inside ``args`` (a collate's tokenizer) are built first.  The table
-is filled on first use, so importing this module imports no model.
+dicts inside ``args`` (a collate's tokenizer) are built first, and a
+string ``dtype`` in ``args`` becomes a torch dtype (``dtype: bfloat16``
+selects the mixed-precision mode, ``registry.py:78-81``).  The table is
+filled on first use, so importing this module imports no model.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 _REGISTRY: dict[str, Callable] = {}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _fill() -> None:
@@ -53,12 +58,22 @@ def _is_component_cfg(value: Any) -> bool:
     return isinstance(value, dict) and "type" in value
 
 
+def _arg(key: str, value: Any) -> Any:
+    if _is_component_cfg(value):
+        return instantiate(value)
+    if key == "dtype" and isinstance(value, str):
+        if value not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        return _DTYPES[value]
+    return value
+
+
 def instantiate(config: dict, **kwargs) -> Any:
     """Build an object from a ``type``/``args`` dict; ``kwargs`` are passed
     to the top-level builder and win."""
     if "type" not in config:
         raise ValueError(f"component config missing 'type': {config}")
-    obj_args = {key: instantiate(value) if _is_component_cfg(value) else value
+    obj_args = {key: _arg(key, value)
                 for key, value in config.get("args", {}).items()}
     for key, value in config.items():
         if key not in ("type", "args") and key not in kwargs \
