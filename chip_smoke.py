@@ -13,8 +13,10 @@ Phases, each printing one line:
    stated tolerance, and time both with CUDA events: the four serving
    kernels at the largest request's bucket (32 clips of 10 s at 32 kHz);
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
-   with f32 and with bf16 operands, each gradient held on its own) at
-   T = 250, 2B = 64, H = 256, the bf16-operand backward also at T = 2,
+   with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
+   v3, whose walk and dWh product are also timed apart; each gradient
+   held on its own) at T = 250, 2B = 64, H = 256, the bf16-operand
+   backward also at T = 2,
    where its bf16 roundings are held tight enough that the backward
    without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
    the same weights as a yardstick and a third opinion; and the training
@@ -60,7 +62,22 @@ Phases, each printing one line:
    the waveform is scaled by 1 + 1e-6; then three routes are timed (CUDA
    events, 5 steps, in turns a b c c b a) and profiled once each: (a)
    plain bf16 with the f32 GRU kernel, (b) ``bn_pool`` on all four blocks
-   + the bf16 GRU, (c) ``pool_vjp`` on all four blocks + the bf16 GRU.
+   + the bf16 GRU, (c) ``pool_vjp`` on all four blocks + the bf16 GRU;
+6. train_weak: ``WeakPhraseRunner.fit`` on the phrase-level WSTAG config
+   (``configs/weak_phrase/cnn8rnn_w2vmean_similarity.yaml``:
+   MultiTextBiEncoder(Cnn8Rnn f32, EmbeddingAgg(5221, 512), DotProduct,
+   shared 512, no projections, linear-softmax pooling), ClipBceLoss, Adam
+   1e-3 with clipping at 1.0) at full width, batches of 32 clips x 10 s x
+   32 phrases from ``AudioSamplePhrasesDataset`` with similarity-sampled
+   negatives over data made in memory (noise clips, captions from a
+   seeded phrase pool, a random 512-d phrase embedding), 2 epochs of 4
+   steps with validation, once with each hoisted GRU backward; the counts
+   must rise by one ``gru_fwd`` and one ``gru_bwd_v2`` (or ``_v3``) per
+   train step and one ``gru_fwd`` per validation step, checkpoints must
+   exist, the loss must fall over 8 steps on one batch and both routes'
+   gradients lie within stated relative RMS limits of the all-plain
+   path's; then the step is timed with each GRU backward, (a) v1, (b) v2,
+   (c) v3, in turns a b c c b a, and profiled once each.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -392,6 +409,10 @@ def gru_kernel_phase(clips: int, rng) -> list:
     grads16 = gru.gru_backward(proj, ys16_plain, gy, wh, bn, b16)
     grads16_plain = gru.gru_backward_plain(proj, ys16_plain, gy, wh, bn, b16)
     short = _gru_bf16_short(proj, gy, wh, bn)
+    hoisted = {v: gru.gru_backward_hoisted(proj, ys_plain, gy, wh, bn, v)
+               for v in gru.VARIANTS}
+    hoisted_plain = {v: gru.gru_backward_hoisted_plain(
+        proj, ys_plain, gy, wh, bn, v == "v3") for v in gru.VARIANTS}
 
     # the per-step launch floor: the same walks at B = 1, H = 4
     tiny = (torch.zeros(t, 2, 12, device=dev), torch.zeros(2, 4, 12,
@@ -401,11 +422,36 @@ def gru_kernel_phase(clips: int, rng) -> list:
     floor_fwd = _cuda_ms(lambda: gru.gru_forward(*tiny), 10)
     floor_bwd = _cuda_ms(lambda: gru.gru_backward(
         tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:]), 10)
+    floor_walk = {v: _cuda_ms(lambda v=v: gru.gru_walk(
+        tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:], v), 10)
+        for v in gru.VARIANTS}
 
     fwd_bytes = 4 * (proj.numel() + ys.numel() + wh.numel() + bn.numel())
     fwd_ops = 2.0 * t * 2 * b * h * 3 * h
     bwd_bytes = 4 * (2 * proj.numel() + 2 * ys.numel() + 2 * wh.numel()
                      + 2 * bn.numel())
+    # the hoisted backward in its two parts: the walk (gate recompute and
+    # dh chain; reads proj, ys, gy, wh, bn, writes dproj and drznn) and
+    # the dWh product (reads ys, dproj's r/z thirds and drznn, writes dwh
+    # and dbn), timed apart and together
+    walk_bound = _bound(4 * (2 * proj.numel() + 3 * ys.numel() + wh.numel()
+                             + bn.numel()), {"f32": 2 * fwd_ops})
+    product_bound = _bound(4 * (proj.numel() * 2 // 3 + 2 * ys.numel()
+                                + wh.numel() + bn.numel()),
+                           {"f32": fwd_ops})
+    parts = {}
+    for v in gru.VARIANTS:
+        dproj_v, drznn_v = gru.gru_walk(proj, ys_plain, gy, wh, bn, v)
+        parts[v] = {
+            "walk_ms": _cuda_ms(lambda v=v: gru.gru_walk(
+                proj, ys_plain, gy, wh, bn, v), 10),
+            "dwh_product_ms": _cuda_ms(
+                lambda d=dproj_v, r=drznn_v: gru.hoisted_weight_grads(
+                    ys_plain, d, r), 10),
+            "walk_bound_ms": walk_bound[0],
+            "dwh_product_bound_ms": product_bound[0],
+            "walk_latency_floor_ms": floor_walk[v]}
+        del dproj_v, drznn_v
     lib_fwd_ms = _cuda_ms(lambda: lib(x), 10)
     lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
     with torch.no_grad():
@@ -451,7 +497,19 @@ def gru_kernel_phase(clips: int, rng) -> list:
              bound=_bound(bwd_bytes, {"bf16": 3 * fwd_ops}),
              library_ms=lib16_fwd_bwd_ms - lib16_grad_fwd_ms,
              library_fwd_bwd_ms=lib16_fwd_bwd_ms, latency_floor_ms=floor_bwd),
-    ]
+    ] + [
+        dict(name=f"gru_bwd_{v}", got=hoisted[v], ref=hoisted_plain[v],
+             tol=1e-4, parts=parts[v],
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:"
+             + {"v2": "540", "v3": "566"}[v],
+             kernel=lambda v=v: gru.gru_backward_hoisted(
+                 proj, ys_plain, gy, wh, bn, v),
+             plain=lambda v=v: gru.gru_backward_hoisted_plain(
+                 proj, ys_plain, gy, wh, bn, v == "v3"),
+             bound=_bound(bwd_bytes, {"f32": 3 * fwd_ops}),
+             library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+             library_fwd_bwd_ms=lib_fwd_bwd_ms, latency_floor_ms=floor_bwd)
+        for v in gru.VARIANTS]
     out = []
     for row in rows:
         max_abs, rel = _max_err(row["got"], row["ref"])
@@ -464,6 +522,7 @@ def gru_kernel_phase(clips: int, rng) -> list:
         extra = {k: row[k] for k in ("library_fwd_bwd_ms",
                                      "library_max_abs_diff", "short_T")
                  if k in row}
+        extra.update(row.get("parts", {}))
         out.append({
             "name": row["name"], "route": "cuda",
             "source": "texttoaudiogrounding_tpu_torch/csrc/gru.cu",
@@ -1153,9 +1212,220 @@ def training_bf16_phase(tok) -> dict:
     return report
 
 
+# The WSTAG config (configs/weak_phrase/cnn8rnn_w2vmean_similarity.yaml)
+# at full width: 32 clips x 10 s x 32 phrases a batch, the vocabulary's
+# 5221 words, a seeded pool of phrases and a random 512-d phrase embedding
+WEAK_VOCAB, WEAK_PHRASES, WEAK_POOL = 5221, 32, 3000
+WEAK_ROUTES = {"a_v1": None, "b_v2": "v2", "c_v3": "v3"}
+
+
+def _weak_config(exp_dir: str, **audio_args) -> dict:
+    """The similarity config's model, loss, optimizer, scheduler and
+    trainer, the epochs cut to ``TRAIN_EPOCHS`` of ``TRAIN_STEPS``."""
+    return {
+        "experiment_path": exp_dir, "seed": 1,
+        "model": {"type": "MultiTextBiEncoder",
+                  "args": {"shared_dim": 512, "add_proj": False,
+                           "pooling": "linear_softmax",
+                           "text_forward_keys": ["text", "text_len"]},
+                  "audio_encoder": {"type": "Cnn8Rnn", "args": {
+                      "sample_rate": SR, "freeze_cnn": False,
+                      "freeze_bn": False, **audio_args}},
+                  "text_encoder": {"type": "EmbeddingAgg",
+                                   "args": {"vocab_size": WEAK_VOCAB,
+                                            "embed_dim": 512}},
+                  "match_fn": {"type": "DotProduct", "args": {}}},
+        "loss": {"type": "ClipBceLoss", "args": {}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "patience": 3}},
+        "trainer": {"epochs": TRAIN_EPOCHS, "epoch_length": TRAIN_STEPS,
+                    "early_stop": 10, "save_interval": 10,
+                    "include_optim_in_ckpt": False, "max_grad_norm": 1.0,
+                    "metric_monitor": {"mode": "min", "name": "loss"}},
+    }
+
+
+def _weak_loaders(tmp: str, tok, seed: int) -> tuple:
+    """(train, validation) loaders of ``AudioSamplePhrasesDataset`` over
+    data made in memory: captions of 2-6 phrases from a seeded pool over
+    the vocabulary, a random 512-d phrase embedding written as the
+    ``.pkl`` the similarity strategy reads, and 10 s noise clips (the
+    dataset's ``load_audio`` returns one of 16 made once, in float16 as
+    the packed HDF5 files hold)."""
+    import pickle
+    import zlib
+
+    import numpy as np
+
+    from texttoaudiogrounding_tpu_torch.data.collate import TextCollate
+    from texttoaudiogrounding_tpu_torch.data.datasets import (
+        AudioSamplePhrasesDataset)
+    from texttoaudiogrounding_tpu_torch.data.loader import build_loader
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(2, WEAK_VOCAB)]
+    pool = sorted({" ".join(rng.choice(words, int(rng.integers(1, 5))))
+                   for _ in range(WEAK_POOL)})
+    emb_path = Path(tmp) / "phrase_embedding.pkl"
+    with open(emb_path, "wb") as f:
+        pickle.dump({p: rng.normal(size=512).astype(np.float32)
+                     for p in pool}, f)
+    noise = [rng.normal(0, 0.01, SR * CLIP_S).astype(np.float16)
+             for _ in range(16)]
+
+    class InMemory(AudioSamplePhrasesDataset):
+        def load_audio(self, audio_id, file_path):
+            return noise[zlib.crc32(audio_id.encode()) % len(noise)]
+
+    def dataset(prefix: str, count: int):
+        label = [{"audiocap_id": i, "audio_id": f"{prefix}{i}",
+                  "tokens": "",
+                  "phrases": [str(p) for p in rng.choice(
+                      pool, int(rng.integers(2, 7)), replace=False)]}
+                 for i in range(count)]
+        index = Path(tmp) / f"{prefix}_waveform.csv"
+        index.write_text("audio_id\tfile_path\n" + "".join(
+            f"{it['audio_id']}\tmemory.h5\n" for it in label))
+        return InMemory(str(index), label, phrase_num=WEAK_PHRASES,
+                        fix_neg=False, neg_samp_stratg="similarity",
+                        max_audio_length=float(CLIP_S),
+                        phrase_embed=str(emb_path), sim_threshold=0.5,
+                        seed=seed)
+
+    collate = TextCollate(tok, text_key="phrases", pad_keys=["waveform"],
+                          pad_buckets={"waveform": 32000}, text_bucket=4)
+    train = dataset("train", TRAIN_CLIPS * TRAIN_STEPS * TRAIN_EPOCHS)
+    val = dataset("val", TRAIN_CLIPS * VAL_STEPS)
+    return (build_loader(train, collate, seed, batch_size=TRAIN_CLIPS,
+                         shuffle=True, drop_last=True),
+            build_loader(val, collate, seed, batch_size=TRAIN_CLIPS))
+
+
+def training_weak_phase(tok) -> dict:
+    """``WeakPhraseRunner.fit`` on the WSTAG similarity config at full
+    width, once with each hoisted backward (``gru_bwd`` v2, then v3),
+    the counts set to 0 before each fit; gradients of both against the
+    all-plain path, the loss on one batch, checkpoints; then the three
+    GRU backwards timed in turns a b c c b a and profiled once each."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseRunner, weak_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    report: dict = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
+                    "phrases_per_clip": WEAK_PHRASES, "fits": {}}
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    vals = TRAIN_EPOCHS * VAL_STEPS
+    runner = WeakPhraseRunner(device=DEVICE)
+    with tempfile.TemporaryDirectory(prefix="ttg_train_weak_") as tmp:
+        for bwd in ("v2", "v3"):
+            config = runner.setup(_weak_config(f"{tmp}/{bwd}", gru_bwd=bwd))
+            exp_dir = runner.prepare_experiment()
+            train_loader, val_loader = _weak_loaders(tmp, tok,
+                                                     config["seed"])
+            model = runner.build_model()
+            sd = random_state_dict(model, seed=2)
+            model.load_state_dict(sd)
+            loss_fn = runner.build_loss()
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            record = runner.fit(model, loss_fn, train_loader, val_loader,
+                                weak_output_transform, exp_dir)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = _counts()
+            want = _want(gru_fwd=steps + vals, **{f"gru_bwd_{bwd}": steps})
+            if launches != want:
+                raise AssertionError(f"weak fit ({bwd}): kernel launches "
+                                     f"{launches}, expected {want}")
+            if not all(np.isfinite(record["step_loss"]
+                                   + record["val_loss"])):
+                raise AssertionError(f"weak fit ({bwd}): loss not finite "
+                                     f"{record}")
+            for name in ("best.pth", "last.pth", "train.log"):
+                if not (exp_dir / name).is_file():
+                    raise AssertionError(f"weak fit ({bwd}): {name} not "
+                                         "written")
+            ckpt = torch.load(exp_dir / "last.pth", weights_only=True)
+            if not ckpt["save_trainable_only"]:
+                raise AssertionError("weak fit: save_trainable_only unset")
+            report["fits"][bwd] = {"fit_s": fit_s, "launches": launches,
+                                   "step_loss": record["step_loss"],
+                                   "val_loss": record["val_loss"]}
+        batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
+
+    # gradients of both hoisted routes against the all-plain path
+    plain_cfg = _weak_config("", gru_kernel=False, dropout=[0.0, 0.0])
+    ref_model = instantiate(plain_cfg["model"], device=DEVICE)
+    ref_model.load_state_dict(sd)
+    ref = _grads(ref_model, batch, weak_output_transform, loss_fn)
+    del ref_model
+    worst = {}
+    for bwd in ("v2", "v3"):
+        m = instantiate(_weak_config("", gru_bwd=bwd,
+                                     dropout=[0.0, 0.0])["model"],
+                        device=DEVICE)
+        m.load_state_dict(sd)
+        gaps = _gaps(_grads(m, batch, weak_output_transform, loss_fn), ref)
+        worst[bwd] = _worst(gaps)
+        if worst[bwd][0] > 2e-2 or worst[bwd][1] > 1e-4:
+            raise AssertionError(
+                f"weak gradients ({bwd}) off the plain path: trunk "
+                f"{worst[bwd][0]}, rest {worst[bwd][1]} (limits 2e-2, "
+                f"1e-4): {sorted(gaps.items(), key=lambda kv: -kv[1])[:6]}")
+        del m
+    del ref
+
+    # the loss falls over 8 steps on one fixed batch
+    model.load_state_dict(sd)
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = [float(runner.train_step(model, loss_fn, opt, batch,
+                                      weak_output_transform))
+              for _ in range(8)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"weak loss on a fixed batch does not fall: "
+                             f"{losses}")
+    del model, opt
+
+    # the three GRU backwards, timed in turns a b c c b a
+    models = {}
+    for name, bwd in WEAK_ROUTES.items():
+        m = instantiate(_weak_config("", gru_bwd=bwd)["model"], device=DEVICE)
+        m.load_state_dict(sd)
+        models[name] = (m, Optimizer(config["optimizer"], m.parameters(),
+                                     1.0))
+    runs = {name: [] for name in WEAK_ROUTES}
+    for name in list(WEAK_ROUTES) + list(reversed(WEAK_ROUTES)):
+        m, opt = models[name]
+        runs[name].append(_cuda_ms(lambda: runner.train_step(
+            m, loss_fn, opt, batch, weak_output_transform), 5))
+    routes = {}
+    for name, (m, opt) in models.items():
+        ms = float(np.mean(runs[name]))
+        routes[name] = {
+            "gru_bwd": WEAK_ROUTES[name], "step_ms": ms,
+            "step_ms_runs": runs[name], "clips_per_s": TRAIN_CLIPS * 1e3 / ms,
+            "trace": _trace(lambda: runner.train_step(
+                m, loss_fn, opt, batch, weak_output_transform), ms)}
+    report.update(
+        grad_rel_rms_max={k: {"trunk": v[0], "rest": v[1]}
+                          for k, v in worst.items()},
+        fixed_batch_loss=losses, routes=routes)
+    return report
+
+
 _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
                  "conv1_kernel", "clip_scale_kernel", "gru_fwd_step",
-                 "gru_bwd_step", "dual_pool_", "bn_pool_")
+                 "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
@@ -1293,11 +1563,27 @@ def main() -> int:
                            "gru_ms", "conv_ms")}}
                    for k, v in train16["routes"].items()}}), flush=True)
 
+    weak = training_weak_phase(tok)
+    report["train_weak"] = weak
+    print(json.dumps({"phase": "train_weak", "card": smi, **{
+        k: weak[k] for k in ("grad_rel_rms_max", "fixed_batch_loss")},
+        "fits": {k: {"fit_s": v["fit_s"], "launches": v["launches"]}
+                 for k, v in weak["fits"].items()},
+        "routes": {k: {"step_ms": v["step_ms"],
+                       "step_ms_runs": v["step_ms_runs"],
+                       "clips_per_s": v["clips_per_s"],
+                       **{m: v["trace"][m] for m in (
+                           "device_idle_share", "launches", "gru_ms",
+                           "conv_ms")}}
+                   for k, v in weak["routes"].items()}}), flush=True)
+
     # launches on each path, counted from zero just before it
     by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
                            serving["gru_fwd_bf16_launches"]},
                "train": train["fit_launches"],
-               "train_bf16": train16["fit_launches"]}
+               "train_bf16": train16["fit_launches"],
+               **{f"train_weak_{k}": v["launches"]
+                  for k, v in weak["fits"].items()}}
     for row in kernels:
         row["launches_by_path"] = {p: c.get(row["name"], 0)
                                    for p, c in by_path.items()}

@@ -14,9 +14,15 @@ from a seed, go through the JAX kernels in interpret mode and the port:
   backward) against ``bigru_pallas_trainable_bf16(..., interpret=True)``
   and its ``jax.grad``: rtol 1e-5 / atol 1e-5 (the same bf16 roundings;
   measured at most 5e-7 apart on these cases);
+* the hoisted backwards (the walk without dWh / dbn, then one product)
+  against ``bigru_pallas_trainable_v2`` / ``_v3(..., interpret=True)`` and
+  their ``jax.grad``: rtol 2e-4, atol 2e-5, as the f32 backward (measured
+  at most 6.0e-7 apart); v1, v2 and v3 against one another: rtol 1e-5,
+  atol 1e-6 (f32 sums in three orders; measured at most 9.5e-7 apart);
 * the port's ``autograd.Function`` against torch autograd through the
   plain forward: rtol 1e-5, atol 1e-6;
-* the ``BiGRU`` module through the kernel path against its grouped loop.
+* the ``BiGRU`` module through the kernel path against its grouped loop,
+  with each f32 backward.
 The kernels themselves run only on a CUDA card; ``chip_smoke.py`` holds
 them against these plain versions there.
 """
@@ -31,6 +37,8 @@ from texttoaudiogrounding_tpu.ops.pallas.gru import (
     bigru_pallas,
     bigru_pallas_trainable,
     bigru_pallas_trainable_bf16,
+    bigru_pallas_trainable_v2,
+    bigru_pallas_trainable_v3,
 )
 from texttoaudiogrounding_tpu_torch.models.layers import BiGRU
 from texttoaudiogrounding_tpu_torch.ops.kernels import gru
@@ -108,6 +116,48 @@ def test_bf16_trainable_matches_the_jax_kernel():
     assert float((f32[1] - leaves[1].grad).abs().max()) > 1e-3
 
 
+@pytest.mark.parametrize("variant", gru.VARIANTS)
+def test_hoisted_backward_matches_the_jax_kernel(variant):
+    proj, wh, bn, gy = _case(13)
+    fn = {"v2": bigru_pallas_trainable_v2,
+          "v3": bigru_pallas_trainable_v3}[variant]
+
+    def loss(p, w, c):
+        return jnp.sum(fn(p, w, c, interpret=True) * gy)
+
+    args = [jnp.asarray(a) for a in (proj, wh, bn)]
+    ref_grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (proj, wh, bn)]
+    ys = gru.bigru_trainable(*leaves, variant=variant)
+    np.testing.assert_allclose(ys.detach().numpy(),
+                               np.asarray(fn(*args, interpret=True)),
+                               rtol=2e-4, atol=2e-5)
+    (ys * torch.from_numpy(gy)).sum().backward()
+    for name, x, ref in zip(("dproj", "dwh", "dbn"), leaves, ref_grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_v1_v2_v3_backwards_agree():
+    proj, wh, bn, gy = (torch.from_numpy(a) for a in _case(17))
+    ys = gru.gru_forward(proj, wh, bn)
+    v1 = gru.gru_backward(proj, ys, gy, wh, bn)
+    walks = {}
+    for variant in gru.VARIANTS:
+        got = gru.gru_backward_hoisted(proj, ys, gy, wh, bn, variant)
+        for name, a, b in zip(("dproj", "dwh", "dbn"), got, v1):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=(variant, name))
+        walks[variant] = gru.gru_walk(proj, ys, gy, wh, bn, variant)
+        # drznn is the n third of dcol, da_n r, not dproj's da_n
+        assert not torch.equal(walks[variant][1], walks[variant][0][..., 16:])
+    # the two dh chains differ only in their f32 summation order
+    np.testing.assert_allclose(walks["v2"][0].numpy(),
+                               walks["v3"][0].numpy(), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="variant"):
+        gru.gru_walk(proj, ys, gy, wh, bn, "v4")
+
+
 def test_autograd_function_matches_autograd_of_the_plain_forward():
     proj, wh, bn, gy = _case(9)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (proj, wh, bn)]
@@ -136,16 +186,21 @@ def test_bigru_initialises_like_the_jax_tree():
             assert not getattr(rnn, name + sfx).any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bigru_kernel_path_matches_the_grouped_loop(dtype):
+@pytest.mark.parametrize("dtype,bwd", [(torch.float32, None),
+                                       (torch.float32, "v2"),
+                                       (torch.float32, "v3"),
+                                       (torch.bfloat16, None)])
+def test_bigru_kernel_path_matches_the_grouped_loop(dtype, bwd):
     rng = np.random.default_rng(3)
     loop = BiGRU(12, H, dtype=dtype, kernel=False)
     sd = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)
                               * 0.3) for k, v in loop.state_dict().items()}
     loop.load_state_dict(sd)
-    assert BiGRU(12, H, dtype=dtype).route() == (
-        dtype, dtype == torch.float32, dtype)
-    kern = BiGRU(12, H, dtype=dtype, kernel=True)
+    assert BiGRU(12, H, dtype=dtype, bwd=bwd).route() == (
+        dtype, dtype == torch.float32, dtype, bwd)
+    assert BiGRU(12, H, bwd=bwd).route(torch.bfloat16) == (
+        torch.bfloat16, False, torch.bfloat16, None)      # serving: loop
+    kern = BiGRU(12, H, dtype=dtype, kernel=True, bwd=bwd)
     kern.load_state_dict(sd)
     x = torch.from_numpy(rng.normal(size=(B, T, 12)).astype(np.float32))
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()

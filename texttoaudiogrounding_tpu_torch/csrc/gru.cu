@@ -39,6 +39,22 @@
 // gate arithmetic, dz's h_{t-1}, dproj, dh, dbn and the accumulators stay
 // f32.
 //
+// The hoisted backward replaces gru.py:540 bigru_pallas_trainable_v2 and
+// :566 bigru_pallas_trainable_v3 (walks :302 _bwd_kernel_v2 and :359
+// _bwd_kernel_v3): the same reversed walk with no dWh or dbn inside it.
+// Each step writes dproj[t] = [da_r | da_z | da_n] and drznn[t] = da_n r,
+// and the caller takes dWh[g] = sum_{t,b} h_{t-1}^T [da_r | da_z | drznn]
+// and dbn = sum drznn as one f32 matrix product and a sum after the walk
+// (outside any kernel, as the JAX package leaves them to XLA).  Without
+// its B x H x 3JT FMA loop a step launch does only the dh chain and the
+// gate recompute, and step t+1's dcol rows need no scratch: they are read
+// back from dproj[t+1] (r and z thirds) and drznn[t+1] (the n third).  v2
+// sums the dh chain as one K = 3H dot, v3 as three K = H dots added in
+// gate order, as the two TPU kernels do.  Bound on the H100 at the shapes
+// below: the walk moves 150 MB for 12.6 GFLOP f32 (0.19 ms), the dWh
+// product 6.3 GFLOP more (0.094 ms); the 250 dependent steps are the real
+// limit here too.
+//
 // Bound on the H100 at T = 250, B = 32, H = 256: the forward moves 67 MB
 // (proj 49 MB, ys 16 MB) for 6.3 GFLOP f32 (0.094 ms at 67 TFLOP/s); the
 // backward 131 MB for 18.9 GFLOP (0.28 ms).  Both are really limited by
@@ -291,6 +307,109 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// sum over c = ks, ks + KS, ... < n4 of d[c] . w[4c .. 4c + 3], on a
+// running sum s (one lane's share of a dot product split over KS lanes)
+__device__ __forceinline__ float dot4(const float4* d, const float* w,
+                                      int ks, int n4, float s) {
+#pragma unroll 4
+  for (int c = ks; c < n4; c += KS) {
+    const float4 v = d[c];
+    s = fmaf(v.x, w[4 * c], s);
+    s = fmaf(v.y, w[4 * c + 1], s);
+    s = fmaf(v.z, w[4 * c + 2], s);
+    s = fmaf(v.w, w[4 * c + 3], s);
+  }
+  return s;
+}
+
+// The walk of the hoisted backward (v2 / v3): gru_bwd_step's gate
+// recompute and dh chain without its dWh / dbn accumulation.  The dcol
+// rows of step t + 1 are read straight from that step's outputs:
+// [da_r | da_z] from dproj[t + 1] and da_n r from drznn[t + 1], which this
+// launch writes for step t.  PER_THIRD sums the dh chain as v3 does,
+// ((dhp z + da_r Wr^T) + da_z Wz^T) + drznn Wn^T, three K = H dots;
+// otherwise as v2, dhp z + dcols Wh^T, one K = 3H dot.
+template <bool PER_THIRD>
+__global__ void __launch_bounds__(THREADS)
+    gru_bwd_walk(const float* __restrict__ proj, const float* __restrict__ ys,
+                 const float* __restrict__ gy, const float* __restrict__ wh,
+                 const float* __restrict__ bn, float* __restrict__ dproj,
+                 float* __restrict__ drznn, float* __restrict__ part, int t,
+                 int T, int B, int H) {
+  extern __shared__ float smem[];
+  const int ldr = 3 * H + 1;
+  float* hs = smem;                          // [B][H + 1]   h_{t-1}
+  float* wc = hs + hs_floats(B, H);          // [H][3][JT]   Wh columns
+  float* wr = wc + H * 3 * JT;               // [JT][3H + 1] Wh rows
+  const int g = blockIdx.y, j0 = blockIdx.x * JT;
+  const int H3 = 3 * H;
+  const float* yprev =
+      t > 0 ? ys + (size_t)(t - 1) * 2 * B * H : (const float*)nullptr;
+  stage<float>(yprev, wh, hs, wc, g, j0, B, H);
+  const bool chain = t < T - 1;
+  if (chain) {
+    const float* w = wh + (size_t)g * H * H3;
+    const int c4 = H3 / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < JT * c4; i += blockDim.x) {
+      const int jl = i / c4, c = (i % c4) * 4;
+      const float4 v = load4(w + (size_t)(j0 + jl) * H3 + c);
+      float* d = wr + jl * ldr + c;
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+  }
+  __syncthreads();
+
+  const int ks = threadIdx.x % KS, h4 = H / 4;
+  for (int i = threadIdx.x / KS; i < B * JT; i += blockDim.x / KS) {
+    const int b = i / JT, jl = i % JT, j = j0 + jl;
+    const int brow = g * B + b;
+    float dh = 0.0f;
+    if (chain) {
+      const size_t next = (size_t)(t + 1) * 2 * B + brow;
+      const float4* dp = reinterpret_cast<const float4*>(dproj + next * H3);
+      const float4* dnr = reinterpret_cast<const float4*>(drznn + next * H);
+      const float* w = wr + jl * ldr;
+      const float p = part[(size_t)brow * H + j];
+      if (PER_THIRD) {
+        const float sr = group_sum(dot4(dp, w, ks, h4, 0.0f));
+        const float sz = group_sum(dot4(dp + h4, w + H, ks, h4, 0.0f));
+        const float sn = group_sum(dot4(dnr, w + 2 * H, ks, h4, 0.0f));
+        dh = ((p + sr) + sz) + sn;
+      } else {
+        float s = dot4(dp, w, ks, 2 * h4, 0.0f);     // the r and z thirds
+        s = dot4(dnr, w + 2 * H, ks, h4, s);         // the n third
+        dh = p + group_sum(s);
+      }
+    }
+    float ar, az, arn;
+    recurrent_dot(hs, wc, b, jl, ks, H, ar, az, arn);
+    if (ks) continue;
+    const size_t row = (size_t)t * 2 * B + brow;
+    const float* pp = proj + row * H3;
+    const float r = sigmoid_f(pp[j] + ar);
+    const float z = sigmoid_f(pp[H + j] + az);
+    const float an = arn + bn[g * H + j];
+    const float n = tanhf(pp[2 * H + j] + r * an);
+    const float hp = hs[b * (H + 1) + j];
+
+    const float dhp = gy[row * H + j] + dh;
+    const float dn = dhp * (1.0f - z);
+    const float dz = dhp * (hp - n);
+    const float da_n = dn * (1.0f - n * n);
+    const float dr = da_n * an;
+    float* dq = dproj + row * H3;
+    dq[j] = dr * r * (1.0f - r);
+    dq[H + j] = dz * z * (1.0f - z);
+    dq[2 * H + j] = da_n;
+    drznn[row * H + j] = da_n * r;
+    part[(size_t)brow * H + j] = dhp * z;
+  }
+}
+
 size_t fwd_smem(int B, int H) {
   return sizeof(float) * ((size_t)hs_floats(B, H) + (size_t)H * 3 * JT);
 }
@@ -317,6 +436,31 @@ int bwd(const float* proj, const float* ys, const float* gy, const float* wh,
     gru_bwd_step<B16><<<grid, THREADS, smem, s>>>(
         proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol + ((t + 1) % 2) * half,
         dcol + (t % 2) * half, part, t, T, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+size_t walk_smem(int B, int H) {
+  return sizeof(float) * ((size_t)hs_floats(B, H) + (size_t)H * 3 * JT +
+                          (size_t)JT * (3 * H + 1));
+}
+
+template <bool PER_THIRD>
+int walk(const float* proj, const float* ys, const float* gy, const float* wh,
+         const float* bn, float* dproj, float* drznn, float* part, int T,
+         int B, int H, cudaStream_t s) {
+  if (H % JT) return (int)cudaErrorInvalidValue;
+  const size_t smem = walk_smem(B, H);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_walk<PER_THIRD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H / JT, 2);
+  for (int t = T - 1; t >= 0; --t) {
+    gru_bwd_walk<PER_THIRD><<<grid, THREADS, smem, s>>>(
+        proj, ys, gy, wh, bn, dproj, drznn, part, t, T, B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -393,4 +537,27 @@ extern "C" int ttg_gru_bwd_bf16(const float* proj, const float* ys,
                                 int B, int H, void* stream) {
   return bwd<true>(proj, ys, gy, wh, bn, dproj, dwh, dbn, dcol, part, T, B,
                    H, static_cast<cudaStream_t>(stream));
+}
+
+// The walk of the hoisted f32 backward, v2 (the dh chain as one K = 3H
+// dot) and v3 (three K = H dots).  Inputs as ttg_gru_bwd; writes dproj
+// [T, 2B, 3H] and drznn [T, 2B, H] (da_n r, the n third of dcol); scratch
+// part [2B, H].  dWh and dbn are the caller's products over drznn, dproj
+// and the shifted outputs after the walk.
+extern "C" int ttg_gru_bwd_v2(const float* proj, const float* ys,
+                              const float* gy, const float* wh,
+                              const float* bn, float* dproj, float* drznn,
+                              float* part, int T, int B, int H,
+                              void* stream) {
+  return walk<false>(proj, ys, gy, wh, bn, dproj, drznn, part, T, B, H,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ttg_gru_bwd_v3(const float* proj, const float* ys,
+                              const float* gy, const float* wh,
+                              const float* bn, float* dproj, float* drznn,
+                              float* part, int T, int B, int H,
+                              void* stream) {
+  return walk<true>(proj, ys, gy, wh, bn, dproj, drznn, part, T, B, H,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
-"""Frame-level BCE for strong supervision.
+"""BCE losses: frame-level for strong supervision, clip-level for WSTAG.
 
-Port of ``texttoaudiogrounding_tpu/losses.py:23-58`` (reference
-losses.py:11-35): probability BCE with torch ``F.binary_cross_entropy``
-semantics (each log clamped at -100) and its length-masked frame mean.
+Port of ``texttoaudiogrounding_tpu/losses.py:23-71`` (reference
+losses.py:11-43): probability BCE with torch ``F.binary_cross_entropy``
+semantics (each log clamped at -100), its length-masked frame mean and
+its plain mean over the clip-phrase scores.
 """
 
 from __future__ import annotations
@@ -32,3 +33,12 @@ class FrameBceLoss:
         mask = generate_length_mask(output["length"],
                                     frame_sim.shape[1]).to(loss.dtype)
         return torch.sum(loss * mask) / torch.sum(mask)
+
+
+class ClipBceLoss:
+    """Clip-level BCE: the mean over ``clip_sim [B, N]`` against ``label
+    [B, N]`` (1 for a caption's phrases, 0 for sampled negatives)."""
+
+    def __call__(self, output: dict) -> torch.Tensor:
+        return torch.mean(binary_cross_entropy(output["clip_sim"],
+                                               output["label"]))

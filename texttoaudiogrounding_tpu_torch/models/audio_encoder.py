@@ -22,8 +22,10 @@ The JAX package picks its kernels with environment variables
   flagship serving path.
 
 ``bn_pool`` and ``pool_vjp`` list the out-channels of the blocks that run
-the pool kernels (``ConvBlock``); ``gru_bwd="bf16"`` picks the bf16
-trainable GRU (``BiGRU``'s ``bwd``).  The BiGRU is f32 in train mode and
+the pool kernels (``ConvBlock``); ``gru_bwd`` is ``BiGRU``'s ``bwd``:
+``"bf16"`` picks the bf16 trainable GRU, ``"v2"`` / ``"v3"`` the hoisted
+f32 backward.  ``freeze_cnn`` and ``freeze_bn`` are taken, as the shipped
+configs name them, only as False.  The BiGRU is f32 in train mode and
 in the module's dtype in eval mode (``audio_encoder.py:133``): in bf16,
 the grouped loop with bf16 operands and carry unless ``gru_kernel``.
 
@@ -79,8 +81,13 @@ class Cnn8Rnn(nn.Module):
                  gru_kernel: bool | None = None,
                  dropout: tuple = (0.2, 0.5),
                  bn_pool: tuple = (), pool_vjp: tuple = (),
-                 gru_bwd: str | None = None):
+                 gru_bwd: str | None = None, freeze_cnn: bool = False,
+                 freeze_bn: bool = False):
         super().__init__()
+        if freeze_cnn or freeze_bn:
+            raise NotImplementedError(
+                "freeze_cnn / freeze_bn are not ported yet (ROADMAP.md, "
+                "Queue 1 item 4: the freeze masks)")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError("dtype must be torch.float32 or torch.bfloat16")
         if conv_mode is not None and dtype != torch.bfloat16:

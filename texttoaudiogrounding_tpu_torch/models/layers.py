@@ -35,7 +35,7 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.dual_pool import (
 )
 
 CONV_MODES = (None, "bf16", "int8")
-GRU_BWD = (None, "bf16")
+GRU_BWD = (None, "bf16", "v2", "v3")
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
@@ -238,7 +238,11 @@ class BiGRU(nn.Module):
     (``bigru_pallas_trainable``),
     ``"bf16"`` the bf16 one (``bigru_pallas_trainable_bf16``: bf16 carry,
     bf16-operand backward), which also rounds the input projection's
-    operands to bf16 (``layers.py:485-492``).  ``forward``'s ``dtype``
+    operands to bf16 (``layers.py:485-492``); ``"v2"`` / ``"v3"`` the f32
+    recurrence with the hoisted backward (``bigru_pallas_trainable_v2`` /
+    ``_v3``: the walk without dWh, which one product takes after it).  As
+    in the JAX package, ``bwd`` acts on every f32 call through the kernels,
+    so also on the bf16 model's f32 training GRU.  ``forward``'s ``dtype``
     overrides the module's for one call: ``Cnn8Rnn`` in bf16 runs its one
     set of parameters in f32 for training and in bf16 for serving.
     :meth:`route` alone turns the call's dtype, ``kernel`` and ``bwd`` into
@@ -254,10 +258,6 @@ class BiGRU(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  kernel: bool | None = None, bwd: str | None = None):
         super().__init__()
-        if bwd in ("v2", "v3"):
-            raise NotImplementedError(
-                f"the {bwd} GRU backward is not ported yet (ROADMAP.md, "
-                "Queue 2: gru.py bigru_pallas_trainable_v2 / _v3)")
         if bwd not in GRU_BWD:
             raise ValueError(f"bwd must be one of {GRU_BWD}")
         self.hidden = hidden
@@ -288,13 +288,18 @@ class BiGRU(nn.Module):
 
     def route(self, dtype: torch.dtype | None = None) -> tuple:
         """How a call in ``dtype`` (the module's when None) runs:
-        ``(carry type, through the kernels, the products' operand type)``.
-        The operands are bf16 for the bf16 trainable recurrence (an f32 call
-        on the kernels with ``bwd="bf16"``), else the carry's type."""
+        ``(carry type, through the kernels, the products' operand type, the
+        hoisted backward or None)``.  The operands are bf16 for the bf16
+        trainable recurrence (an f32 call on the kernels with
+        ``bwd="bf16"``), else the carry's type; the hoisted backward
+        (``"v2"`` / ``"v3"``) is taken by an f32 call on the kernels."""
         dt = self.dtype if dtype is None else dtype
         kernel = dt == torch.float32 if self._kernel is None else self._kernel
-        b16 = kernel and dt == torch.float32 and self.bwd == "bf16"
-        return dt, kernel, torch.bfloat16 if b16 else dt
+        f32_kernel = kernel and dt == torch.float32
+        b16 = f32_kernel and self.bwd == "bf16"
+        hoisted = self.bwd if f32_kernel and self.bwd in gru.VARIANTS \
+            else None
+        return dt, kernel, torch.bfloat16 if b16 else dt, hoisted
 
     def _direction(self, sfx: str) -> tuple:
         h = self.hidden
@@ -309,7 +314,7 @@ class BiGRU(nn.Module):
         """x ``[B, T, In]`` → ``[B, T, 2H]`` f32; ``dtype`` as the module's
         when None."""
         h = self.hidden
-        dt, kernel, pd = self.route(dtype)
+        dt, kernel, pd, hoisted = self.route(dtype)
         (wi0, bi0, wh0, bn0), (wi1, bi1, wh1, bn1) = (
             self._direction(""), self._direction("_reverse"))
         # operands rounded to ``pd``, products accumulated in f32
@@ -323,7 +328,7 @@ class BiGRU(nn.Module):
             bn = torch.stack([bn0, bn1])                    # [2, H]
             tproj = proj.permute(2, 0, 1, 3).reshape(tlen, 2 * bsz, 3 * h)
             if dt == torch.float32:
-                ys = gru.bigru_trainable(tproj, wh, bn, pd)
+                ys = gru.bigru_trainable(tproj, wh, bn, pd, hoisted)
             else:
                 ys = gru.gru_forward(tproj, wh, bn, dt)
             ys = ys.reshape(tlen, 2, bsz, h).permute(1, 2, 0, 3)

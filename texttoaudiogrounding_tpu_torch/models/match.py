@@ -1,7 +1,10 @@
 """Frame-vs-text match functions: per-frame similarity in (0, 1].
 
 Ports of ``texttoaudiogrounding_tpu/models/match.py:32-72`` (``ExpNegL2``)
-and ``:73-111`` (``DotProduct``; reference models/match.py:10-60).
+and ``:73-111`` (``DotProduct``; reference models/match.py:10-60).  Each
+has a ``pairwise`` form for the phrase models: one audio ``[B, T, D]``
+against its N phrases ``[B, N, D]`` → ``[B, N, T]``, one product with no
+``[B·N, T, D]`` broadcast of the audio.
 """
 
 from __future__ import annotations
@@ -36,6 +39,17 @@ class ExpNegL2(nn.Module):
         diff = audio - text
         return torch.exp(-torch.sqrt(torch.sum(diff * diff, dim=-1) + _EPS))
 
+    def pairwise(self, audio: torch.Tensor, text: torch.Tensor
+                 ) -> torch.Tensor:
+        """``audio [B, T, D]`` × ``text [B, N, D]`` → ``[B, N, T]``, with
+        ``|a - t|² = |a|² + |t|² - 2 a·t``."""
+        audio, text = l2_normalize(audio), l2_normalize(text)
+        a2 = torch.sum(audio * audio, dim=-1)               # [B, T]
+        t2 = torch.sum(text * text, dim=-1)                 # [B, N]
+        at = torch.einsum("btd,bnd->bnt", audio, text)
+        d2 = torch.clamp_min(a2[:, None, :] + t2[:, :, None] - 2.0 * at, 0.0)
+        return torch.exp(-torch.sqrt(d2 + _EPS))
+
 
 class DotProduct(nn.Module):
     def __init__(self, l2norm: bool = False, scale: bool = True,
@@ -60,4 +74,14 @@ class DotProduct(nn.Module):
     def forward(self, audio: torch.Tensor, text) -> torch.Tensor:
         return torch.clamp(torch.sigmoid(self.logits(audio, text)),
                            1e-7, 1.0)
+
+    def pairwise(self, audio: torch.Tensor, text: torch.Tensor
+                 ) -> torch.Tensor:
+        """``audio [B, T, D]`` × ``text [B, N, D]`` → ``[B, N, T]``."""
+        if self.l2norm:
+            audio, text = l2_normalize(audio), l2_normalize(text)
+        raw = torch.einsum("btd,bnd->bnt", audio, text)
+        if self.scale:
+            raw = raw / math.sqrt(audio.shape[-1])
+        return torch.clamp(torch.sigmoid(raw), 1e-7, 1.0)
 

@@ -3,9 +3,13 @@
 Port of ``texttoaudiogrounding_tpu/ops/pallas/gru.py``: ``:62
 bigru_pallas`` (the forward, with an f32 or a bf16 carry), ``:199
 _bigru_bwd`` (its reversed-walk backward, with f32 or bf16 product
-operands) and ``:608 bigru_pallas_trainable`` / ``:283
+operands), ``:412`` / ``:474`` the hoisted backwards of ``:566
+bigru_pallas_trainable_v3`` and ``:540 bigru_pallas_trainable_v2`` (the
+walk without dWh / dbn, which one matrix product and a sum take after
+it), and ``:608 bigru_pallas_trainable`` / ``:283
 bigru_pallas_trainable_bf16`` (forward and backward joined as a custom
-VJP, here :class:`BiGRUFunction` with ``dtype`` f32 or bf16).
+VJP, here :class:`BiGRUFunction` with ``dtype`` f32 or bf16 and, in f32,
+the backward ``variant``).
 
 Contract: time-major ``proj [T, 2B, 3H]`` f32 (the hoisted input
 projections plus biases; direction-0 rows, then direction-1 rows already
@@ -14,7 +18,8 @@ time-flipped), ``wh [2, H, 3H]``, ``bn [2, H]`` → ``ys [T, 2B, H]`` f32.
 Each wrapper launches the kernel for CUDA tensors and runs the plain
 PyTorch version of the same arithmetic for CPU tensors; ``launches``
 counts the kernel launches by wrapper (one call of the C entry point runs
-the whole walk, one CUDA launch per step).
+the whole walk, one CUDA launch per step).  The hoisted backward's dWh
+product after the walk is ``torch.bmm`` in full f32 on either device.
 """
 
 from __future__ import annotations
@@ -23,8 +28,13 @@ import torch
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
-# kernel launches through gru_forward and gru_backward, by operand type
-launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0, "gru_bwd_bf16": 0}
+# kernel launches through gru_forward and gru_backward, by operand type,
+# and through gru_walk, by variant
+launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0, "gru_bwd_bf16": 0,
+            "gru_bwd_v2": 0, "gru_bwd_v3": 0}
+# the hoisted f32 backwards: the dh chain as one K = 3H dot (v2) or as
+# three K = H dots added in gate order (v3)
+VARIANTS = ("v2", "v3")
 
 _SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
 _JT = 4               # hidden units per block (csrc/gru.cu)
@@ -57,6 +67,26 @@ def gru_forward_plain(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
     return torch.stack(ys)
 
 
+def _gates(pp, h_op, wh, bnb, h: int) -> tuple:
+    """The recomputed gates ``(r, z, an, n)`` of one step, ``an`` the
+    recurrent n term with its bias, from the products' operand ``h_op``."""
+    rzn = torch.bmm(h_op, wh)
+    r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
+    z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
+    an = rzn[..., 2 * h:] + bnb
+    return r, z, an, torch.tanh(pp[..., 2 * h:] + r * an)
+
+
+def _pre_activation_grads(dhp, h_prev, r, z, an, n) -> tuple:
+    """``(da_r, da_z, da_n, drzn_n)`` of one step from ``dL/dh_t``."""
+    dn = dhp * (1 - z)
+    dz = dhp * (h_prev - n)
+    da_n = dn * (1 - n * n)
+    da_r = da_n * an * r * (1 - r)
+    da_z = dz * z * (1 - z)
+    return da_r, da_z, da_n, da_n * r
+
+
 def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
                        gy: torch.Tensor, wh: torch.Tensor,
                        bn: torch.Tensor,
@@ -85,25 +115,91 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
         pp = proj[step].float().reshape(2, b, 3 * h)
         h_prev = ysp[step].reshape(2, b, h)
         h_op = op(h_prev)
-        rzn = torch.bmm(h_op, wh)
-        r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
-        z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
-        an = rzn[..., 2 * h:] + bnb
-        n = torch.tanh(pp[..., 2 * h:] + r * an)
-
+        r, z, an, n = _gates(pp, h_op, wh, bnb, h)
         dhp = gy[step].reshape(2, b, h) + dh
-        dn = dhp * (1 - z)
-        dz = dhp * (h_prev - n)
-        da_n = dn * (1 - n * n)
-        da_r = da_n * an * r * (1 - r)
-        da_z = dz * z * (1 - z)
-        drzn_n = da_n * r
+        da_r, da_z, da_n, drzn_n = _pre_activation_grads(dhp, h_prev, r, z,
+                                                         an, n)
         dproj[step] = torch.cat([da_r, da_z, da_n], -1).reshape(2 * b, 3 * h)
         dcol = op(torch.cat([da_r, da_z, drzn_n], -1))      # [2, B, 3H]
         dh = dhp * z + torch.bmm(dcol, wh.transpose(1, 2))
         dwh += torch.bmm(h_op.transpose(1, 2), dcol)
         dbn += drzn_n.sum(dim=1)
     return dproj, dwh, dbn
+
+
+class _full_f32:
+    """Matrix products on the card in full f32 (no TF32) inside the
+    block, whatever the global switch says; restored after."""
+
+    def __enter__(self):
+        self.prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.prev
+
+
+def hoisted_weight_grads(ys: torch.Tensor, dproj: torch.Tensor,
+                         drznn: torch.Tensor) -> tuple:
+    """``(dwh [2, H, 3H], dbn [2, H])`` after the hoisted walk, as
+    ``_bigru_bwd_v2`` / ``_v3`` take them after theirs (``gru.py:518-525``):
+    ``dWh[g] = Σ_{t,b} h_{t-1}[t,g,b]ᵀ · [da_r | da_z | drznn][t,g,b]``, one
+    f32 product of ``[H, T·B] × [T·B, 3H]`` per direction (TF32 off), and
+    ``dbn = Σ_{t,b} drznn``."""
+    t, b2, h = ys.shape
+    b = b2 // 2
+    ysp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    hp = ysp.reshape(t, 2, b, h).transpose(0, 1).reshape(2, t * b, h)
+    dcols = torch.cat([dproj[..., :2 * h], drznn], -1).reshape(
+        t, 2, b, 3 * h).transpose(0, 1).reshape(2, t * b, 3 * h)
+    with _full_f32():
+        dwh = torch.bmm(hp.transpose(1, 2), dcols)
+    return dwh, drznn.reshape(t, 2, b, h).sum(dim=(0, 2))
+
+
+def gru_walk_plain(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
+                   wh: torch.Tensor, bn: torch.Tensor,
+                   per_third: bool) -> tuple:
+    """The walk of the hoisted f32 backward in plain PyTorch, as
+    ``_bwd_kernel_v3`` (``per_third``, ``gru.py:359-409``: ``dh = ((dhp·z
+    + da_r·Wrᵀ) + da_z·Wzᵀ) + drznn·Wnᵀ``) or ``_bwd_kernel_v2``
+    (``:302-356``: ``dh = dhp·z + dcols·Whᵀ``, one K = 3H product): no dWh
+    or dbn inside it; returns ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``,
+    ``drznn = da_n·r``."""
+    t, b, h = _dims(proj)
+    ysp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    wh = wh.float()
+    wht = wh.transpose(1, 2)                                # [2, 3H, H]
+    bnb = bn.float()[:, None]
+    dh = torch.zeros(2, b, h, dtype=torch.float32, device=proj.device)
+    dproj = torch.empty_like(proj, dtype=torch.float32)
+    drznn = torch.empty(t, 2 * b, h, dtype=torch.float32, device=proj.device)
+    for step in range(t - 1, -1, -1):
+        pp = proj[step].float().reshape(2, b, 3 * h)
+        h_prev = ysp[step].reshape(2, b, h)
+        r, z, an, n = _gates(pp, h_prev, wh, bnb, h)
+        dhp = gy[step].reshape(2, b, h) + dh
+        da_r, da_z, da_n, drzn_n = _pre_activation_grads(dhp, h_prev, r, z,
+                                                         an, n)
+        dproj[step] = torch.cat([da_r, da_z, da_n], -1).reshape(2 * b, 3 * h)
+        drznn[step] = drzn_n.reshape(2 * b, h)
+        dh = dhp * z
+        if per_third:
+            for third, dcol in enumerate((da_r, da_z, drzn_n)):
+                dh = dh + torch.bmm(dcol, wht[:, third * h:(third + 1) * h])
+        else:
+            dh = dh + torch.bmm(torch.cat([da_r, da_z, drzn_n], -1), wht)
+    return dproj, drznn
+
+
+def gru_backward_hoisted_plain(proj: torch.Tensor, ys: torch.Tensor,
+                               gy: torch.Tensor, wh: torch.Tensor,
+                               bn: torch.Tensor, per_third: bool) -> tuple:
+    """The hoisted f32 backward (v3 with ``per_third``, else v2) in plain
+    PyTorch: :func:`gru_walk_plain`, then :func:`hoisted_weight_grads`.
+    Returns ``(dproj, dwh, dbn)``."""
+    dproj, drznn = gru_walk_plain(proj, ys, gy, wh, bn, per_third)
+    return (dproj,) + hoisted_weight_grads(ys, dproj, drznn)
 
 
 def _check(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor) -> None:
@@ -204,29 +300,74 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     return dproj, dwh, dbn
 
 
+def gru_walk(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
+             wh: torch.Tensor, bn: torch.Tensor, variant: str) -> tuple:
+    """The walk of the hoisted f32 backward ``variant`` (``"v2"`` or
+    ``"v3"``): ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``, through
+    ``ttg_gru_bwd_<variant>`` on the card."""
+    _check(proj, wh, bn)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    if not proj.is_cuda:
+        return gru_walk_plain(proj, ys, gy, wh, bn, variant == "v3")
+    t, b, h = _dims(proj)
+    _check_shape_for_kernel(
+        b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)))
+    proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
+    dproj = torch.empty_like(proj)
+    drznn = torch.empty_like(ys)
+    part = torch.empty(2 * b, h, dtype=torch.float32, device=proj.device)
+    name = f"gru_bwd_{variant}"
+    fn = _build.function("gru", f"ttg_{name}", [_P] * 8 + [_I] * 3 + [_P])
+    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
+             bn.data_ptr(), dproj.data_ptr(), drznn.data_ptr(),
+             part.data_ptr(), t, b, h, _build.stream())
+    launches[name] += 1
+    _build.check(err, f"ttg_{name}")
+    return dproj, drznn
+
+
+def gru_backward_hoisted(proj: torch.Tensor, ys: torch.Tensor,
+                         gy: torch.Tensor, wh: torch.Tensor,
+                         bn: torch.Tensor, variant: str) -> tuple:
+    """Gradients ``(dproj, dwh, dbn)`` by the hoisted f32 backward
+    ``variant``: :func:`gru_walk`, then :func:`hoisted_weight_grads`."""
+    dproj, drznn = gru_walk(proj, ys, gy, wh, bn, variant)
+    return (dproj,) + hoisted_weight_grads(ys, dproj, drznn)
+
+
 class BiGRUFunction(torch.autograd.Function):
     """The recurrence with the hand-written backward: with ``dtype`` f32,
-    ``bigru_pallas_trainable``; with bf16, ``bigru_pallas_trainable_bf16``
-    (bf16 carry forward, bf16-operand backward).  The forward saves
-    ``(proj, ys, wh, bn)`` as ``_bigru_fwd`` does, and the backward walks
-    them reversed."""
+    ``bigru_pallas_trainable`` (``variant`` None), ``_v2`` or ``_v3``
+    (``variant`` "v2" / "v3": the same forward, the hoisted backward);
+    with bf16, ``bigru_pallas_trainable_bf16`` (bf16 carry forward,
+    bf16-operand backward).  The forward saves ``(proj, ys, wh, bn)`` as
+    ``_bigru_fwd`` does, and the backward walks them reversed."""
 
     @staticmethod
-    def forward(ctx, proj, wh, bn, dtype):
+    def forward(ctx, proj, wh, bn, dtype, variant):
+        if variant is not None and dtype != torch.float32:
+            raise ValueError("the hoisted backward is the f32 recurrence's")
         ys = gru_forward(proj, wh, bn, dtype)
         ctx.save_for_backward(proj, ys, wh, bn)
-        ctx.dtype = dtype
+        ctx.dtype, ctx.variant = dtype, variant
         return ys
 
     @staticmethod
     def backward(ctx, gy):
         proj, ys, wh, bn = ctx.saved_tensors
-        dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype)
-        return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype), None
+        if ctx.variant is None:
+            dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype)
+        else:
+            dproj, dwh, dbn = gru_backward_hoisted(proj, ys, gy, wh, bn,
+                                                   ctx.variant)
+        return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype), None, None
 
 
 def bigru_trainable(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32,
+                    variant: str | None = None) -> torch.Tensor:
     """f32 ``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]``, differentiable in all
-    three inputs; ``dtype`` is the recurrence's operand type."""
-    return BiGRUFunction.apply(proj, wh, bn, dtype)
+    three inputs; ``dtype`` is the recurrence's operand type, ``variant``
+    the f32 backward's (None, ``"v2"`` or ``"v3"``)."""
+    return BiGRUFunction.apply(proj, wh, bn, dtype, variant)

@@ -9,7 +9,11 @@ forward in train mode (batch-statistics BN, which moves the running
 statistics, and dropout), the loss, the backward, global-norm clipping and
 Adam, and :meth:`BaseRunner.fit` runs the epochs with a validation loss,
 the plateau learning rate, early stopping and the best/last checkpoints.
-Resume and finetune, several cards and the profiler are not ported.
+Between the backward and the clipping, :meth:`BaseRunner.post_grad_hook`
+may change the gradients (the weak runner's NaN guard); each epoch starts
+with the train loader's ``set_epoch`` where it has one (the datasets that
+sample draw anew).  Resume and finetune, several cards and the profiler
+are not ported.
 
 Runs on the card unless ``device="cpu"`` is asked for.  TF32 is off: f32
 convolutions and matrix products run in full f32, as the JAX reference
@@ -62,6 +66,10 @@ def init_logger(filename: Path, level: str = "INFO") -> logging.Logger:
 
 
 class BaseRunner:
+    # recorded in the checkpoints: the port has no freeze masks yet, so
+    # every parameter is trainable and saved either way
+    save_trainable_only = False
+
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.config: dict = {}
@@ -102,6 +110,10 @@ class BaseRunner:
         return exp_dir
 
     # --------------------------------------------------------------- steps
+    def post_grad_hook(self, loss: torch.Tensor, grads: list) -> None:
+        """Between the backward and the clipping: may change ``grads`` (the
+        parameters' ``.grad``) in place.  The default leaves them."""
+
     def train_step(self, model, loss_fn, optimizer, batch: dict,
                    output_transform: Callable) -> torch.Tensor:
         """One optimizer step on ``batch`` (tensors on the device); returns
@@ -111,6 +123,8 @@ class BaseRunner:
         loss = loss_fn(output)
         optimizer.zero_grad()
         loss.backward()
+        self.post_grad_hook(loss.detach(), [p.grad for p in optimizer.params
+                                            if p.grad is not None])
         optimizer.step()
         return loss.detach()
 
@@ -133,6 +147,8 @@ class BaseRunner:
         early_stop = trainer.get("early_stop", epochs)
         save_interval = trainer.get("save_interval", 1)
         include_optim = trainer.get("include_optim_in_ckpt", True)
+        trainable_only = trainer.get("save_trainable_only",
+                                     self.save_trainable_only)
         monitor = trainer.get("metric_monitor",
                               {"mode": "min", "name": "loss"})
         metric_improver = MetricImprover(monitor["mode"])
@@ -158,6 +174,8 @@ class BaseRunner:
         epoch = 0
         train_iter = iter(train_loader)
         for epoch in range(1, epochs + 1):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
             t0 = time.time()
             steps = epoch_length or len(train_loader)
             losses = []
@@ -195,17 +213,17 @@ class BaseRunner:
                 save_checkpoint(exp_dir / "best.pth", model, optimizer,
                                 scheduler, epoch,
                                 metric_improver.state_dict(),
-                                not_improve_cnt, include_optim)
+                                not_improve_cnt, include_optim, trainable_only)
             else:
                 not_improve_cnt += 1
             if epoch % save_interval == 0:
                 save_checkpoint(exp_dir / "last.pth", model, optimizer,
                                 scheduler, epoch,
                                 metric_improver.state_dict(),
-                                not_improve_cnt, include_optim)
+                                not_improve_cnt, include_optim, trainable_only)
             if not_improve_cnt == early_stop:
                 break
         save_checkpoint(exp_dir / "last.pth", model, optimizer, scheduler,
                         epoch, metric_improver.state_dict(),
-                        not_improve_cnt, include_optim)
+                        not_improve_cnt, include_optim, trainable_only)
         return record

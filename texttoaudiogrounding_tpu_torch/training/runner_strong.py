@@ -30,6 +30,8 @@ class StrongRunner(BaseRunner):
     """``StrongRunner(device).train(config)``: ``config`` is a dict or a
     YAML path (PyYAML needed), the data are HDF5 files (h5py needed)."""
 
+    output_transform = staticmethod(strong_output_transform)
+
     def train(self, config) -> Path:
         self.setup(config)
         exp_dir = self.prepare_experiment()
@@ -40,5 +42,5 @@ class StrongRunner(BaseRunner):
         model = self.build_model()
         loss_fn = self.build_loss()
         self.fit(model, loss_fn, train_loader, val_loader,
-                 strong_output_transform, exp_dir)
+                 self.output_transform, exp_dir)
         return exp_dir

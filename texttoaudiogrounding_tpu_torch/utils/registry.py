@@ -1,7 +1,8 @@
 """Component registry: config names → builders.
 
 The short names of ``texttoaudiogrounding_tpu/utils/registry.py`` that the
-strong-supervision config (``configs/strong/biencoder_train.yaml``) uses,
+strong-supervision config (``configs/strong/biencoder_train.yaml``) and
+the phrase-level WSTAG training configs (``configs/weak_phrase/``) use,
 resolved to the port's classes, and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
@@ -31,17 +32,27 @@ def _fill() -> None:
         DotProduct,
         EmbeddingAgg,
         ExpNegL2,
+        MultiTextBiEncoder,
     )
     from texttoaudiogrounding_tpu_torch.training import optim
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseRunner,
+    )
     _REGISTRY.update({
-        "BiEncoder": BiEncoder, "Cnn8Rnn": Cnn8Rnn, "Cnn8_Rnn": Cnn8Rnn,
+        "BiEncoder": BiEncoder, "MultiTextBiEncoder": MultiTextBiEncoder,
+        "Cnn8Rnn": Cnn8Rnn, "Cnn8_Rnn": Cnn8Rnn,
         "EmbeddingAgg": EmbeddingAgg, "ExpNegL2": ExpNegL2,
         "MatchExpNegL2": ExpNegL2, "DotProduct": DotProduct,
         "MatchDotProduct": DotProduct, "FrameBceLoss": losses.FrameBceLoss,
+        "ClipBceLoss": losses.ClipBceLoss,
         "AudioPhraseDataset": datasets.AudioPhraseDataset,
         "AudioPhraseEvalDataset": datasets.AudioPhraseEvalDataset,
+        "AudioSamplePhrasesDataset": datasets.AudioSamplePhrasesDataset,
         "TextCollate": collate.TextCollate, "DictTokenizer": DictTokenizer,
         "ReduceLROnPlateau": optim.ReduceLROnPlateau,
+        "torch.optim.lr_scheduler.ReduceLROnPlateau":
+            optim.ReduceLROnPlateau,
+        "WeakPhraseRunner": WeakPhraseRunner,
     })
 
 
