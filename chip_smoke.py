@@ -36,8 +36,19 @@ Phases, each printing one line:
    forward that served the request, must lie within 5 % relative RMS of
    the plain path on the same padded input.  A batch-32 request is then
    timed and profiled on the default path (grouped-loop BiGRU) and with
-   the bf16 GRU kernel opted in, which is checked the same way;
-4. train: ``StrongRunner.fit`` on the strong-supervision config's model
+   the bf16 GRU kernel opted in, and with block 1 all in int8
+   (``block1_quant="int8"``, the JAX ``TTG_B1_QUANT=1``), each checked the
+   same way, the latter's launch counts too;
+4. designs: the JAX package's blocks-1-2 designs that no model routes
+   (``fused_pair_conv_pool`` with and without conv1, ``fused_block2``,
+   ``fused_block1``) and block 1's all-int8 mode, on the batch-32 request's
+   block-1 input (the bn0 output) and block-1 output with the served
+   model's weights: each design runs once as a function (its launches
+   counted), then each int8 kernel is held bit for bit against its plain
+   version and its bf16 mode within 1e-2 relative RMS, is timed with CUDA
+   events, and each design's and the routed blocks' relative RMS to the f32
+   plain block on the same input is reported;
+5. train: ``StrongRunner.fit`` on the strong-supervision config's model
    (``configs/strong/biencoder_train.yaml``: BiEncoder(Cnn8Rnn f32,
    EmbeddingAgg(5000, 512), ExpNegL2, shared 512), FrameBceLoss, Adam 1e-3
    with global-norm clipping at 1.0, plateau LR) at full width, batches of
@@ -50,7 +61,7 @@ Phases, each printing one line:
    the all-plain path's on the same batch and weights; then train steps
    are timed with CUDA events and one is profiled.  TF32 is off (full f32
    convolutions and products) for all of it, as the trainer's default;
-5. train_bf16: the same fit in the bf16 mixed-precision mode with the
+6. train_bf16: the same fit in the bf16 mixed-precision mode with the
    training kernels opted in (``audio_encoder.args``: ``dtype: bfloat16``,
    ``gru_bwd: bf16``, ``bn_pool: [64, 128]``, ``pool_vjp: [256, 512]``);
    the counts must rise by one log-mel, two of each pool kernel, one bf16
@@ -63,7 +74,7 @@ Phases, each printing one line:
    events, 5 steps, in turns a b c c b a) and profiled once each: (a)
    plain bf16 with the f32 GRU kernel, (b) ``bn_pool`` on all four blocks
    + the bf16 GRU, (c) ``pool_vjp`` on all four blocks + the bf16 GRU;
-6. train_weak: ``WeakPhraseRunner.fit`` on the phrase-level WSTAG config
+7. train_weak: ``WeakPhraseRunner.fit`` on the phrase-level WSTAG config
    (``configs/weak_phrase/cnn8rnn_w2vmean_similarity.yaml``:
    MultiTextBiEncoder(Cnn8Rnn f32, EmbeddingAgg(5221, 512), DotProduct,
    shared 512, no projections, linear-softmax pooling), ClipBceLoss, Adam
@@ -712,19 +723,80 @@ def _embedding_gap(plain, served: list) -> float:
     return max(gaps)
 
 
+# kernel launches of one int8 serving forward (the rest launch none)
+SERVING_PER_FORWARD = {"logmel": 1, "conv_block1_pair": 1,
+                       "conv_block_pair": 1, "conv_block": 2}
+
+
+def _request(rng, lens: list) -> tuple:
+    """(audio [B, max len] with noise up to each length, B phrases)."""
+    import numpy as np
+    audio = np.zeros((len(lens), max(lens)), np.float32)
+    for i, ln in enumerate(lens):
+        audio[i, :ln] = rng.normal(0, 0.1, ln)
+    text = [" ".join(f"w{int(v)}" for v in rng.integers(2, 5000, 3))
+            for _ in lens]
+    return audio, text
+
+
+def _checked_request(pred, pred_plain, plain, served: list, label: str,
+                     audio, lens, text, per_forward: dict,
+                     totals: dict) -> dict:
+    """One ``predict`` held to the serving correctness contract (PERF.md
+    §2): every kernel's count rises by ``per_forward`` per sub-batch (and
+    no other count rises), the reference lengths, ``frame_sim`` finite in
+    (0, 1] with padded frames zero and within 0.05 of the all-plain f32
+    path, and each sub-batch's audio embedding (the forward hook's
+    ``served`` pairs) within 5 % relative RMS of the plain path's.  Adds
+    the launches to ``totals``."""
+    import numpy as np
+    import torch
+
+    before = _counts()
+    served.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs, lengths = pred.predict(audio, lens, text, return_length=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    subs = len(pred._chunk_plan(len(lens)))
+    for k, n in _counts().items():
+        grew = n - before[k]
+        if grew != subs * per_forward.get(k, 0):
+            raise AssertionError(f"{label}: {k} launched {grew} times, "
+                                 f"expected {subs * per_forward.get(k, 0)}")
+        totals[k] += grew
+    want = (np.asarray(lens) // 320 + 1) // 4
+    if not np.array_equal(lengths, want):
+        raise AssertionError(f"{label}: lengths {lengths} != {want}")
+    valid = np.arange(probs.shape[1])[None] < lengths[:, None]
+    if not (np.isfinite(probs).all() and (probs[valid] > 0).all()
+            and (probs[valid] <= 1).all() and not probs[~valid].any()):
+        raise AssertionError(f"{label}: frame_sim out of (0, 1]")
+    ref = pred_plain.predict(audio, lens, text)
+    delta = float(np.max(np.abs(probs - ref)))
+    if delta >= 0.05:
+        raise AssertionError(f"{label}: |frame_sim - plain f32| = "
+                             f"{delta} >= 0.05")
+    if len(served) != subs:
+        raise AssertionError(f"{label}: {len(served)} audio forwards, "
+                             f"expected {subs}")
+    emb_rel = _embedding_gap(plain, served)     # int8 noise, < 5 %
+    if emb_rel >= 0.05:
+        raise AssertionError(f"{label}: audio embedding off the plain "
+                             f"f32 path by {emb_rel} (relative RMS)")
+    return {"request": label, "clips": len(lens), "sub_batches": subs,
+            "seconds": seconds, "max_abs_vs_plain_f32": delta,
+            "embedding_rel_rms_vs_plain_f32": emb_rel,
+            "frame_sim_mean": float(probs[valid].mean())}
+
+
 def serving_phase(rng, tok) -> dict:
     import numpy as np
     import torch
 
     from texttoaudiogrounding_tpu_torch import (
         GroundingPredictor, flagship_model, random_state_dict)
-    from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        conv_block, conv_block1_pair, conv_block_pair, gru, logmel)
-
-    counters = {"logmel": logmel, "conv_block1_pair": conv_block1_pair,
-                "conv_block_pair": conv_block_pair, "conv_block": conv_block}
-    per_forward = {"logmel": 1, "conv_block1_pair": 1, "conv_block_pair": 1,
-                   "conv_block": 2}
 
     model = flagship_model(serving=True, device=DEVICE)
     sd = random_state_dict(model, seed=0)
@@ -745,56 +817,14 @@ def serving_phase(rng, tok) -> dict:
     served = []
     hook = model.audio_encoder.register_forward_hook(
         lambda mod, args, out: served.append((args[0], out["embedding"])))
-    for mod in counters.values():
-        mod.launches = 0
-    totals = dict.fromkeys(counters, 0)   # launches by predict() alone
+    _reset_counts()
+    totals = _counts()                  # launches by predict() alone
     results = []
     for label, lens in requests:
-        b = len(lens)
-        width = max(lens)
-        audio = np.zeros((b, width), np.float32)
-        for i, ln in enumerate(lens):
-            audio[i, :ln] = rng.normal(0, 0.1, ln)
-        text = [" ".join(f"w{int(v)}" for v in rng.integers(2, 5000, 3))
-                for _ in range(b)]
-        before = {k: m.launches for k, m in counters.items()}
-        served.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        probs, lengths = pred.predict(audio, lens, text, return_length=True)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        subs = len(pred._chunk_plan(b))
-        for k, m in counters.items():
-            grew = m.launches - before[k]
-            if grew != subs * per_forward[k]:
-                raise AssertionError(f"{label}: {k} launched {grew} times, "
-                                     f"expected {subs * per_forward[k]}")
-            totals[k] += grew
-        want = (np.asarray(lens) // 320 + 1) // 4
-        if not np.array_equal(lengths, want):
-            raise AssertionError(f"{label}: lengths {lengths} != {want}")
-        valid = np.arange(probs.shape[1])[None] < lengths[:, None]
-        if not (np.isfinite(probs).all() and (probs[valid] > 0).all()
-                and (probs[valid] <= 1).all() and not probs[~valid].any()):
-            raise AssertionError(f"{label}: frame_sim out of (0, 1]")
-        ref = pred_plain.predict(audio, lens, text)
-        delta = float(np.max(np.abs(probs - ref)))
-        if delta >= 0.05:
-            raise AssertionError(f"{label}: |frame_sim - plain f32| = "
-                                 f"{delta} >= 0.05")
-        if len(served) != subs:
-            raise AssertionError(f"{label}: {len(served)} audio forwards, "
-                                 f"expected {subs}")
-        emb_rel = _embedding_gap(plain, served)     # int8 noise, < 5 %
-        if emb_rel >= 0.05:
-            raise AssertionError(f"{label}: audio embedding off the plain "
-                                 f"f32 path by {emb_rel} (relative RMS)")
-        results.append({"request": label, "clips": b, "sub_batches": subs,
-                        "seconds": seconds, "max_abs_vs_plain_f32": delta,
-                        "embedding_rel_rms_vs_plain_f32": emb_rel,
-                        "frame_sim_mean": float(probs[valid].mean())})
-
+        audio, text = _request(rng, lens)
+        results.append(_checked_request(pred, pred_plain, plain, served,
+                                        label, audio, lens, text,
+                                        SERVING_PER_FORWARD, totals))
     hook.remove()
     served.clear()
 
@@ -809,10 +839,10 @@ def serving_phase(rng, tok) -> dict:
     pred_gk = GroundingPredictor(model_gk, tok)
     hook = model_gk.audio_encoder.register_forward_hook(
         lambda mod, args, out: served.append((args[0], out["embedding"])))
-    gru.launches["gru_fwd_bf16"] = 0
+    _reset_counts()
     probs = pred_gk.predict(audio, lens, text)
     torch.cuda.synchronize()
-    gru_launches = gru.launches["gru_fwd_bf16"]
+    gru_launches = _counts()["gru_fwd_bf16"]
     hook.remove()
     if gru_launches != len(pred_gk._chunk_plan(len(lens))):
         raise AssertionError(f"bf16 GRU kernel launched {gru_launches} "
@@ -825,9 +855,35 @@ def serving_phase(rng, tok) -> dict:
         raise AssertionError(f"bf16 GRU kernel path: |frame_sim - plain| "
                              f"{delta}, embedding {emb_rel} (limits 0.05)")
 
-    # steady-state throughput of the largest request, both ways
+    # block 1 all in int8 (JAX: TTG_B1_QUANT=1) on the largest request,
+    # held to the contract as the default path is; block 1's input (the
+    # bn0 output) and output in this served batch feed the designs phase
+    model8 = flagship_model(serving=True, device=DEVICE,
+                            block1_quant="int8")
+    model8.load_state_dict(sd)
+    pred8 = GroundingPredictor(model8, tok)
+    enc8 = model8.audio_encoder
+    block1_io = []
+    hooks = [enc8.register_forward_hook(
+        lambda mod, args, out: served.append((args[0], out["embedding"]))),
+        enc8.conv_block1.register_forward_hook(
+            lambda mod, args, out: block1_io.append((args[0], out)))]
+    _reset_counts()
+    b1_totals = _counts()
+    b1_request = _checked_request(
+        pred8, pred_plain, plain, served, f"{label}, block 1 int8", audio,
+        lens, text, {**SERVING_PER_FORWARD, "conv_block1_pair": 0,
+                     "conv_block1_pair_int8": 1}, b1_totals)
+    for hook in hooks:
+        hook.remove()
+    served.clear()
+    handoff = (block1_io[0][0][..., 0].contiguous(),
+               block1_io[0][1].contiguous(), enc8)
+
+    # steady-state throughput of the largest request, three ways
     paths = {}
-    for name, p in (("default", pred), ("gru_kernel", pred_gk)):
+    for name, p in (("default", pred), ("gru_kernel", pred_gk),
+                    ("block1_int8", pred8)):
         p.predict(audio, lens, text)
         times = []
         for _ in range(5):
@@ -844,10 +900,163 @@ def serving_phase(rng, tok) -> dict:
                                        secs * 1e3)}
     paths["gru_kernel"].update(max_abs_vs_plain_f32=delta,
                                embedding_rel_rms_vs_plain_f32=emb_rel)
+    paths["block1_int8"].update(b1_request)
     return {"requests": results, "launches": totals,
             "gru_fwd_bf16_launches": gru_launches,
+            "block1_int8_launches": b1_totals,
             "clips_per_s": paths["default"]["clips_per_s"],
-            "largest": label, "paths": paths}
+            "largest": label, "paths": paths}, handoff
+
+
+def _block_weights(blk) -> tuple:
+    """(w1, ab1, w2, ab2) of a ``ConvBlock``: HWIO f32, BN folded."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import fold_bn
+    with torch.no_grad():
+        return (blk.conv1.weight.detach().permute(2, 3, 1, 0),
+                fold_bn(blk.bn1.weight, blk.bn1.bias, blk.bn1.running_mean,
+                        blk.bn1.running_var, blk.bn1.eps),
+                blk.conv2.weight.detach().permute(2, 3, 1, 0),
+                fold_bn(blk.bn2.weight, blk.bn2.bias, blk.bn2.running_mean,
+                        blk.bn2.running_var, blk.bn2.eps))
+
+
+def designs_phase(x1, y1, enc) -> list:
+    """The blocks-1-2 designs of the JAX package that no model routes
+    (rows 5-7), and block 1's all-int8 mode (row 2), on the served batch:
+    x1 the bn0 output ``[B, T, 64]`` that entered block 1 and y1 block 1's
+    output, with the served model's blocks-1-2 weights.  Each design runs
+    once as the JAX package drives it, as a function (the launches
+    counted), and is then held to its plain version: the int8 modes bit
+    for bit, the bf16 modes within 1e-2 relative RMS; each design's and
+    the routed rows 2 / 3's relative RMS to the f32 plain block on the
+    same input is reported."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        block1_small, block2_small, conv_block1_pair, conv_block_pair,
+        pair_conv_pool)
+    from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
+        _quant_i8, over127)
+
+    b1w, b2w = _block_weights(enc.conv_block1), _block_weights(
+        enc.conv_block2)
+    clips, t1, _ = x1.shape
+    t2 = y1.shape[1]
+    with torch.no_grad():
+        f32_1 = enc.conv_block1._plain(x1.float()[..., None], (2, 2))
+        f32_2 = enc.conv_block2._plain(y1.float(), (2, 2))
+        # block 1 without conv1: the f32 conv1 activation, int8 with one
+        # scale, T padded with zero frames to whole chunks (the caller's
+        # part, conv_block.py:741-749)
+        w1, (a1, c1), w2, ab2 = b1w
+        conv1 = torch.nn.functional.conv2d(
+            x1.float()[:, None], w1.permute(3, 2, 0, 1), padding=1)
+        act = torch.relu(conv1.permute(0, 2, 3, 1) * a1 + c1)
+        xs = over127(act.amax())
+        tp = -(-t1 // 48) * 48
+        aq = torch.nn.functional.pad(_quant_i8(act, 1.0 / xs),
+                                     (0, 0, 0, 0, 0, tp - t1)).contiguous()
+        a16 = torch.nn.functional.pad(act.to(torch.bfloat16),
+                                      (0, 0, 0, 0, 0, tp - t1)).contiguous()
+
+    mk = 2.0 * clips * 64 * 576 * 64          # block 1's conv2 per frame
+    pos2 = clips * t2 * 32
+    b1_in = x1.numel() * 2 + _wbytes(b1w)
+    b2_in = y1.numel() * 2 + _wbytes(b2w)
+    b2_ops = {"int8": 2.0 * pos2 * 576 * 128 + 2.0 * pos2 * 1152 * 128}
+    # one record per design: (kernel(q), plain(q), its input, the f32
+    # block it is compared with, operations, input bytes, source, the TPU
+    # kernel it replaces); q=False runs the bf16 mode
+    designs = {
+        "conv_block1_pair_int8": (
+            lambda q=True: conv_block1_pair.fused_block1_pair(
+                x1, *b1w, quantize=q, tc=48),
+            lambda q=True: conv_block1_pair.block1_plain(
+                x1, *b1w, quantize=q, tc=48),
+            x1, f32_1,
+            {"int8": 2.0 * clips * t1 * 64 * 9 * 64 + mk * (t1 // 2 * 2)},
+            b1_in, "conv_block1_pair.cu", "conv_block1_pair.py:346"),
+        "block1_small": (
+            lambda q=True: block1_small.fused_block1(x1, *b1w, quantize=q),
+            lambda q=True: block1_small.block1_small_plain(
+                x1, *b1w, quantize=q, tc=block1_small.default_tc(t1)),
+            x1, f32_1,
+            {"bf16": 2.0 * clips * t1 * 64 * 9 * 64,
+             "int8": mk * (t1 // 2 * 2)},
+            b1_in, "block1_small.cu", "conv_block_small.py:471"),
+        "pair_conv_pool_conv2": (
+            lambda q=True: pair_conv_pool.fused_pair_conv_pool(
+                aq if q else a16, None, None, w2, ab2, quantize=q,
+                x_scale=xs if q else None),
+            lambda q=True: pair_conv_pool.pair_conv_pool_plain(
+                aq if q else a16, None, None, w2, ab2, quantize=q,
+                tc=pair_conv_pool.pick_tc(tp, 32, 2),
+                x_scale=xs if q else None),
+            aq, f32_1, {"int8": mk * tp},
+            aq.numel() + 4 * (w2.numel() + 2 * 64),
+            "pair_conv_pool.cu", "conv_block.py:691"),
+        "block2_small": (
+            lambda q=True: block2_small.fused_block2(y1, *b2w, quantize=q),
+            lambda q=True: conv_block_pair.block2_plain(
+                y1, *b2w, quantize=q, tc=block2_small.default_tc(t2),
+                divide=True),
+            y1, f32_2, b2_ops, b2_in,
+            "conv_block_pair.cu", "conv_block_small.py:291"),
+        "pair_conv_pool": (
+            lambda q=True: pair_conv_pool.fused_pair_conv_pool(
+                y1, *b2w, quantize=q),
+            lambda q=True: pair_conv_pool.pair_conv_pool_plain(
+                y1, *b2w, quantize=q, tc=pair_conv_pool.pick_tc(t2, 16, 2)),
+            y1, f32_2, b2_ops, b2_in,
+            "pair_conv_pool.cu", "conv_block.py:691"),
+    }
+    # the designs' run: once each, as functions (the JAX package drives
+    # them so)
+    _reset_counts()
+    got = {name: rec[0]() for name, rec in designs.items()}
+    torch.cuda.synchronize()
+    launches = _counts()
+    # the routed rows on the same inputs, beside the f32 plain block
+    tc2 = conv_block_pair.pick_tc_pair(t2, 16, 128, True)
+    vs_f32 = {
+        "routed_conv_block1_pair": _err(
+            conv_block1_pair.fused_block1_pair(x1, *b1w), f32_1)[1],
+        "routed_conv_block_pair": _err(conv_block_pair.fused_block2_pair(
+            y1, *b2w, quantize=True, tc=tc2), f32_2)[1]}
+
+    rows = []
+    for name, (kern, plain, inp, f32, ops, in_bytes, src,
+               rep) in designs.items():
+        out = got[name]
+        max_abs, rel = _err(out, plain())
+        if max_abs != 0.0:
+            raise AssertionError(f"{name}: int8 kernel differs from its "
+                                 f"plain version: max_abs {max_abs}, "
+                                 f"rel_rms {rel}")
+        b16 = _err(kern(False), plain(False))[1]
+        if b16 > 1e-2:
+            raise AssertionError(f"{name} (bf16): kernel disagrees with its "
+                                 f"plain version: rel_rms {b16} > 0.01")
+        ms = _cuda_ms(kern, 10)
+        bound_ms, bound_by = _bound(in_bytes + out.numel() * 2, ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"texttoaudiogrounding_tpu_torch/csrc/{src}",
+            "replaces": f"texttoaudiogrounding_tpu/ops/pallas/{rep}",
+            "max_abs_err": max_abs, "rel_rms_err": rel,
+            "tolerance": "max_abs == 0 (int8); bf16 mode rel_rms <= 0.01",
+            "ms": ms, "kernel_ms": ms, "plain_ms": _cuda_ms(plain, 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "clips": clips,
+            "input_shape": list(inp.shape),
+            "bf16_mode_rel_rms_err": b16,
+            # the padded frames off
+            "rel_rms_vs_f32_block": _err(out[:, :f32.shape[1]], f32)[1],
+            **vs_f32})
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 TRAIN_CLIPS, TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 32, 2, 4, 2
@@ -939,21 +1148,30 @@ def _worst(gaps: dict) -> tuple:
     return max(trunk), max(rest)
 
 
+def _counter_modules() -> tuple:
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        block1_small, block2_small, bn_pool, conv_block, conv_block1_pair,
+        conv_block_pair, dual_pool, gru, logmel, pair_conv_pool)
+    return ({"logmel": logmel, "conv_block_pair": conv_block_pair,
+             "conv_block": conv_block},
+            (conv_block1_pair, gru, dual_pool, bn_pool, pair_conv_pool,
+             block2_small, block1_small))
+
+
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        bn_pool, dual_pool, gru, logmel)
-    out = {"logmel": logmel.launches}
-    for mod in (gru, dual_pool, bn_pool):
+    ints, dicts = _counter_modules()
+    out = {name: mod.launches for name, mod in ints.items()}
+    for mod in dicts:
         out.update(mod.launches)
     return out
 
 
 def _reset_counts() -> None:
-    from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        bn_pool, dual_pool, gru, logmel)
-    logmel.launches = 0
-    for mod in (gru, dual_pool, bn_pool):
+    ints, dicts = _counter_modules()
+    for mod in ints.values():
+        mod.launches = 0
+    for mod in dicts:
         for k in mod.launches:
             mod.launches[k] = 0
 
@@ -1424,7 +1642,8 @@ def training_weak_phase(tok) -> dict:
 
 
 _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
-                 "conv1_kernel", "clip_scale_kernel", "gru_fwd_step",
+                 "conv1_kernel", "conv1_im2col_kernel", "requant_kernel",
+                 "clip_scale_kernel", "gru_fwd_step",
                  "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
@@ -1523,7 +1742,7 @@ def main() -> int:
     for word in ["<pad>", "<unk>"] + [f"w{i}" for i in range(2, 5000)]:
         vocab.add_word(word)
     tok = DictTokenizer(vocab)
-    serving = serving_phase(rng, tok)
+    serving, handoff = serving_phase(rng, tok)
     report["serving"] = serving
     print(json.dumps({"phase": "serving", "card": smi,
                       "clips_per_s": serving["clips_per_s"],
@@ -1535,6 +1754,17 @@ def main() -> int:
                                         v["trace"]["device_idle_share"]}
                                 for k, v in serving["paths"].items()}}),
           flush=True)
+    designs, design_launches = designs_phase(*handoff)
+    del handoff
+    kernels += designs
+    print(json.dumps({"phase": "designs", "card": smi, "kernels": [
+        {k: row[k] for k in ("name", "max_abs_err", "bf16_mode_rel_rms_err",
+                             "rel_rms_vs_f32_block", "kernel_ms",
+                             "plain_ms", "bound_ms")} for row in designs],
+        "routed_rel_rms_vs_f32_block": {
+            k: designs[0][k] for k in ("routed_conv_block1_pair",
+                                       "routed_conv_block_pair")}}),
+        flush=True)
     train = training_phase(tok)
     report["train"] = train
     print(json.dumps({"phase": "train", "card": smi, **{
@@ -1580,6 +1810,8 @@ def main() -> int:
     # launches on each path, counted from zero just before it
     by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
                            serving["gru_fwd_bf16_launches"]},
+               "serving_block1_int8": serving["block1_int8_launches"],
+               "designs": design_launches,
                "train": train["fit_launches"],
                "train_bf16": train16["fit_launches"],
                **{f"train_weak_{k}": v["launches"]

@@ -254,7 +254,7 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         tcb.fused_double_conv_pool(x.to(torch.bfloat16), w1, ab, w2,
                                    (ab[0].to("meta"), ab[1]), (1, 2), tc=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):            # not a block-1 mode
         tb1.fused_block1_pair(torch.zeros(1, 4, 64, dtype=torch.bfloat16),
                               torch.zeros(3, 3, 1, 64), ab,
-                              torch.zeros(3, 3, 64, 64), ab, quantize=True)
+                              torch.zeros(3, 3, 64, 64), ab, quantize="int4")

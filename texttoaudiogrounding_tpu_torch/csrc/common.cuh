@@ -362,20 +362,74 @@ inline void launch_conv(const ConvArgs& a, cudaStream_t st) {
   conv3x3_gemm<T, MODE><<<grid, NT, 0, st>>>(a);
 }
 
+// The second half of a chunked block: y1 [G, tc + 2, M, C] holds the
+// conv1 rows of group g = b * nch + j at times [j tc - 1, j tc + tc + 1),
+// zero outside the clip: f32 for quant (bf16 with y1_half), bf16
+// otherwise.  quant: requantize each group with one scale over all its
+// rows into y1q [G, tc + 2, M, C] int8, the scale to sy [G]; then conv2 ->
+// BN -> ReLU -> f32 avg+max pool into out [B, T / pt, M / pm, C] bf16.
+inline cudaError_t conv2_pool(bool quant, bool y1_half, const void* y1,
+                              int8_t* y1q, float* sy, int B, int nch, int T,
+                              int M, int C, int tc, int pt, int pm,
+                              const void* w2, const float* a2,
+                              const float* b2, bf16* out, cudaStream_t st) {
+  const int G = B * nch;
+  const void* src = y1;
+  if (quant) {
+    const long long n = (long long)(tc + 2) * M * C;
+    if (y1_half)
+      gather_kernel<bf16, int8_t, true><<<G, 512, 0, st>>>(
+          static_cast<const bf16*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
+          tc + 2, 0, 0, n);
+    else
+      gather_kernel<float, int8_t, true><<<G, 512, 0, st>>>(
+          static_cast<const float*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
+          tc + 2, 0, 0, n);
+    src = y1q;
+  }
+  ConvArgs c{};
+  c.src = src;
+  c.wt = w2;
+  c.alpha = a2;
+  c.beta = b2;
+  c.gscale = quant ? sy : nullptr;
+  c.dst = out;
+  c.G = G;
+  c.nch = nch;
+  c.tc = tc;
+  c.T = T;
+  c.R_in = tc + 2;
+  c.R_out = tc;
+  c.M = M;
+  c.Cin = C;
+  c.Cout = C;
+  c.in_off = 0;
+  c.pt = pt;
+  c.pm = pm;
+  c.time_off = 0;
+  c.T_out = T / pt;
+  if (quant)
+    launch_conv<int8_t, 2>(c, st);
+  else
+    launch_conv<bf16, 2>(c, st);
+  return cudaGetLastError();
+}
+
 // The fused block of the TPU kernels: conv3x3 -> BN -> ReLU -> conv3x3 ->
 // BN -> ReLU -> avg+max pool over chunks of tc output times.
 //   x   [B, T, M, Cin] bf16; the last chunk may be ragged
 //   w1  [Cout, 9 Cin], w2 [Cout, 9 Cout]: int8 (quant) or bf16
 //   a*, b*: [Cout] f32 (int8: BN scale x per-channel weight scale)
 //   xs  [G, tc + 4, M, Cin] scratch, int8 or bf16 (G = B ceil(T / tc))
-//   y1  [G, tc + 2, M, Cout] scratch, f32 (quant) or bf16
+//   y1  [G, tc + 2, M, Cout] scratch, f32 (quant) or bf16 (also for
+//       quant with y1_half)
 //   y1q [G, tc + 2, M, Cout] int8 scratch (quant only)
 //   sx, sy [G] f32 scratch: per-group activation scales (quant only)
 //   out [B, T / pt, M / pm, Cout] bf16
 // The x scale of group (b, j) is taken over the flat element window
 // [j * win_step + win_lo, j * win_step + win_hi) of clip b; the y1 scale
 // over the group's conv1 rows (times [j tc - 1, j tc + tc + 1), zeroed
-// outside the clip).
+// outside the clip), as f32 or, with y1_half, rounded to bf16 first.
 inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
                                int M, int Cin, int Cout, int tc, int pt,
                                int pm, long long win_step, long long win_lo,
@@ -384,7 +438,7 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
                                const void* w2, const float* a2,
                                const float* b2, void* xs, void* y1,
                                int8_t* y1q, float* sx, float* sy, bf16* out,
-                               cudaStream_t st) {
+                               cudaStream_t st, bool y1_half = false) {
   const int nch = (T + tc - 1) / tc, G = B * nch;  // last chunk ragged
   if (quant)
     gather_kernel<bf16, int8_t, true><<<G, 512, 0, st>>>(
@@ -415,38 +469,15 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
   c1.pm = 1;
   c1.time_off = -1;
   c1.T_out = 0;
-  if (quant)
+  if (quant && !y1_half)
     launch_conv<int8_t, 0>(c1, st);
+  else if (quant)
+    launch_conv<int8_t, 1>(c1, st);
   else
     launch_conv<bf16, 1>(c1, st);
 
-  const void* src2 = y1;
-  if (quant) {
-    const long long n = (long long)(tc + 2) * M * Cout;
-    gather_kernel<float, int8_t, true><<<G, 512, 0, st>>>(
-        static_cast<const float*>(y1), y1q, sy, 1, tc + 2, M * Cout, 0, 0,
-        tc + 2, 0, 0, n);
-    src2 = y1q;
-  }
-  ConvArgs c2 = c1;
-  c2.src = src2;
-  c2.wt = w2;
-  c2.alpha = a2;
-  c2.beta = b2;
-  c2.gscale = quant ? sy : nullptr;
-  c2.dst = out;
-  c2.R_in = tc + 2;
-  c2.R_out = tc;
-  c2.Cin = Cout;
-  c2.pt = pt;
-  c2.pm = pm;
-  c2.time_off = 0;
-  c2.T_out = T / pt;
-  if (quant)
-    launch_conv<int8_t, 2>(c2, st);
-  else
-    launch_conv<bf16, 2>(c2, st);
-  return cudaGetLastError();
+  return conv2_pool(quant, y1_half, y1, y1q, sy, B, nch, T, M, Cout, tc, pt,
+                    pm, w2, a2, b2, out, st);
 }
 
 }  // namespace ttg

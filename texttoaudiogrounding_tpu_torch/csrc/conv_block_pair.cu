@@ -13,6 +13,11 @@
 // times [t0 - 1, t0 + tc + 1) with out-of-clip rows zeroed; weights are
 // int8 per output channel.
 //
+// The same function also ports conv_block_small.py:291 fused_block2 (the
+// pair-dense block 2): its layouts are TPU tricks too, and what differs
+// (the chunk rule, odd T, weights divided by their scales) is decided by
+// the Python wrapper (ops/kernels/block2_small.py).
+//
 // Bound on the H100: operations (7.1 GOP int8 per 10 s clip, 3.6 us at
 // 1979 TOP/s, against 3 MB of bf16 activations in and out, 0.9 us at
 // 3.35 TB/s).  Same WMMA implicit-GEMM tiles as conv_block.cu.

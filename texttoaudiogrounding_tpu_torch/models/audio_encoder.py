@@ -19,7 +19,10 @@ The JAX package picks its kernels with environment variables
   ``fc1``;
 * ``Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8")`` (or ``"bf16"``):
   the serving kernels for the blocks, eval mode only; ``"int8"`` is the
-  flagship serving path.
+  flagship serving path.  There ``block1_quant`` and ``block1_tc`` take
+  the place of ``TTG_B1_QUANT`` and ``TTG_B1_TC`` (``ConvBlock``):
+  ``"conv1"`` (the default, the JAX ``mixed``), ``"int8"`` (``1``: block 1
+  all in int8) or ``"bf16"`` (``0``).
 
 ``bn_pool`` and ``pool_vjp`` list the out-channels of the blocks that run
 the pool kernels (``ConvBlock``); ``gru_bwd`` is ``BiGRU``'s ``bwd``:
@@ -82,7 +85,8 @@ class Cnn8Rnn(nn.Module):
                  dropout: tuple = (0.2, 0.5),
                  bn_pool: tuple = (), pool_vjp: tuple = (),
                  gru_bwd: str | None = None, freeze_cnn: bool = False,
-                 freeze_bn: bool = False):
+                 freeze_bn: bool = False, block1_quant: str = "conv1",
+                 block1_tc: int = 48):
         super().__init__()
         if freeze_cnn or freeze_bn:
             raise NotImplementedError(
@@ -103,7 +107,8 @@ class Cnn8Rnn(nn.Module):
         for i, (cin, cout, _) in enumerate(_BLOCKS, start=1):
             setattr(self, f"conv_block{i}", ConvBlock(
                 cin, cout, conv_mode, bn_pool=cout in bn_pool,
-                pool_vjp=cout in pool_vjp))
+                pool_vjp=cout in pool_vjp, block1_quant=block1_quant,
+                block1_tc=block1_tc))
         self.fc1 = nn.Linear(512, 512)
         self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel,
                          bwd=gru_bwd)

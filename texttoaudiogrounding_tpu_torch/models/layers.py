@@ -35,6 +35,9 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.dual_pool import (
 )
 
 CONV_MODES = (None, "bf16", "int8")
+# block 1's modes under conv_mode="int8" (the JAX TTG_B1_QUANT: "mixed" or
+# "conv1", "1", "0") → fused_block1_pair's quantize
+BLOCK1_QUANT = {"conv1": "conv1", "int8": True, "bf16": False}
 GRU_BWD = (None, "bf16", "v2", "v3")
 
 
@@ -80,7 +83,11 @@ class ConvBlock(nn.Module):
     path routes it under ``TTG_FUSED_CONV``:
 
     * Cin = 1, 64 mels, pool (2, 2) → block 1 (``fused_block1_pair``;
-      int8 serving runs it in its ``"conv1"`` mode: int8 conv1, bf16 conv2);
+      int8 serving runs it in the mode ``block1_quant`` names, as
+      ``TTG_B1_QUANT`` does: ``"conv1"``, int8 conv1 and bf16 conv2, the
+      default; ``"int8"``, both convs in int8, y1 requantized per chunk of
+      ``block1_tc`` frames (``TTG_B1_TC``); ``"bf16"``; bf16 serving runs
+      it in bf16);
     * Cin = 64, Cout a multiple of 128, pool (2, 2) → block 2
       (``fused_block2_pair``);
     * otherwise → ``fused_double_conv_pool`` (blocks 3 and 4).
@@ -104,11 +111,17 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv_mode: str | None = None, bn_pool: bool = False,
-                 pool_vjp: bool = False):
+                 pool_vjp: bool = False, block1_quant: str = "conv1",
+                 block1_tc: int = 48):
         super().__init__()
         if conv_mode not in CONV_MODES:
             raise ValueError(f"conv_mode must be one of {CONV_MODES}")
         self.conv_mode = conv_mode
+        if block1_quant not in BLOCK1_QUANT:
+            raise ValueError(f"block1_quant must be one of "
+                             f"{tuple(BLOCK1_QUANT)}")
+        conv_block1_pair.check_mode(BLOCK1_QUANT[block1_quant], block1_tc)
+        self.block1_quant, self.block1_tc = block1_quant, block1_tc
         self.bn_pool = bn_pool
         self.pool_vjp = pool_vjp
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
@@ -119,10 +132,11 @@ class ConvBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(out_channels)
         self._kept = (None, None)
 
-    def _kernel_weights(self, block1: bool, quantize: bool) -> tuple:
-        """(w1, ab1, w2, ab2, the kernel's layout or None on the CPU),
-        made anew only when a tensor they come from is replaced or
-        written in place (``load_state_dict``, ``.to``)."""
+    def _kernel_weights(self, block1: bool, quantize) -> tuple:
+        """(w1, ab1, w2, ab2, the kernel's layout or None on the CPU) for
+        the kernel's ``quantize`` mode, made anew only when a tensor they
+        come from is replaced or written in place (``load_state_dict``,
+        ``.to``)."""
         src = (self.conv1.weight, self.conv2.weight) + tuple(
             t for bn in (self.bn1, self.bn2)
             for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var))
@@ -138,7 +152,7 @@ class ConvBlock(nn.Module):
                 prep = None
                 if w1.is_cuda and block1:
                     prep = conv_block1_pair.kernel_weights(
-                        w1, ab1, w2, ab2, "conv1" if quantize else False)
+                        w1, ab1, w2, ab2, quantize)
                 elif w1.is_cuda:
                     prep = kernel_weights(w1, ab1, w2, ab2, quantize)
             self._kept = (key, (w1, ab1, w2, ab2, prep))
@@ -203,10 +217,11 @@ class ConvBlock(nn.Module):
         cin, cout = x.shape[3], self.conv1.out_channels
         pool = tuple(pool_size)
         if cin == 1 and cout == 64 and x.shape[2] == 64 and pool == (2, 2):
-            *w, prep = self._kernel_weights(True, quantize)
-            return fused_block1_pair(
-                x[..., 0].contiguous(), *w,
-                quantize="conv1" if quantize else False, prepared=prep)
+            mode = BLOCK1_QUANT[self.block1_quant] if quantize else False
+            *w, prep = self._kernel_weights(True, mode)
+            return fused_block1_pair(x[..., 0].contiguous(), *w,
+                                     quantize=mode, tc=self.block1_tc,
+                                     prepared=prep)
         *w, prep = self._kernel_weights(False, quantize)
         if (cin == 64 and cout % 128 == 0 and pool == (2, 2)
                 and x.shape[2] % 2 == 0):

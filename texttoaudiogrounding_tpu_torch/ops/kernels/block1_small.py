@@ -1,0 +1,158 @@
+"""PANNs block 1 from a K = 16 conv1 im2col: ``csrc/block1_small.cu``.
+
+Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block_small.py:471
+fused_block1`` (kernel ``_block1_kernel :420``): Cin = 1 → 64 → 64, pool
+(2, 2), from the bn0 output.  The TPU kernel folds conv1 in as one K = 16
+bf16 dot over an im2col staged outside it (``:401 conv1_im2col``: row
+(t, mel pair j) holds the 12 taps feeding both parities, mels 2j - 1 ..
+2j + 2 at times t - 1 .. t + 1, and 4 zero lanes), and runs conv2 as
+banded K = 384 int8 dots; the port keeps the im2col (plain PyTorch, as it
+is XLA in the JAX package) and the arithmetic, not the layout:
+
+* conv1: bf16 operands, f32 sums (the products are exact in f32; the
+  port adds them in tap order), BN, ReLU, rows outside the clip zeroed;
+* int8 (the default): y1 is requantized per chunk of ``tc`` output
+  frames with ``max(y1) / 127`` over the chunk's f32 rows, times
+  ``[t0 - 1, t0 + tc + 1)`` — not rounded to bf16 first, unlike
+  ``fused_pair_conv_pool`` (``:438-444``); w2 int8 per output channel,
+  *divided* by its scales in numpy (``:75 _quant_rows``), the scales
+  folded into the BN affine; int32 sums;
+* f32 avg+max pool, the output bf16 (int8) or ``compute_dtype``;
+* ``tc`` defaults to 48 when padding T to a multiple of 48 adds at most
+  96 frames (``:488-489``), else 2; T is padded to the chunk grid.
+
+:func:`fused_block1` launches the kernel for a CUDA tensor and runs
+:func:`block1_small_plain` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from texttoaudiogrounding_tpu_torch.ops.kernels import _build
+from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
+    _windows,
+    check_device,
+    conv2_pool_plain,
+    conv_weights,
+)
+
+__all__ = ["fused_block1", "block1_small_plain", "conv1_im2col",
+           "default_tc"]
+
+launches = {"block1_small": 0}     # kernel launches through fused_block1
+
+_M = 64
+
+
+def default_tc(t: int) -> int:
+    """``conv_block_small.py:488-489``."""
+    return 48 if -(-t // 48) * 48 <= t + 96 else 2
+
+
+def conv1_im2col(x_mel: torch.Tensor, t_grid: int) -> torch.Tensor:
+    """``[B, T, M]`` → ``[B, t_grid * M / 2, 16]``: row (t, j) holds mels
+    2j - 1 + dm4 (dm4 < 4) at times t - 1 + dt (dt < 3), column dt * 4 +
+    dm4, zero outside the clip, then 4 zero columns
+    (``conv_block_small.py:401``)."""
+    b, t, m = x_mel.shape
+    mp = m // 2
+    x = F.pad(x_mel, (1, 2, 1, 1 + t_grid - t))
+    cols = [x[:, dt:dt + t_grid, dm4:dm4 + 2 * mp:2]
+            for dt in range(3) for dm4 in range(4)]
+    stacked = F.pad(torch.stack(cols, dim=-1), (0, 4))
+    return stacked.reshape(b, t_grid * mp, 16)
+
+
+def _conv1(xim: torch.Tensor, w1: torch.Tensor, t_grid: int) -> torch.Tensor:
+    """conv1 sums ``[B, t_grid, 64, C]`` f32 from the im2col: output mel
+    2j + p takes column dt * 4 + dm + p with weight w1[dt, dm], the
+    products added in tap order dt * 3 + dm."""
+    b = xim.shape[0]
+    x = xim.reshape(b, t_grid, _M // 2, 16).float()
+    w = w1[:, :, 0, :].reshape(9, -1).float()
+    parts = []
+    for p in range(2):
+        acc = None
+        for k in range(9):
+            term = x[..., (k // 3) * 4 + k % 3 + p, None] * w[k]
+            acc = term if acc is None else acc + term
+        parts.append(acc)
+    return torch.stack(parts, dim=3).reshape(b, t_grid, _M, -1)
+
+
+def block1_small_plain(x_mel, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The block's arithmetic in plain PyTorch."""
+    b, t, _ = x_mel.shape
+    nch = -(-t // tc)
+    t_grid = nch * tc
+    xim = conv1_im2col(x_mel.to(compute_dtype), t_grid)
+    acc = _windows(_conv1(xim, w1.to(compute_dtype), t_grid), tc, 1, nch)
+    a1, b1 = (v.float() for v in ab1)
+    time = (torch.arange(nch, device=x_mel.device)[:, None] * tc - 1
+            + torch.arange(tc + 2, device=x_mel.device)[None])
+    valid = ((time >= 0) & (time < t)).repeat(b, 1)[:, :, None, None]
+    y1 = torch.where(valid, torch.relu(acc * a1 + b1), 0.0)
+    return conv2_pool_plain(y1, w2, ab2, (2, 2), b, t, quantize=quantize,
+                            compute_dtype=compute_dtype, divide=True)
+
+
+_P, _I = _build.P, _build.I
+_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+
+
+def prepare(w1, ab1, w2, ab2, quantize: bool) -> tuple:
+    """(w1 [9, 64] bf16, alpha1, beta1, w2 [64, 576], alpha2, beta2): w2
+    int8 divided by its per-channel scales, folded into alpha2, or bf16."""
+    w1k = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).contiguous()
+    a1, b1 = (v.float().contiguous() for v in ab1)
+    return (w1k, a1, b1) + conv_weights(w2, ab2, quantize, divide=True)
+
+
+def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                 w2: torch.Tensor, ab2: tuple, *, quantize: bool = True,
+                 tc: int | None = None, compute_dtype=torch.bfloat16,
+                 prepared: tuple | None = None) -> torch.Tensor:
+    """Fused PANNs block 1 (1 → 64 → 64, pool (2, 2)) from the log-mel.
+
+    x_mel ``[B, T, 64]`` (the bn0 output); w1 ``[3, 3, 1, 64]``, w2
+    ``[3, 3, 64, 64]`` HWIO f32; ab from ``fold_bn``; ``prepared`` is
+    :func:`prepare` of the same weights.  Returns ``[B, T // 2, 32,
+    64]``, bf16 for int8, else ``compute_dtype``.  Serving only (running
+    BN statistics).
+    """
+    if x_mel.dim() != 3 or x_mel.shape[2] != _M:
+        raise ValueError("x_mel must be [B, T, 64]")
+    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
+        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
+    b, t, _ = x_mel.shape
+    tc = tc or default_tc(t)
+    if tc % 2:
+        raise ValueError(f"tc={tc} must be even")
+    check_device(x_mel, w1, w2, *ab1, *ab2)
+    if not x_mel.is_cuda:
+        return block1_small_plain(x_mel, w1, ab1, w2, ab2,
+                                  quantize=quantize, tc=tc,
+                                  compute_dtype=compute_dtype)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("the kernel computes in bf16 (or int8)")
+    nch = -(-t // tc)
+    xim = conv1_im2col(x_mel.to(torch.bfloat16), nch * tc).contiguous()
+    wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
+    check_device(x_mel, *wk)
+    dev = x_mel.device
+    y1 = torch.empty(b * nch, tc + 2, _M, 64, device=dev,
+                     dtype=torch.float32 if quantize else torch.bfloat16)
+    y1q = torch.empty_like(y1, dtype=torch.int8) if quantize else y1
+    sy = torch.empty(b * nch, device=dev)
+    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+                      device=dev)
+    fn = _build.function("block1_small", "ttg_block1_small", _ARGS)
+    err = fn(int(quantize), xim.data_ptr(), b, t, tc,
+             *(v.data_ptr() for v in wk), y1.data_ptr(), y1q.data_ptr(),
+             sy.data_ptr(), out.data_ptr(), _build.stream())
+    launches["block1_small"] += 1
+    _build.check(err, "ttg_block1_small")
+    return out

@@ -48,10 +48,16 @@ def _quant_i8(x: torch.Tensor, inv) -> torch.Tensor:
     return torch.clamp(torch.round(x * inv), -127.0, 127.0).to(torch.int8)
 
 
-def quant_weight(w: torch.Tensor) -> tuple:
+def quant_weight(w: torch.Tensor, divide: bool = False) -> tuple:
     """Per-output-channel int8 quantization of HWIO ``[3, 3, Cin, Cout]``
-    weights: ``(int8 weights, scales [Cout])``."""
+    weights: ``(int8 weights, scales [Cout])``.  The weights are
+    multiplied by the scales' reciprocals, or with ``divide`` divided by
+    the scales, as ``conv_block_small.py:75 _quant_rows`` does in numpy
+    (the two can round a weight to neighbouring integers)."""
     s = over127(torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-8))
+    if divide:
+        return torch.clamp(torch.round(w / s), -127.0, 127.0).to(
+            torch.int8), s
     return _quant_i8(w, 1.0 / s), s
 
 
@@ -154,21 +160,25 @@ def per_clip_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
 
 
 def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
-                      tc: int, x_scale=per_clip_scale) -> torch.Tensor:
+                      tc: int, x_scale=per_clip_scale,
+                      compute_dtype=torch.bfloat16, round_y1: bool = False,
+                      divide: bool = False) -> torch.Tensor:
     """The chunked int8 / bf16 block in plain PyTorch.
 
     x ``[B, T, M, Cin]`` bf16; w HWIO f32; ab folded BN affines.
     ``x_scale(x_f32, tc, nch) -> [B, nch]`` gives the input scale of each
-    chunk (per clip here, per chunk window for block 2).
-    Returns ``[B, T // pt, M // pm, Cout]`` bf16.
+    chunk (per clip here, per chunk window for block 2).  Without
+    ``quantize`` the convolutions take ``compute_dtype`` operands (f32
+    sums) and the result is in that type.  ``round_y1`` rounds the conv1
+    rows to ``compute_dtype`` before their int8 scale is taken
+    (``conv_block.py:691 fused_pair_conv_pool`` stores them so);
+    ``divide`` as in :func:`quant_weight`.
+    Returns ``[B, T // pt, M // pm, Cout]``, bf16 for int8.
     """
     b, t, m, _ = x.shape
-    cout = w1.shape[-1]
-    pt, pm = pool
     nch = -(-t // tc)
     g = b * nch
     a1, b1 = (v.float() for v in ab1)
-    a2, b2 = (v.float() for v in ab2)
     time = (torch.arange(nch, device=x.device)[:, None] * tc - 1
             + torch.arange(tc + 2, device=x.device)[None])
     valid = ((time >= 0) & (time < t)).repeat(b, 1)[:, :, None, None]
@@ -177,46 +187,71 @@ def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
         sx = x_scale(xf, tc, nch).reshape(g)
         xq = _quant_i8(_windows(xf, tc, 2, nch),
                        (1.0 / sx).reshape(g, 1, 1, 1))
-        w1q, s1 = quant_weight(w1.float())
-        w2q, s2 = quant_weight(w2.float())
+        w1q, s1 = quant_weight(w1.float(), divide)
         # int8 products summed exactly: float64 holds every partial sum
         acc1 = _conv_valid_time(xq, w1q, torch.float64).float()
         mul1 = (a1 * s1)[None] * sx[:, None]
-        y1 = acc1 * mul1[:, None, None] + b1
-        y1 = torch.where(valid, torch.relu(y1), 0.0)
+        y1 = torch.where(valid, torch.relu(acc1 * mul1[:, None, None] + b1),
+                         0.0)
+        if round_y1:
+            y1 = y1.to(compute_dtype).float()
+    else:
+        xw = _windows(x.to(compute_dtype), tc, 2, nch)
+        acc1 = _conv_valid_time(xw, w1.to(compute_dtype), torch.float32)
+        y1 = torch.where(valid, torch.relu(acc1 * a1 + b1), 0.0)
+    return conv2_pool_plain(y1, w2, ab2, pool, b, t, quantize=quantize,
+                            compute_dtype=compute_dtype, divide=divide)
+
+
+def conv2_pool_plain(y1, w2, ab2, pool, b: int, t: int, *, quantize: bool,
+                     compute_dtype=torch.bfloat16,
+                     divide: bool = False) -> torch.Tensor:
+    """The second half of a chunked block: y1 ``[B * nch, tc + 2, M, C]``
+    f32, conv1 rows at times ``[j tc - 1, j tc + tc + 1)`` of chunk j,
+    zero outside the clip → requantize per chunk (int8) → conv2 → BN →
+    ReLU → f32 avg+max pool → ``[B, T // pt, M // pm, Cout]``."""
+    g, r, m, _ = y1.shape
+    nch, tc = g // b, r - 2
+    cout = w2.shape[-1]
+    pt, pm = pool
+    a2, b2 = (v.float() for v in ab2)
+    if quantize:
         sy = over127(torch.clamp(y1.amax(dim=(1, 2, 3)), min=1e-6))
         y1q = _quant_i8(y1, (1.0 / sy).reshape(g, 1, 1, 1))
+        w2q, s2 = quant_weight(w2.float(), divide)
         acc2 = _conv_valid_time(y1q, w2q, torch.float64).float()
         mul2 = (a2 * s2)[None] * sy[:, None]
         y2 = torch.relu(acc2 * mul2[:, None, None] + b2)
     else:
-        xw = _windows(x.to(torch.bfloat16), tc, 2, nch)
-        acc1 = _conv_valid_time(xw, w1.to(torch.bfloat16), torch.float32)
-        y1 = torch.where(valid, torch.relu(acc1 * a1 + b1), 0.0)
-        acc2 = _conv_valid_time(y1.to(torch.bfloat16),
-                                w2.to(torch.bfloat16), torch.float32)
+        acc2 = _conv_valid_time(y1.to(compute_dtype),
+                                w2.to(compute_dtype), torch.float32)
         y2 = torch.relu(acc2 * a2 + b2)
     pooled = dual_pool(y2, pt, pm)
     pooled = pooled.reshape(b, nch * tc // pt, m // pm, cout)[:, :t // pt]
-    return pooled.to(torch.bfloat16)
+    return pooled.to(torch.bfloat16 if quantize else compute_dtype)
 
 
-def kernel_weights(w1, ab1, w2, ab2, quantize: bool) -> tuple:
+def conv_weights(w, ab, quantize: bool, divide: bool = False) -> tuple:
+    """One conv's (w [Cout, 9 Cin], alpha, beta) in the kernel's layout:
+    k = (dt * 3 + dm) * Cin + ci; int8 with the weight scales folded into
+    alpha (``divide`` as in :func:`quant_weight`), or bf16."""
+    w = w.float()
+    a = ab[0].float()
+    if quantize:
+        w, s = quant_weight(w, divide)
+        a = a * s
+    else:
+        w = w.to(torch.bfloat16)
+    return (w.permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous(),
+            a.contiguous(), ab[1].float().contiguous())
+
+
+def kernel_weights(w1, ab1, w2, ab2, quantize: bool,
+                   divide: bool = False) -> tuple:
     """(w1 [Cout, 9 Cin], alpha1, beta1, w2 [Cout, 9 Cout], alpha2,
-    beta2) in the kernel's layout: k = (dt * 3 + dm) * Cin + ci; int8 with
-    the weight scales folded into alpha, or bf16."""
-    out = []
-    for w, (a, bb) in ((w1, ab1), (w2, ab2)):
-        w = w.float()
-        a = a.float()
-        if quantize:
-            w, s = quant_weight(w)
-            a = a * s
-        else:
-            w = w.to(torch.bfloat16)
-        out += [w.permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous(),
-                a.contiguous(), bb.float().contiguous()]
-    return tuple(out)
+    beta2): :func:`conv_weights` of both convs."""
+    return (conv_weights(w1, ab1, quantize, divide)
+            + conv_weights(w2, ab2, quantize, divide))
 
 
 def check_device(x: torch.Tensor, *tensors) -> None:

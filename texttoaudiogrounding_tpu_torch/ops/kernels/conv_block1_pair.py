@@ -1,24 +1,37 @@
 """Fused PANNs block 1 (1 → 64 → 64, 2×2 pool): ``csrc/conv_block1_pair.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block1_pair.py:346
-fused_block1_pair`` in its serving mode ``quantize="conv1"`` and in
-``quantize=False`` (bf16).  The TPU kernel's banded conv1 matrix and its
-packed output order serve the TPU's matrix unit; the port keeps their
+fused_block1_pair`` in its three modes: ``quantize="conv1"`` (the serving
+default), ``False`` (bf16) and ``True`` (all int8, the JAX package's
+``TTG_B1_QUANT=1``).  The TPU kernel's banded conv1 matrix and its packed
+output order serve the TPU's matrix unit; the port keeps their
 arithmetic, not their layout:
 
-* ``"conv1"``: x is int8 with one scale per clip, ``max|x| / 127`` floored
-  at 1e-6, all in bf16 arithmetic as the TPU path computes it
-  (``conv_block1_pair.py:432-436``).  w1 is quantized per column of the
-  banded matrix (``:77-96``, ``:412-415``), i.e. per (output mel,
-  channel): output mels 0 and 63 see only 6 in-band taps, and their scale
-  is the max over those.  conv1 sums in int32, then ``acc (a1 s_w) s_x +
-  b1``, ReLU, bf16 — y1 is not requantized;
-* ``False``: conv1 in bf16 with f32 accumulation;
-* conv2 in bf16 with f32 accumulation, BN, ReLU, y2 rounded to bf16 and
-  pooled in bf16, time pairs first, then mel pairs.
+* ``"conv1"`` and ``True``: x is int8 with one scale per clip,
+  ``max|x| / 127`` floored at 1e-6, all in bf16 arithmetic as the TPU path
+  computes it (``conv_block1_pair.py:432-436``).  w1 is quantized per
+  column of the banded matrix (``:77-96``, ``:412-415``), i.e. per
+  (output mel, channel): output mels 0 and 63 see only 6 in-band taps,
+  and their scale is the max over those.  conv1 sums in int32, then
+  ``acc (a1 s_w) s_x + b1``;
+* ``"conv1"``: ReLU, y1 in bf16, not requantized; conv2 in bf16 with f32
+  accumulation;
+* ``True``: y1 is requantized once per time chunk of ``tc`` output frames
+  (``:144-171``): the chunk's conv1 rows are times ``[j tc - 1, j tc +
+  tc]``, computed from the zero-padded input, and its scale is
+  ``max(max(y1), 1e-6) / 127`` over all of them, those outside the clip
+  too; the int8 values are ``clip(round(y1 / sy), 0, 127)`` (the lower
+  clip is the ReLU), with the rows outside the clip zeroed afterwards
+  (conv2's zero padding, ``:181-198``).  w2 is int8 per output channel,
+  its scale folded into the BN affine with ``sy``; int32 sums.  So the
+  result depends on ``tc`` (the JAX ``TTG_B1_TC``);
+* ``False``: conv1 in bf16 with f32 accumulation, conv2 as in
+  ``"conv1"``;
+* every mode: BN, ReLU, y2 rounded to bf16 and pooled in bf16, time pairs
+  first, then mel pairs.
 
-``quantize=True`` (int8 conv2 with a per-chunk y1 scale) is not ported
-yet; see ROADMAP.md.
+The TPU kernel's ``mode="single"`` staging (``TTG_B1_MODE``) is not
+ported yet; see ROADMAP.md.
 
 :func:`fused_block1_pair` launches the kernel for a CUDA tensor and runs
 :func:`block1_plain` for a CPU tensor.
@@ -31,15 +44,19 @@ import torch.nn.functional as F
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
+    _conv_valid_time,
     _quant_i8,
     check_device,
     fold_bn,
     over127,
+    quant_weight,
 )
 
 __all__ = ["fused_block1_pair", "block1_plain", "fold_bn"]
 
-launches = 0          # kernel launches through fused_block1_pair
+# kernel launches through fused_block1_pair: "conv1" and False modes, and
+# the all-int8 mode
+launches = {"conv_block1_pair": 0, "conv_block1_pair_int8": 0}
 
 _M = 64
 
@@ -86,18 +103,22 @@ def _pool_bf16(y: torch.Tensor) -> torch.Tensor:
     return s * 0.25 + mx
 
 
-def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1") -> torch.Tensor:
+def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1",
+                 tc: int = 48) -> torch.Tensor:
     """The block-1 kernel's arithmetic in plain PyTorch.  x ``[B, T, 64]``
-    bf16 → ``[B, T // 2, 32, 64]`` bf16."""
+    bf16 → ``[B, T // 2, 32, 64]`` bf16; ``tc`` acts only with
+    ``quantize=True``."""
     a1, b1 = (v.float() for v in ab1)
     a2, b2 = (v.float() for v in ab2)
-    if quantize == "conv1":
+    if quantize in ("conv1", True):
         sx = clip_scale(x)
         xq = _quant_i8(x.float(), (1.0 / sx).float()[:, None, None])
         wq, s1 = conv1_weights(w1)
+        mul = (a1[None] * s1)[None] * sx.float()[:, None, None]
+        if quantize is True:
+            return _int8_conv2(xq, wq, mul, b1, w2, (a2, b2), tc)
         acc = torch.einsum("btmk,mkc->btmc", _taps(xq.double()),
                            wq.double()).float()
-        mul = (a1[None] * s1)[None] * sx.float()[:, None, None]
         y1 = acc * mul[:, None] + b1
     else:
         wb = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).float()
@@ -111,44 +132,91 @@ def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1") -> torch.Tensor:
     return _pool_bf16(y2)
 
 
+def _int8_conv2(xq, wq, mul, b1, w2, ab2, tc: int) -> torch.Tensor:
+    """``quantize=True`` after the int8 input: conv1 per chunk of ``tc``
+    frames over times ``[j tc - 1, j tc + tc]``, the chunk's y1 scale over
+    all of those rows, requantize, zero the rows outside the clip, int8
+    conv2, BN, ReLU, bf16 pool."""
+    b, t, _ = xq.shape
+    nch = -(-t // tc)
+    tp = nch * tc
+    xpad = F.pad(xq.double(), (0, 0, 1, tp + 1 - t))      # times -1 .. tp
+    acc = torch.einsum("btmk,mkc->btmc", _taps(xpad), wq.double()).float()
+    y1 = torch.relu(acc * mul[:, None] + b1)              # [B, tp + 2, ...]
+    c = y1.shape[-1]
+    win = y1.unfold(1, tc + 2, tc).permute(0, 1, 4, 2, 3).reshape(
+        b * nch, tc + 2, _M, c)
+    sy = over127(torch.clamp(win.amax(dim=(1, 2, 3)), min=1e-6))
+    yq = _quant_i8(win, (1.0 / sy)[:, None, None, None])
+    time = (torch.arange(nch, device=xq.device)[:, None] * tc - 1
+            + torch.arange(tc + 2, device=xq.device)[None])
+    valid = ((time >= 0) & (time < t)).repeat(b, 1)[:, :, None, None]
+    yq = torch.where(valid, yq, torch.zeros((), dtype=yq.dtype,
+                                            device=yq.device))
+    w2q, s2 = quant_weight(w2.float())
+    acc2 = _conv_valid_time(yq, w2q, torch.float64).float()
+    mul2 = (ab2[0] * s2)[None] * sy[:, None]
+    y2 = torch.relu(acc2 * mul2[:, None, None] + ab2[1]).to(torch.bfloat16)
+    return _pool_bf16(y2.reshape(b, tp, _M, c))[:, :t // 2]
+
+
 _P, _I = _build.P, _build.I
-_ARGS = [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _P]
+_MODES = {False: 0, "conv1": 1, True: 2}
 
 
 def kernel_weights(w1, ab1, w2, ab2, quantize) -> tuple:
-    """(w1, alpha1, beta1, w2 [64, 9 * 64], alpha2, beta2) in the
-    kernel's layout: for ``"conv1"`` w1 is the banded int8 ``[64 mel, 9,
-    C]`` with its scales folded into alpha1 ``[64 mel, C]``, else bf16
-    ``[9, C]``; w2 is bf16, k = (dt * 3 + dm) * 64 + ci."""
+    """(w1, alpha1, beta1, w2 [64, 9 * 64], alpha2, beta2) in the kernel's
+    layout: for ``"conv1"`` and ``True`` w1 is the banded int8 ``[64 mel,
+    9, C]`` with its scales folded into alpha1 ``[64 mel, C]``, else bf16
+    ``[9, C]``; w2 is int8 with its per-channel scales folded into alpha2
+    for ``True``, else bf16, k = (dt * 3 + dm) * 64 + ci."""
     a1, b1 = (v.float().contiguous() for v in ab1)
     a2, b2 = (v.float().contiguous() for v in ab2)
-    if quantize == "conv1":
+    if quantize in ("conv1", True):
         wk1, s1 = conv1_weights(w1)
         ak1 = (a1[None] * s1).contiguous()
     else:
         wk1 = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).contiguous()
         ak1 = a1
-    wk2 = w2.to(torch.bfloat16).permute(3, 0, 1, 2).reshape(64, -1)
+    if quantize is True:
+        wk2, s2 = quant_weight(w2.float())
+        a2 = (a2 * s2).contiguous()
+    else:
+        wk2 = w2.to(torch.bfloat16)
+    wk2 = wk2.permute(3, 0, 1, 2).reshape(64, -1)
     return wk1, ak1, b1, wk2.contiguous(), a2, b2
+
+
+def check_mode(quantize, tc: int):
+    """The mode as ``conv_block1_pair.py:375-384`` reads it (``"conv1"``,
+    or any other value taken as a bool), after the TPU kernel's limits on
+    tc (``:397-398``)."""
+    if tc % 16 or _M // 2 * (tc + 2) > 2200:
+        raise ValueError(f"invalid tc={tc}: a multiple of 16, at most 64")
+    if isinstance(quantize, str):
+        if quantize != "conv1":
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
+        return quantize
+    return bool(quantize)
 
 
 def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                       w2: torch.Tensor, ab2: tuple, *,
-                      quantize="conv1",
+                      quantize="conv1", tc: int = 48,
                       prepared: tuple | None = None) -> torch.Tensor:
     """Fused (conv3x3 → BN → ReLU) × 2 → avg+max 2×2 pool for Cin = 1.
 
     x ``[B, T, 64]`` bf16 (the bn0 output); w1 ``[3, 3, 1, 64]``, w2
-    ``[3, 3, 64, 64]`` HWIO f32; ab from :func:`fold_bn`; ``prepared``,
-    if given, is :func:`kernel_weights` of the same weights and mode, kept
-    by the caller so that a forward does not lay them out again.  Returns
-    ``[B, T // 2, 32, 64]`` bf16.  Serving only (running BN statistics).
+    ``[3, 3, 64, 64]`` HWIO f32; ab from :func:`fold_bn`; ``quantize``
+    ``"conv1"``, ``False`` or ``True``; ``tc`` the chunk of the y1 scales
+    under ``True``; ``prepared``, if given, is :func:`kernel_weights` of
+    the same weights and mode, kept by the caller so that a forward does
+    not lay them out again.  Returns ``[B, T // 2, 32, 64]`` bf16.
+    Serving only (running BN statistics).
     """
-    global launches
-    if quantize is True:
-        raise NotImplementedError("block 1 with an int8 conv2 is not ported")
-    if quantize not in (False, "conv1"):
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
+    quantize = check_mode(quantize, tc)
     if x.dim() != 3 or x.shape[2] != _M or x.dtype != torch.bfloat16 \
             or not x.is_contiguous():
         raise ValueError("x must be a contiguous [B, T, 64] bf16 tensor")
@@ -156,20 +224,29 @@ def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
         raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
     check_device(x, w1, w2, *ab1, *ab2)
     if not x.is_cuda:
-        return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize)
+        return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc)
     b, t, _ = x.shape
     wk1, ak1, b1, wk2, a2, b2 = prepared or kernel_weights(
         w1, ab1, w2, ab2, quantize)
     check_device(x, wk1, ak1, b1, wk2, a2, b2)
-    sx = torch.empty(b, 2, device=x.device)
-    y1 = torch.empty(b, t, _M, 64, dtype=torch.bfloat16, device=x.device)
+    dev = x.device
+    sx = torch.empty(b, 2, device=dev)
+    if quantize is True:
+        g = b * -(-t // tc)
+        y1 = torch.empty(g, tc + 2, _M, 64, device=dev)
+        y1q = torch.empty(g, tc + 2, _M, 64, dtype=torch.int8, device=dev)
+        sy = torch.empty(g, device=dev)
+    else:
+        y1 = torch.empty(b, t, _M, 64, dtype=torch.bfloat16, device=dev)
+        y1q = sy = torch.empty(1, device=dev)
     out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
-                      device=x.device)
+                      device=dev)
     fn = _build.function("conv_block1_pair", "ttg_conv_block1", _ARGS)
-    err = fn(int(quantize == "conv1"), x.data_ptr(), b, t, wk1.data_ptr(),
+    err = fn(_MODES[quantize], x.data_ptr(), b, t, tc, wk1.data_ptr(),
              ak1.data_ptr(), b1.data_ptr(), wk2.data_ptr(), a2.data_ptr(),
-             b2.data_ptr(), sx.data_ptr(), y1.data_ptr(), out.data_ptr(),
-             _build.stream())
-    launches += 1
+             b2.data_ptr(), sx.data_ptr(), y1.data_ptr(), y1q.data_ptr(),
+             sy.data_ptr(), out.data_ptr(), _build.stream())
+    launches["conv_block1_pair_int8" if quantize is True
+             else "conv_block1_pair"] += 1
     _build.check(err, "ttg_conv_block1")
     return out

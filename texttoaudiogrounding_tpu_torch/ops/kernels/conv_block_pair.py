@@ -97,11 +97,14 @@ def pair_window_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
     return over127(torch.clamp(win.amax(dim=-1), min=1e-6))
 
 
-def block2_plain(x, w1, ab1, w2, ab2, *, quantize: bool,
-                 tc: int) -> torch.Tensor:
-    """The block-2 kernel's arithmetic in plain PyTorch."""
+def block2_plain(x, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
+                 compute_dtype=torch.bfloat16,
+                 divide: bool = False) -> torch.Tensor:
+    """The block-2 kernel's arithmetic in plain PyTorch (``compute_dtype``
+    and ``divide`` as in ``double_conv_plain``)."""
     return double_conv_plain(x, w1, ab1, w2, ab2, (2, 2), quantize=quantize,
-                             tc=tc, x_scale=pair_window_scale)
+                             tc=tc, x_scale=pair_window_scale,
+                             compute_dtype=compute_dtype, divide=divide)
 
 
 _P, _I = _build.P, _build.I
@@ -130,7 +133,18 @@ def fused_block2_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     check_block_args(x, w1, ab1, w2, ab2, (2, 2), tc)
     if not x.is_cuda:
         return block2_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc)
-    wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
+    out = launch(x, prepared or kernel_weights(w1, ab1, w2, ab2, quantize),
+                 quantize, tc)
+    launches += 1
+    return out
+
+
+def launch(x: torch.Tensor, wk: tuple, quantize: bool,
+           tc: int) -> torch.Tensor:
+    """One launch of ``ttg_conv_block_pair`` on checked arguments; ``wk``
+    is ``kernel_weights`` of the block's weights.  The caller counts it."""
+    b, t, m, cin = x.shape
+    cout = wk[0].shape[0]
     check_device(x, *wk)
     xs, y1, y1q, sx, sy = scratch(b, t, m, cin, cout, tc, quantize,
                                   x.device)
@@ -141,6 +155,5 @@ def fused_block2_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
              *(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
              y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
              _build.stream())
-    launches += 1
     _build.check(err, "ttg_conv_block_pair")
     return out
