@@ -38,16 +38,28 @@ Phases, each printing one line:
    timed and profiled on the default path (grouped-loop BiGRU) and with
    the bf16 GRU kernel opted in, and with block 1 all in int8
    (``block1_quant="int8"``, the JAX ``TTG_B1_QUANT=1``), each checked the
-   same way, the latter's launch counts too;
-4. designs: the JAX package's blocks-1-2 designs that no model routes
-   (``fused_pair_conv_pool`` with and without conv1, ``fused_block2``,
-   ``fused_block1``) and block 1's all-int8 mode, on the batch-32 request's
-   block-1 input (the bn0 output) and block-1 output with the served
-   model's weights: each design runs once as a function (its launches
-   counted), then each int8 kernel is held bit for bit against its plain
-   version and its bf16 mode within 1e-2 relative RMS, is timed with CUDA
-   events, and each design's and the routed blocks' relative RMS to the f32
-   plain block on the same input is reported;
+   same way, the latter's launch counts too, and with block 1 all in int8
+   in the single staging (``block1_mode="single"``, the JAX
+   ``TTG_B1_MODE=single``), held to the same contract;
+4. designs: the JAX package's designs that no shipped model routes, one
+   record each in one table: block 1's all-int8 mode in both stagings and
+   ``fused_pair_conv_pool`` (with and without conv1), ``fused_block2`` and
+   ``fused_block1`` on the batch-32 request's block-1 input (the bn0
+   output) and output with the served model's weights, beside the routed
+   rows 2 / 3; the Winograd block (``fused_block_wino``, int8 and bf16) at
+   the pool-(2, 2) analog of blocks 3 and 4 (a record each) on that
+   request's block-2 output with the served blocks 3-4 weights, driven
+   through ``ConvBlock(..., wino=True)``, beside the direct9 kernel at
+   pool (2, 2) on the same input and bound by the Winograd products'
+   operations (the direct conv's beside it); and the log-mel variants v3
+   and v4 on that request's waveform beside row 1's kernel.  Each design
+   runs once (its launches counted, exactly), then each int8 kernel is
+   held bit for bit against its plain version and its bf16 mode within
+   1e-2 relative RMS (v3 within 0.035 dB max and 1e-4 dB mean of its plain
+   version, limits that row 1's kernel must miss; v4 bit for bit against
+   row 1's kernel), is timed with CUDA events with its weights laid out
+   once, as the routes keep them, and each design's relative RMS to the
+   f32 plain block (the f64 log-mel) on the same input is reported;
 5. train: ``StrongRunner.fit`` on the strong-supervision config's model
    (``configs/strong/biencoder_train.yaml``: BiEncoder(Cnn8Rnn f32,
    EmbeddingAgg(5000, 512), ExpNegL2, shared 512), FrameBceLoss, Adam 1e-3
@@ -863,11 +875,13 @@ def serving_phase(rng, tok) -> dict:
     model8.load_state_dict(sd)
     pred8 = GroundingPredictor(model8, tok)
     enc8 = model8.audio_encoder
-    block1_io = []
+    block1_io, block2_out = [], []
     hooks = [enc8.register_forward_hook(
         lambda mod, args, out: served.append((args[0], out["embedding"]))),
         enc8.conv_block1.register_forward_hook(
-            lambda mod, args, out: block1_io.append((args[0], out)))]
+            lambda mod, args, out: block1_io.append((args[0], out))),
+        enc8.conv_block2.register_forward_hook(
+            lambda mod, args, out: block2_out.append(out))]
     _reset_counts()
     b1_totals = _counts()
     b1_request = _checked_request(
@@ -878,12 +892,32 @@ def serving_phase(rng, tok) -> dict:
         hook.remove()
     served.clear()
     handoff = (block1_io[0][0][..., 0].contiguous(),
-               block1_io[0][1].contiguous(), enc8)
+               block1_io[0][1].contiguous(), enc8,
+               block2_out[0].contiguous(),
+               torch.from_numpy(audio).to(DEVICE))
+    del block1_io, block2_out
 
-    # steady-state throughput of the largest request, three ways
+    # block 1 all in int8 in the single staging (JAX: TTG_B1_QUANT=1
+    # TTG_B1_MODE=single), held to the contract as the default path is
+    model_s = flagship_model(serving=True, device=DEVICE,
+                             block1_quant="int8", block1_mode="single")
+    model_s.load_state_dict(sd)
+    pred_s = GroundingPredictor(model_s, tok)
+    hook = model_s.audio_encoder.register_forward_hook(
+        lambda mod, args, out: served.append((args[0], out["embedding"])))
+    _reset_counts()
+    single_totals = _counts()
+    single_request = _checked_request(
+        pred_s, pred_plain, plain, served, f"{label}, block 1 int8 single",
+        audio, lens, text, {**SERVING_PER_FORWARD, "conv_block1_pair": 0,
+                            "conv_block1_pair_single": 1}, single_totals)
+    hook.remove()
+    served.clear()
+
+    # steady-state throughput of the largest request, four ways
     paths = {}
     for name, p in (("default", pred), ("gru_kernel", pred_gk),
-                    ("block1_int8", pred8)):
+                    ("block1_int8", pred8), ("block1_single", pred_s)):
         p.predict(audio, lens, text)
         times = []
         for _ in range(5):
@@ -901,9 +935,11 @@ def serving_phase(rng, tok) -> dict:
     paths["gru_kernel"].update(max_abs_vs_plain_f32=delta,
                                embedding_rel_rms_vs_plain_f32=emb_rel)
     paths["block1_int8"].update(b1_request)
+    paths["block1_single"].update(single_request)
     return {"requests": results, "launches": totals,
             "gru_fwd_bf16_launches": gru_launches,
             "block1_int8_launches": b1_totals,
+            "block1_single_launches": single_totals,
             "clips_per_s": paths["default"]["clips_per_s"],
             "largest": label, "paths": paths}, handoff
 
@@ -922,21 +958,142 @@ def _block_weights(blk) -> tuple:
                         blk.bn2.running_var, blk.bn2.eps))
 
 
-def designs_phase(x1, y1, enc) -> list:
-    """The blocks-1-2 designs of the JAX package that no model routes
-    (rows 5-7), and block 1's all-int8 mode (row 2), on the served batch:
-    x1 the bn0 output ``[B, T, 64]`` that entered block 1 and y1 block 1's
-    output, with the served model's blocks-1-2 weights.  Each design runs
-    once as the JAX package drives it, as a function (the launches
-    counted), and is then held to its plain version: the int8 modes bit
-    for bit, the bf16 modes within 1e-2 relative RMS; each design's and
-    the routed rows 2 / 3's relative RMS to the f32 plain block on the
-    same input is reported."""
+_DESIGN_TOL = "max_abs == 0 (int8); bf16 mode rel_rms <= 0.01"
+# row 9 against its plain version on the same waveform: one bf16 ulp of a
+# power bin, 10 log10(1 + 2^-7) = 0.034 dB, where the kernel's and the
+# plain version's f32 DFT sums round the power to different sides; in the
+# mean, far below the 3.9e-3 dB by which row 1's f32 mel projection
+# differs from v3's bf16 one (CPU, 2 x 3 s of noise), which the control
+# below must show on the card
+V3_MAX_DB, V3_MEAN_DB = 0.035, 1e-4
+
+
+def _bit_exact(out, target) -> dict:
+    max_abs, rel = _err(out, target)
+    if max_abs != 0.0:
+        raise AssertionError(f"differs from its plain version: max_abs "
+                             f"{max_abs}, rel_rms {rel}")
+    return {"max_abs_err": max_abs, "rel_rms_err": rel}
+
+
+def _design(kernel, plain, ref, ops, in_bytes, source, replaces, *,
+            check=_bit_exact, tolerance=_DESIGN_TOL, target=None, bf16=None,
+            beside=None, timed=None, counter=None, trace=False,
+            **extra) -> dict:
+    """One record of the designs table.  ``kernel()`` runs the design as
+    its route does (weights laid out once) and ``plain()`` its plain
+    version; ``check(out, target())`` holds the counted run's output
+    against ``target`` (the plain version if None); ``ref`` is (label,
+    tensor) of the f32 block or f64 log-mel it is compared with; ``ops``
+    {type: count} and ``in_bytes`` (output bytes added) give its bound;
+    ``bf16`` is (kernel, plain) of the bf16 mode, held within 1e-2
+    relative RMS; ``beside`` {name: fn} are other kernels timed in the same
+    call and compared with ``ref``, ``timed`` {name: fn} are only timed;
+    ``counter`` is the launch counter where it is not the record's name;
+    ``extra`` goes into the JSON row as it is."""
+    return {"kernel": kernel, "plain": plain, "ref": ref, "ops": ops,
+            "in_bytes": in_bytes, "source": source, "replaces": replaces,
+            "check": check, "tolerance": tolerance,
+            "target": target or plain, "bf16": bf16, "beside": beside or {},
+            "timed": timed or {}, "counter": counter, "trace": trace,
+            "extra": extra}
+
+
+def _design_row(name: str, d: dict, out) -> dict:
+    """Check, time and report one design (its counted run gave ``out``)."""
+    try:
+        errs = d["check"](out, d["target"]())
+    except AssertionError as e:
+        raise AssertionError(f"{name}: {e}") from None
+    label, ref = d["ref"]
+
+    def vs_ref(key, got):
+        # the padded frames off
+        return {f"{key}max_abs_vs_{label}": _err(got[:, :ref.shape[1]],
+                                                 ref)[0],
+                f"{key}rel_rms_vs_{label}": _err(got[:, :ref.shape[1]],
+                                                 ref)[1]}
+
+    ms = _cuda_ms(d["kernel"], 10)
+    nbytes = d["in_bytes"] + out.numel() * out.element_size()
+    bound_ms, bound_by = _bound(nbytes, d["ops"])
+    row = {"name": name, "route": "cuda",
+           "source": f"texttoaudiogrounding_tpu_torch/csrc/{d['source']}",
+           "replaces": f"texttoaudiogrounding_tpu/ops/pallas/"
+                       f"{d['replaces']}",
+           **errs, "tolerance": d["tolerance"], "ms": ms, "kernel_ms": ms,
+           "plain_ms": _cuda_ms(d["plain"], 3), "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "library": "none: no single PyTorch call computes it",
+           "input_bytes": d["in_bytes"], **vs_ref("", out)}
+    if d["counter"]:
+        row["counter"] = d["counter"]
+    if d["bf16"]:
+        kern16, plain16 = d["bf16"]
+        got16 = kern16()
+        b16 = _err(got16, plain16())[1]
+        if b16 > 1e-2:
+            raise AssertionError(f"{name} (bf16): kernel disagrees with its "
+                                 f"plain version: rel_rms {b16} > 0.01")
+        row.update({"bf16_mode_rel_rms_err": b16,
+                    "bf16_ms": _cuda_ms(kern16, 10),
+                    "bf16_bound_ms": _bound(nbytes, {
+                        "bf16": sum(d["ops"].values())})[0],
+                    **vs_ref("bf16_", got16)})
+    for key, fn in d["beside"].items():
+        row.update({f"{key}_ms": _cuda_ms(fn, 10), **vs_ref(f"{key}_", fn())})
+    for key, fn in d["timed"].items():
+        row[f"{key}_ms"] = _cuda_ms(fn, 10)
+    if d["trace"]:
+        # device time by launch
+        row["trace"] = _trace(d["kernel"], ms)
+    row.update(d["extra"])
+    return row
+
+
+def designs_phase(x1, y1, enc, y2, wave) -> tuple:
+    """The JAX package's designs that no shipped model routes, on the
+    served batch: block 1's all-int8 mode in both stagings (row 2) and rows
+    5-7 on x1, the bn0 output ``[B, T, 64]`` that entered block 1, and y1,
+    block 1's output, with the served blocks-1-2 weights; row 8 on y2, its
+    block-2 output, and row 8's own block-3 output; rows 9-10 on its
+    waveform.  Each design runs once as the JAX package drives it (its
+    launches counted, exactly one per design), then each record of the one
+    table is checked, timed and reported by :func:`_design_row`."""
+    import collections
+
+    import torch
+
+    designs = _block12_designs(x1, y1, enc)
+    loud = _single_loud_frame(x1, _block_weights(enc.conv_block1))
+    designs["conv_block1_pair_single"]["extra"]["loud_frame"] = loud
+    _reset_counts()
+    outs = {name: d["kernel"]() for name, d in designs.items()}
+    for more, got in (_wino_designs(enc, y2), _logmel_designs(wave)):
+        designs.update(more)
+        outs.update(got)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = _want(**collections.Counter(d["counter"] or name
+                                       for name, d in designs.items()))
+    if launches != want:
+        raise AssertionError(f"designs: launches {launches}, expected "
+                             f"{want}")
+    rows = []
+    for name, d in designs.items():
+        rows.append(_design_row(name, d, outs.pop(name)))
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _block12_designs(x1, y1, enc) -> dict:
+    """Rows 2 (``True`` and ``single``) and 5-7 on the served block-1 input
+    and output, beside the routed rows 2 / 3 on the same input."""
     import torch
 
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        block1_small, block2_small, conv_block1_pair, conv_block_pair,
-        pair_conv_pool)
+        block1_small, block2_small, conv_block, conv_block1_pair,
+        conv_block_pair, pair_conv_pool)
     from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
         _quant_i8, over127)
 
@@ -945,8 +1102,9 @@ def designs_phase(x1, y1, enc) -> list:
     clips, t1, _ = x1.shape
     t2 = y1.shape[1]
     with torch.no_grad():
-        f32_1 = enc.conv_block1._plain(x1.float()[..., None], (2, 2))
-        f32_2 = enc.conv_block2._plain(y1.float(), (2, 2))
+        f32_1 = ("f32_block", enc.conv_block1._plain(x1.float()[..., None],
+                                                     (2, 2)))
+        f32_2 = ("f32_block", enc.conv_block2._plain(y1.float(), (2, 2)))
         # block 1 without conv1: the f32 conv1 activation, int8 with one
         # scale, T padded with zero frames to whole chunks (the caller's
         # part, conv_block.py:741-749)
@@ -960,103 +1118,275 @@ def designs_phase(x1, y1, enc) -> list:
                                      (0, 0, 0, 0, 0, tp - t1)).contiguous()
         a16 = torch.nn.functional.pad(act.to(torch.bfloat16),
                                       (0, 0, 0, 0, 0, tp - t1)).contiguous()
+    # each mode's weights laid out once, as the routes keep them
+    prep = {
+        ("b1", q): conv_block1_pair.kernel_weights(*b1w, q)
+        for q in ("conv1", True, False)}
+    prep.update({("b1s", q): block1_small.prepare(*b1w, q)
+                 for q in (True, False)})
+    prep.update({("c2", q): pair_conv_pool.prepare(
+        None, None, w2, ab2, q, xs if q else None) for q in (True, False)})
+    prep.update({("b2", q): conv_block.kernel_weights(*b2w, q)
+                 for q in (True, False)})
+    prep.update({("b2s", q): block2_small.prepare(*b2w, q)
+                 for q in (True, False)})
+    tc2 = conv_block_pair.pick_tc_pair(t2, 16, 128, True)
+    routed1 = {"routed_conv_block1_pair": lambda: (
+        conv_block1_pair.fused_block1_pair(x1, *b1w,
+                                           prepared=prep["b1", "conv1"]))}
+    routed2 = {"routed_conv_block_pair": lambda: (
+        conv_block_pair.fused_block2_pair(y1, *b2w, quantize=True, tc=tc2,
+                                          prepared=prep["b2", True]))}
+
+    def both(kern, plain, **kw):
+        # (kernel, plain) in int8 and in the bf16 mode
+        return dict(kernel=lambda: kern(True), plain=lambda: plain(True),
+                    bf16=(lambda: kern(False), lambda: plain(False)), **kw)
 
     mk = 2.0 * clips * 64 * 576 * 64          # block 1's conv2 per frame
     pos2 = clips * t2 * 32
     b1_in = x1.numel() * 2 + _wbytes(b1w)
     b2_in = y1.numel() * 2 + _wbytes(b2w)
+    b1_ops = {"int8": 2.0 * clips * t1 * 64 * 9 * 64 + mk * (t1 // 2 * 2)}
     b2_ops = {"int8": 2.0 * pos2 * 576 * 128 + 2.0 * pos2 * 1152 * 128}
-    # one record per design: (kernel(q), plain(q), its input, the f32
-    # block it is compared with, operations, input bytes, source, the TPU
-    # kernel it replaces); q=False runs the bf16 mode
-    designs = {
-        "conv_block1_pair_int8": (
-            lambda q=True: conv_block1_pair.fused_block1_pair(
-                x1, *b1w, quantize=q, tc=48),
-            lambda q=True: conv_block1_pair.block1_plain(
-                x1, *b1w, quantize=q, tc=48),
-            x1, f32_1,
-            {"int8": 2.0 * clips * t1 * 64 * 9 * 64 + mk * (t1 // 2 * 2)},
-            b1_in, "conv_block1_pair.cu", "conv_block1_pair.py:346"),
-        "block1_small": (
-            lambda q=True: block1_small.fused_block1(x1, *b1w, quantize=q),
-            lambda q=True: block1_small.block1_small_plain(
+
+    def row2(mode, line):
+        return _design(**both(
+            lambda q: conv_block1_pair.fused_block1_pair(
+                x1, *b1w, quantize=q, tc=48, mode=mode,
+                prepared=prep["b1", q]),
+            lambda q: conv_block1_pair.block1_plain(
+                x1, *b1w, quantize=q, tc=48, mode=mode),
+            ref=f32_1, ops=b1_ops, in_bytes=b1_in,
+            source="conv_block1_pair.cu",
+            replaces=f"conv_block1_pair.py:{line}", beside=routed1,
+            input_shape=list(x1.shape)))
+
+    return {
+        "conv_block1_pair_int8": row2("triple", 346),
+        "conv_block1_pair_single": row2("single", 239),
+        "block1_small": _design(**both(
+            lambda q: block1_small.fused_block1(x1, *b1w, quantize=q,
+                                                prepared=prep["b1s", q]),
+            lambda q: block1_small.block1_small_plain(
                 x1, *b1w, quantize=q, tc=block1_small.default_tc(t1)),
-            x1, f32_1,
-            {"bf16": 2.0 * clips * t1 * 64 * 9 * 64,
-             "int8": mk * (t1 // 2 * 2)},
-            b1_in, "block1_small.cu", "conv_block_small.py:471"),
-        "pair_conv_pool_conv2": (
-            lambda q=True: pair_conv_pool.fused_pair_conv_pool(
+            ref=f32_1, ops={"bf16": 2.0 * clips * t1 * 64 * 9 * 64,
+                            "int8": mk * (t1 // 2 * 2)},
+            in_bytes=b1_in, source="block1_small.cu",
+            replaces="conv_block_small.py:471", beside=routed1,
+            input_shape=list(x1.shape))),
+        "pair_conv_pool_conv2": _design(**both(
+            lambda q: pair_conv_pool.fused_pair_conv_pool(
                 aq if q else a16, None, None, w2, ab2, quantize=q,
-                x_scale=xs if q else None),
-            lambda q=True: pair_conv_pool.pair_conv_pool_plain(
+                x_scale=xs if q else None, prepared=prep["c2", q]),
+            lambda q: pair_conv_pool.pair_conv_pool_plain(
                 aq if q else a16, None, None, w2, ab2, quantize=q,
                 tc=pair_conv_pool.pick_tc(tp, 32, 2),
                 x_scale=xs if q else None),
-            aq, f32_1, {"int8": mk * tp},
-            aq.numel() + 4 * (w2.numel() + 2 * 64),
-            "pair_conv_pool.cu", "conv_block.py:691"),
-        "block2_small": (
-            lambda q=True: block2_small.fused_block2(y1, *b2w, quantize=q),
-            lambda q=True: conv_block_pair.block2_plain(
+            ref=f32_1, ops={"int8": mk * tp},
+            in_bytes=aq.numel() + 4 * (w2.numel() + 2 * 64),
+            source="pair_conv_pool.cu", replaces="conv_block.py:691",
+            beside=routed1, input_shape=list(aq.shape))),
+        "block2_small": _design(**both(
+            lambda q: block2_small.fused_block2(y1, *b2w, quantize=q,
+                                                prepared=prep["b2s", q]),
+            lambda q: conv_block_pair.block2_plain(
                 y1, *b2w, quantize=q, tc=block2_small.default_tc(t2),
                 divide=True),
-            y1, f32_2, b2_ops, b2_in,
-            "conv_block_pair.cu", "conv_block_small.py:291"),
-        "pair_conv_pool": (
-            lambda q=True: pair_conv_pool.fused_pair_conv_pool(
-                y1, *b2w, quantize=q),
-            lambda q=True: pair_conv_pool.pair_conv_pool_plain(
+            ref=f32_2, ops=b2_ops, in_bytes=b2_in,
+            source="conv_block_pair.cu", replaces="conv_block_small.py:291",
+            beside=routed2, input_shape=list(y1.shape))),
+        "pair_conv_pool": _design(**both(
+            lambda q: pair_conv_pool.fused_pair_conv_pool(
+                y1, *b2w, quantize=q, prepared=prep["b2", q]),
+            lambda q: pair_conv_pool.pair_conv_pool_plain(
                 y1, *b2w, quantize=q, tc=pair_conv_pool.pick_tc(t2, 16, 2)),
-            y1, f32_2, b2_ops, b2_in,
-            "pair_conv_pool.cu", "conv_block.py:691"),
+            ref=f32_2, ops=b2_ops, in_bytes=b2_in,
+            source="pair_conv_pool.cu", replaces="conv_block.py:691",
+            beside=routed2, input_shape=list(y1.shape))),
     }
-    # the designs' run: once each, as functions (the JAX package drives
-    # them so)
-    _reset_counts()
-    got = {name: rec[0]() for name, rec in designs.items()}
-    torch.cuda.synchronize()
-    launches = _counts()
-    # the routed rows on the same inputs, beside the f32 plain block
-    tc2 = conv_block_pair.pick_tc_pair(t2, 16, 128, True)
-    vs_f32 = {
-        "routed_conv_block1_pair": _err(
-            conv_block1_pair.fused_block1_pair(x1, *b1w), f32_1)[1],
-        "routed_conv_block_pair": _err(conv_block_pair.fused_block2_pair(
-            y1, *b2w, quantize=True, tc=tc2), f32_2)[1]}
 
-    rows = []
-    for name, (kern, plain, inp, f32, ops, in_bytes, src,
-               rep) in designs.items():
-        out = got[name]
-        max_abs, rel = _err(out, plain())
-        if max_abs != 0.0:
-            raise AssertionError(f"{name}: int8 kernel differs from its "
-                                 f"plain version: max_abs {max_abs}, "
-                                 f"rel_rms {rel}")
-        b16 = _err(kern(False), plain(False))[1]
-        if b16 > 1e-2:
-            raise AssertionError(f"{name} (bf16): kernel disagrees with its "
-                                 f"plain version: rel_rms {b16} > 0.01")
-        ms = _cuda_ms(kern, 10)
-        bound_ms, bound_by = _bound(in_bytes + out.numel() * 2, ops)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"texttoaudiogrounding_tpu_torch/csrc/{src}",
-            "replaces": f"texttoaudiogrounding_tpu/ops/pallas/{rep}",
-            "max_abs_err": max_abs, "rel_rms_err": rel,
-            "tolerance": "max_abs == 0 (int8); bf16 mode rel_rms <= 0.01",
-            "ms": ms, "kernel_ms": ms, "plain_ms": _cuda_ms(plain, 3),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "clips": clips,
-            "input_shape": list(inp.shape),
-            "bf16_mode_rel_rms_err": b16,
-            # the padded frames off
-            "rel_rms_vs_f32_block": _err(out[:, :f32.shape[1]], f32)[1],
-            **vs_f32})
-        torch.cuda.empty_cache()
-    return rows, launches
+
+def _single_loud_frame(x1, b1w) -> dict:
+    """Row 2's single staging on 4 clips of x1 made quiet, with one loud
+    frame at t = 98: y1 at t = 97 lies in chunk 1's single window [46, 97]
+    (tc = 48) and not in the triple window [47, 96], and it sets the
+    chunk's y1 scale.  The kernel must equal its plain version bit for bit
+    and differ from the triple staging's kernel."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair
+
+    x = (x1[:4].float() * 0.05)
+    x[:, 98] = 5.0
+    x = x.to(x1.dtype).contiguous()
+    single = conv_block1_pair.fused_block1_pair(x, *b1w, quantize=True,
+                                                mode="single")
+    plain = conv_block1_pair.block1_plain(x, *b1w, quantize=True,
+                                          mode="single")
+    triple = conv_block1_pair.fused_block1_pair(x, *b1w, quantize=True)
+    max_abs = _err(single, plain)[0]
+    vs_triple = _err(single, triple)[1]
+    if max_abs != 0.0 or vs_triple < 1e-3:
+        raise AssertionError(f"row 2 single, loud frame: max_abs to its "
+                             f"plain version {max_abs} (must be 0), "
+                             f"relative RMS to the triple staging "
+                             f"{vs_triple} (must reach 1e-3)")
+    return {"max_abs_err": max_abs, "rel_rms_vs_triple": vs_triple}
+
+
+def _log_mel_f64(wave, cfg):
+    """The log-mel in float64 (reflect-padded frames, the windowed DFT,
+    the slaney mel), the reference of the log-mel rows."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops import frontend
+    frames = frontend.frame_waveform(wave.double(), cfg)
+    basis = torch.from_numpy(frontend._dft_kernel(cfg)).to(wave.device)
+    spec = torch.matmul(frames, basis.double())
+    nf = cfg.n_freqs
+    power = spec[..., :nf] ** 2 + spec[..., nf:] ** 2
+    fb = torch.from_numpy(frontend.mel_filterbank(cfg)).to(wave.device)
+    mel = torch.matmul(power, fb.double())
+    return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
+
+
+# row 8 at the pool-(2, 2) analog of blocks 3-4 (scripts/bench_wino.py):
+# (block, Cin, Cout, the bf16 chunk where the JAX rule finds none)
+WINO_BLOCKS = ((3, 128, 256, None), (4, 256, 512, 14))
+
+
+def _wino_designs(enc, y2) -> tuple:
+    """Row 8 through ``ConvBlock(..., wino=True)`` in int8, with the served
+    blocks 3-4 weights, at the pool-(2, 2) analog of blocks 3-4: on the
+    served block-2 output (block 3, 128 -> 256) and on that result (block 4,
+    256 -> 512); one record per block, beside the direct9 kernel (row 4)
+    at pool (2, 2) on the same input.  Bound by the Winograd products'
+    operations (16 per 2 x 2 output tile and conv), the least the function
+    needs: its int8 result is fixed by the per-(k, chunk) scales of V_k,
+    which a direct conv does not have; the direct conv's count, the
+    yardstick of rows 2-7, is printed beside it.  Returns (records, the
+    route's outputs)."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.models.layers import ConvBlock
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        conv_block, conv_block_wino)
+
+    records, outs, x = {}, {}, y2
+    for i, cin, cout, tc16 in WINO_BLOCKS:
+        name = f"conv_block_wino_block{i}"
+        blk = ConvBlock(cin, cout, "int8", wino=True).to(DEVICE).eval()
+        blk.load_state_dict(getattr(enc, f"conv_block{i}").state_dict())
+        with torch.no_grad():
+            outs[name] = blk(x, (2, 2))
+            f32 = getattr(enc, f"conv_block{i}")._plain(x.float(), (2, 2))
+        w = _block_weights(blk)
+        b, t, m, _ = x.shape
+        tpad, tc = conv_block_wino.pick_tpad_tc(t, m, cin, cout, True)
+        tpad16, tc16 = conv_block_wino.chunking(t, m, cin, cout, False, tc16)
+        wq, w16 = (conv_block_wino.wino_weights(*w, q) for q in (True, False))
+        dq, d16 = (conv_block.kernel_weights(*w, q) for q in (True, False))
+        pos = b * t * m
+        direct_ops = 2.0 * pos * 9 * (cin * cout + cout * cout)
+        wino_ops = 2.0 * (pos // 4) * 16 * (cin * cout + cout * cout)
+        in_bytes = x.numel() * 2 + _wbytes(w)
+        nbytes = in_bytes + outs[name].numel() * 2
+        records[name] = _design(
+            kernel=lambda x=x, w=w, p=wq: conv_block_wino.fused_block_wino(
+                x, *w, quantize=True, prepared=p),
+            plain=lambda x=x, w=w, tc=tc, tp=tpad, p=wq: (
+                conv_block_wino.block_wino_plain(
+                    x, *w, quantize=True, tc=tc, tpad=tp, prepared=p)),
+            bf16=(lambda x=x, w=w, tc=tc16, p=w16: (
+                      conv_block_wino.fused_block_wino(x, *w, tc=tc,
+                                                       prepared=p)),
+                  lambda x=x, w=w, tc=tc16, tp=tpad16, p=w16: (
+                      conv_block_wino.block_wino_plain(
+                          x, *w, quantize=False, tc=tc, tpad=tp,
+                          prepared=p))),
+            ref=("f32_block", f32), ops={"int8": wino_ops},
+            in_bytes=in_bytes, source="conv_block_wino.cu",
+            replaces="conv_block_wino.py:264", counter="conv_block_wino",
+            beside={
+                "direct9": lambda x=x, w=w, p=dq: (
+                    conv_block.fused_double_conv_pool(
+                        x, *w, (2, 2), quantize=True, prepared=p)),
+                "direct9_bf16": lambda x=x, w=w, p=d16: (
+                    conv_block.fused_double_conv_pool(x, *w, (2, 2),
+                                                      prepared=p))},
+            timed={"weights": lambda w=w: conv_block_wino.wino_weights(
+                *w, True)},
+            trace=True, input_shape=list(x.shape), cin=cin, cout=cout,
+            tc=tc, tpad=tpad, bf16_tc=tc16, winograd_ops=wino_ops,
+            direct_ops=direct_ops,
+            direct_bound_ms=_bound(nbytes, {"int8": direct_ops})[0],
+            direct_bf16_bound_ms=_bound(nbytes, {"bf16": direct_ops})[0])
+        x = outs[name]
+    return records, outs
+
+
+def _v3_check(wave, cfg, t_lo: int, t_hi: int):
+    """Row 9's check: within V3_MAX_DB max and V3_MEAN_DB mean of its plain
+    version, while row 1's kernel (f32 mel) on the interior frames must
+    miss those limits (the control: they tell the two projections
+    apart)."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import logmel
+
+    def check(out, plain) -> dict:
+        d = (out - plain).abs()
+        row1 = logmel.fused_log_mel_spectrogram(wave, cfg)
+        ctl = (row1 - plain)[:, t_lo:t_hi].abs()
+        got = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+               "rel_rms_err": _err(out, plain)[1],
+               "control_row1_max_abs_err": float(ctl.max()),
+               "control_row1_mean_abs_err": float(ctl.mean())}
+        if got["max_abs_err"] > V3_MAX_DB or got["mean_abs_err"] > V3_MEAN_DB:
+            raise AssertionError(f"off its plain version: {got}")
+        if (got["control_row1_max_abs_err"] <= V3_MAX_DB
+                and got["control_row1_mean_abs_err"] <= V3_MEAN_DB):
+            raise AssertionError(f"row 1's kernel meets v3's limits, which "
+                                 f"so do not hold its bf16 mel: {got}")
+        return got
+    return check
+
+
+def _logmel_designs(wave) -> tuple:
+    """Rows 9 and 10 once on the served waveform, beside row 1's kernel:
+    v3 held by :func:`_v3_check`, v4 bit for bit to row 1's kernel; each
+    compared with the f64 log-mel.  Returns (records, outputs)."""
+    from texttoaudiogrounding_tpu_torch.ops import frontend
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        logmel, logmel_v3, logmel_v4)
+
+    cfg = frontend.cnn8rnn_mel_config(SR)
+    outs = {"logmel_v3": logmel_v3.fused_log_mel_spectrogram_v3(wave, cfg),
+            "logmel_v4": logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg)}
+    b, n = wave.shape
+    t = outs["logmel_v3"].shape[1]
+    t_lo, t_hi = logmel_v3.edges(n, cfg)
+    frames = b * (t_hi - t_lo)
+    ref = ("f64", _log_mel_f64(wave, cfg))
+    row1 = {"row1": lambda: logmel.fused_log_mel_spectrogram(wave, cfg)}
+    return {
+        "logmel_v3": _design(
+            kernel=lambda: logmel_v3.fused_log_mel_spectrogram_v3(wave, cfg),
+            plain=lambda: logmel_v3.log_mel_v3_plain(wave, cfg), ref=ref,
+            ops={"bf16": 2.0 * frames * 1024 * 1024
+                 + 2.0 * frames * 512 * 64},
+            in_bytes=wave.numel() * 4, source="logmel_v3.cu",
+            replaces="logmel.py:350", check=_v3_check(wave, cfg, t_lo, t_hi),
+            tolerance=f"max_abs_db <= {V3_MAX_DB}, mean_abs_db <= "
+                      f"{V3_MEAN_DB}; row 1's kernel must miss them",
+            beside=row1, timed={"edge_frames": lambda: (
+                logmel_v3._edge_frames(wave, cfg, t_lo, t_hi))}),
+        "logmel_v4": _design(
+            kernel=lambda: logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg),
+            plain=lambda: logmel.log_mel_plain(wave, cfg), ref=ref,
+            ops={"bf16": 2.0 * b * t * 1024 * 1024,
+                 "f32": 2.0 * b * t * 512 * 64 + 3.0 * b * t * 512},
+            in_bytes=wave.numel() * 4, source="logmel_v4.cu",
+            replaces="logmel.py:175", target=row1["row1"],
+            tolerance="bit for bit equal to row 1's kernel", beside=row1),
+    }, outs
 
 
 TRAIN_CLIPS, TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 32, 2, 4, 2
@@ -1151,9 +1481,11 @@ def _worst(gaps: dict) -> tuple:
 def _counter_modules() -> tuple:
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
         block1_small, block2_small, bn_pool, conv_block, conv_block1_pair,
-        conv_block_pair, dual_pool, gru, logmel, pair_conv_pool)
+        conv_block_pair, conv_block_wino, dual_pool, gru, logmel, logmel_v3,
+        logmel_v4, pair_conv_pool)
     return ({"logmel": logmel, "conv_block_pair": conv_block_pair,
-             "conv_block": conv_block},
+             "conv_block": conv_block, "conv_block_wino": conv_block_wino,
+             "logmel_v3": logmel_v3, "logmel_v4": logmel_v4},
             (conv_block1_pair, gru, dual_pool, bn_pool, pair_conv_pool,
              block2_small, block1_small))
 
@@ -1644,7 +1976,8 @@ def training_weak_phase(tok) -> dict:
 _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
                  "conv1_kernel", "conv1_im2col_kernel", "requant_kernel",
                  "clip_scale_kernel", "gru_fwd_step",
-                 "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_")
+                 "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_",
+                 "wino_", "logmel_v3_kernel", "logmel_v4_kernel")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
@@ -1758,13 +2091,9 @@ def main() -> int:
     del handoff
     kernels += designs
     print(json.dumps({"phase": "designs", "card": smi, "kernels": [
-        {k: row[k] for k in ("name", "max_abs_err", "bf16_mode_rel_rms_err",
-                             "rel_rms_vs_f32_block", "kernel_ms",
-                             "plain_ms", "bound_ms")} for row in designs],
-        "routed_rel_rms_vs_f32_block": {
-            k: designs[0][k] for k in ("routed_conv_block1_pair",
-                                       "routed_conv_block_pair")}}),
-        flush=True)
+        {k: v for k, v in row.items() if k not in (
+            "route", "source", "replaces", "tolerance", "library", "trace")}
+        for row in designs]}), flush=True)
     train = training_phase(tok)
     report["train"] = train
     print(json.dumps({"phase": "train", "card": smi, **{
@@ -1811,13 +2140,15 @@ def main() -> int:
     by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
                            serving["gru_fwd_bf16_launches"]},
                "serving_block1_int8": serving["block1_int8_launches"],
+               "serving_block1_single": serving["block1_single_launches"],
                "designs": design_launches,
                "train": train["fit_launches"],
                "train_bf16": train16["fit_launches"],
                **{f"train_weak_{k}": v["launches"]
                   for k, v in weak["fits"].items()}}
     for row in kernels:
-        row["launches_by_path"] = {p: c.get(row["name"], 0)
+        counter = row.get("counter", row["name"])
+        row["launches_by_path"] = {p: c.get(counter, 0)
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"]:

@@ -2,8 +2,9 @@
 
 ``fused_pair_conv_pool`` (``ops/pallas/conv_block.py:691``), the
 pair-dense ``fused_block2`` and ``fused_block1``
-(``ops/pallas/conv_block_small.py:291``, ``:471``) and block 1's all-int8
-mode (``fused_block1_pair(quantize=True)``, ``TTG_B1_QUANT=1``): the same
+(``ops/pallas/conv_block_small.py:291``, ``:471``), block 1's all-int8
+mode (``fused_block1_pair(quantize=True)``, ``TTG_B1_QUANT=1``) and its
+single staging (``mode="single"``, ``TTG_B1_MODE``): the same
 numpy-seeded inputs go through the JAX kernel in interpret mode and the
 port's wrapper on the CPU, which runs its plain PyTorch version.  Small T
 and small ``tc`` give several chunks, so the per-chunk int8 scales are
@@ -286,6 +287,92 @@ def test_block1_modes_are_checked():
             tb1.fused_block1_pair(x, w1, ab, w2, ab, **bad)
 
 
+# ------------------------- row 2: fused_block1_pair(mode="single")
+
+_SINGLE_T, _SINGLE_TC = 37, 16
+
+
+@pytest.fixture(scope="module")
+def single_ref():
+    """The JAX kernel's single staging (``TTG_B1_MODE=single``) in
+    interpret mode at t = 37, tc = 16, once for the module: f32, and the
+    serving modes on the bf16-rounded input."""
+    x, w1, ab1, w2, ab2 = _block_case(_SINGLE_T, 64, 1, 64, seed=_SINGLE_T)
+    jx, _ = _bf16(x[..., 0])
+    jw = (jnp.asarray(w1), _jab(ab1), jnp.asarray(w2), _jab(ab2))
+    out = {q: _to_np(jb1.fused_block1_pair(
+        jx, *jw, quantize=q, tc=_SINGLE_TC, interpret=True, mode="single"))
+        for q in (True, "conv1", False)}
+    out["f32"] = _to_np(jb1.fused_block1_pair(
+        jnp.asarray(x[..., 0]), *jw, quantize=False, tc=_SINGLE_TC,
+        compute_dtype=jnp.float32, interpret=True, mode="single"))
+    out["xla"] = np.asarray(xla_ref(jnp.asarray(x), *jw))
+    return out
+
+
+def test_block1_single_f32_matches_pallas(single_ref):
+    """At f32 the single staging is block 1's function: the port's plain
+    version in the JAX kernel's f32 mode within 1e-4 of JAX's single mode
+    and of the XLA block, in either staging."""
+    x, w1, ab1, w2, ab2 = _block_case(_SINGLE_T, 64, 1, 64, seed=_SINGLE_T)
+    for mode in tb1.HALO:
+        got = tb1.block1_plain(
+            torch.from_numpy(x[..., 0]), torch.from_numpy(w1), _tab(ab1),
+            torch.from_numpy(w2), _tab(ab2), quantize=False,
+            tc=_SINGLE_TC, mode=mode, compute_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        _check("f32", got, single_ref["f32"], single_ref["xla"])
+
+
+@pytest.mark.parametrize("quantize", [True, "conv1", False])
+def test_block1_single_matches_pallas(quantize, single_ref):
+    """The serving modes: int8 within 2e-3 relative RMS of JAX's single
+    mode (and < 0.05 of the f32 block), ``"conv1"`` within 5e-3 and bf16
+    1e-2 (``tests/test_torch_port_kernels.py``); in ``"conv1"`` and
+    ``False`` the port's single staging is the triple one's sum."""
+    x, w1, ab1, w2, ab2 = _block_case(_SINGLE_T, 64, 1, 64, seed=_SINGLE_T)
+    _, tx = _bf16(x[..., 0])
+    args = (tx, torch.from_numpy(w1), _tab(ab1), torch.from_numpy(w2),
+            _tab(ab2))
+    got = tb1.fused_block1_pair(*args, quantize=quantize, tc=_SINGLE_TC,
+                                mode="single")
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (2, _SINGLE_T // 2, 32, 64)
+    ref = single_ref[quantize]
+    if quantize is True:
+        _check("int8", got, ref, single_ref["xla"])
+        return
+    assert _rel_rms(_to_np(got), ref) <= (5e-3 if quantize else BF16_TOL)
+    triple = tb1.fused_block1_pair(*args, quantize=quantize,
+                                   tc=_SINGLE_TC)
+    torch.testing.assert_close(got, triple, rtol=0, atol=0)
+
+
+def test_block1_single_int8_scale_sees_its_halo():
+    """Under ``quantize=True`` the single staging takes chunk j's y1 scale
+    over times [j tc - 2, j tc + tc + 1], two rows more than the triple
+    staging: a loud frame at t = 34 that only the dt = 2 taps weigh
+    positively makes y1 at t = 33 chunk 1's maximum in the single window
+    alone, so there the two modes differ and only the single one agrees
+    with JAX's."""
+    t, tc = _SINGLE_T, _SINGLE_TC
+    x, w1, ab1, w2, ab2 = _block_case(t, 64, 1, 64, seed=8)
+    x = 0.05 * x[..., 0]
+    x[:, 34] = 5.0
+    w1[:2, :, :, :8], w1[2, :, :, :8] = -0.3, 0.3
+    jx, tx = _bf16(x)
+    ref = jb1.fused_block1_pair(jx, jnp.asarray(w1), _jab(ab1),
+                                jnp.asarray(w2), _jab(ab2), quantize=True,
+                                tc=tc, interpret=True, mode="single")
+    args = (tx, torch.from_numpy(w1), _tab(ab1), torch.from_numpy(w2),
+            _tab(ab2))
+    single = tb1.fused_block1_pair(*args, quantize=True, tc=tc,
+                                   mode="single")
+    triple = tb1.fused_block1_pair(*args, quantize=True, tc=tc)
+    assert _rel_rms(_to_np(single), _to_np(ref)) <= INT8_TOL
+    assert _rel_rms(_to_np(triple), _to_np(ref)) > INT8_TOL
+
+
 # ------------------------------------------------- the model, block 1 int8
 
 def _jax_outputs(model, variables, batch):
@@ -341,12 +428,36 @@ def test_flagship_model_sets_the_block1_mode():
     kw = {"device": "cpu", "vocab_size": _VOCAB, "embed_dim": _EMBED,
           "shared_dim": _EMBED}
     int8 = flagship_model(block1_quant="int8", block1_tc=32, **kw)
+    single = flagship_model(block1_quant="int8", block1_mode="single", **kw)
     default = flagship_model(**kw)
-    for model, mode in ((int8, ("int8", 32)), (default, ("conv1", 48))):
+    for model, mode in ((int8, ("int8", 32, "triple")),
+                        (single, ("int8", 48, "single")),
+                        (default, ("conv1", 48, "triple"))):
         enc = model.audio_encoder
         assert {(getattr(enc, f"conv_block{i}").block1_quant,
-                 getattr(enc, f"conv_block{i}").block1_tc)
+                 getattr(enc, f"conv_block{i}").block1_tc,
+                 getattr(enc, f"conv_block{i}").block1_mode)
                 for i in range(1, 5)} == {mode}
-    for bad in ({"block1_quant": "1"}, {"block1_tc": 40}):
+    for bad in ({"block1_quant": "1"}, {"block1_tc": 40},
+                {"block1_mode": "double"}):
         with pytest.raises(ValueError):
             flagship_model(**bad, **kw)
+
+
+def test_single_mode_block_runs_the_single_staging():
+    """``ConvBlock(block1_quant="int8", block1_mode="single")`` serves
+    block 1 through the single staging's int8 scales."""
+    torch.manual_seed(0)
+    blk = ConvBlock(1, 64, "int8", block1_quant="int8",
+                    block1_mode="single").eval()
+    x = torch.randn(2, 37, 64, 1).to(torch.bfloat16)
+    w1 = blk.conv1.weight.detach().permute(2, 3, 1, 0)
+    w2 = blk.conv2.weight.detach().permute(2, 3, 1, 0)
+    ab1, ab2 = (tb1.fold_bn(bn.weight, bn.bias, bn.running_mean,
+                            bn.running_var, bn.eps)
+                for bn in (blk.bn1, blk.bn2))
+    with torch.no_grad():
+        got = blk(x)
+        ref = tb1.fused_block1_pair(x[..., 0].contiguous(), w1, ab1, w2,
+                                    ab2, quantize=True, mode="single")
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)

@@ -150,6 +150,63 @@ struct ConvArgs {
 
 constexpr int BM = 128, BN = 64, NT = 256;
 
+template <typename T>
+using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                       typename Mma<T>::acc_t>;
+
+// One staged K step of a BM x BN tile on the tensor cores: acc += A B^T
+// over the step's KC elements, A in As as KC / 16 slices of [BM][16] and
+// B^T in Bs as slices of [BN][16] (row-major, 16 elements a row); warp
+// (wm, wn) of the 4 x 2 warps owns rows wm * 32 and columns wn * 32 as
+// 2 x 2 fragments.
+template <typename T>
+__device__ __forceinline__ void mma_step(const unsigned char* As,
+                                         const unsigned char* Bs,
+                                         AccFrag<T> (&acc)[2][2], int wm,
+                                         int wn) {
+  using namespace nvcuda;
+  using FT = typename Mma<T>::frag_t;
+  constexpr int SLAB = 16 * sizeof(T), NKS = Mma<T>::KC / 16;
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, FT, wmma::row_major> fa[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, FT, wmma::col_major> fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wmma::load_matrix_sync(
+          fa[i],
+          reinterpret_cast<const FT*>(As + ks * BM * SLAB +
+                                      (wm * 32 + i * 16) * SLAB),
+          16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::load_matrix_sync(
+          fb[j],
+          reinterpret_cast<const FT*>(Bs + ks * BN * SLAB +
+                                      (wn * 32 + j * 16) * SLAB),
+          16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  }
+}
+
+// the tile's sums into Cs [BM][ldc] in shared memory
+template <typename T>
+__device__ __forceinline__ void store_acc(typename Mma<T>::acc_t* Cs,
+                                          AccFrag<T> (&acc)[2][2], int ldc,
+                                          int wm, int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      nvcuda::wmma::store_matrix_sync(
+          Cs + (wm * 32 + i * 16) * ldc + wn * 32 + j * 16, acc[i][j], ldc,
+          nvcuda::wmma::mem_row_major);
+}
+
 // output position p -> (group, row, mel), enumerated pool window major so
 // that a tile holds whole pool windows
 struct Pos {
@@ -178,7 +235,6 @@ __device__ __forceinline__ Pos decode(long long p, const ConvArgs& a) {
 template <typename T, int MODE>
 __global__ void __launch_bounds__(NT) conv3x3_gemm(ConvArgs a) {
   using namespace nvcuda;
-  using FT = typename Mma<T>::frag_t;
   using AT = typename Mma<T>::acc_t;
   constexpr int KC = Mma<T>::KC;
   constexpr int ES = sizeof(T);
@@ -218,7 +274,7 @@ __global__ void __launch_bounds__(NT) conv3x3_gemm(ConvArgs a) {
   }
   const int nB = tid >> 2, qB = tid & 3;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, AT> acc[2][2];
+  AccFrag<T> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -251,40 +307,12 @@ __global__ void __launch_bounds__(NT) conv3x3_gemm(ConvArgs a) {
             v;
       }
       __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < NKS; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, FT, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, FT, wmma::col_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              fa[i],
-              reinterpret_cast<const FT*>(As + ks * BM * SLAB +
-                                          (wm * 32 + i * 16) * SLAB),
-              16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              fb[j],
-              reinterpret_cast<const FT*>(Bs + ks * BN * SLAB +
-                                          (wn * 32 + j * 16) * SLAB),
-              16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
+      mma_step<T>(As, Bs, acc, wm, wn);
       __syncthreads();
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+  store_acc<T>(Cs, acc, LDC, wm, wn);
   __syncthreads();
 
   if constexpr (MODE == 0 || MODE == 1) {

@@ -12,8 +12,11 @@
 //     int32 sums; affine (a1 s_w) s_x, b1; ReLU.  "conv1" / False store y1
 //     as bf16, with no requantize.
 //   * quantize=True only: conv1 runs per time chunk of tc output frames,
-//     over times [j tc - 1, j tc + tc] (x zero outside the clip), into f32
-//     rows; one scale per chunk, max(y1) / 127 over all of those rows,
+//     over times [j tc - h, j tc + tc + h) (x zero outside the clip), into
+//     f32 rows, with a halo h of 1 (the TPU kernel's triple staging) or 2
+//     (mode="single", conv_block1_pair.py:239 _kernel_single, whose chunk
+//     stages tc + 4 rows); one scale per chunk, max(y1) / 127 over all of
+//     those rows,
 //     also the ones outside the clip (their values come from the zero
 //     padded input and the BN bias, as in the TPU kernel, whose scale
 //     sees them before conv2's staging zeroes them); then y1 is
@@ -114,11 +117,11 @@ __global__ void __launch_bounds__(256)
 
 // One block per group g = b * nch + j of R rows of L values (y1 >= 0):
 // sy[g] = max(max y1, 1e-6) / 127, y1q = round(y1 / sy) (clip at 127),
-// zero for rows at times j * tc + r - 1 outside [0, T).
+// zero for rows at times j * tc + r - halo outside [0, T).
 __global__ void requant_kernel(const float* __restrict__ y1,
                                int8_t* __restrict__ y1q,
                                float* __restrict__ sy, int nch, int tc,
-                               int T, int R, int L) {
+                               int T, int R, int L, int halo) {
   const int g = blockIdx.x, j = g % nch;
   const long long n = (long long)R * L;
   const float* src = y1 + (long long)g * n;
@@ -130,7 +133,7 @@ __global__ void requant_kernel(const float* __restrict__ y1,
   if (threadIdx.x == 0) sy[g] = s;
   int8_t* dst = y1q + (long long)g * n;
   for (long long e = threadIdx.x; e < n; e += blockDim.x) {
-    const int t = j * tc + (int)(e / L) - 1;
+    const int t = j * tc + (int)(e / L) - halo;
     dst[e] = (t >= 0 && t < T) ? ttg::quant_i8(src[e], inv) : (int8_t)0;
   }
 }
@@ -143,22 +146,24 @@ __global__ void requant_kernel(const float* __restrict__ y1,
 // a2 = BN scale x weight scale for quant 2.  sx [B, 2] f32 scratch;
 // y1: [B, T, 64, 64] bf16 scratch, or for quant 2 [G, tc + 2, 64, 64]
 // f32 (G = B ceil(T / tc)) with y1q [G, tc + 2, 64, 64] int8 and sy [G]
-// f32 scratch; out [B, T / 2, 32, 64] bf16.
-extern "C" int ttg_conv_block1(int quant, const void* x, int B, int T,
-                               int tc, const void* w1, const float* a1,
-                               const float* b1, const void* w2,
+// f32 scratch, tc + 4 rows each for halo 2; out [B, T / 2, 32, 64] bf16.
+extern "C" int ttg_conv_block1(int quant, int halo, const void* x, int B,
+                               int T, int tc, const void* w1,
+                               const float* a1, const float* b1,
+                               const void* w2,
                                const float* a2, const float* b2, float* sx,
                                void* y1, void* y1q, float* sy, void* out,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const int nch = quant == 2 ? (T + tc - 1) / tc : 1;
-  const int R = quant == 2 ? tc + 2 : T;
+  if (quant != 2) halo = 1;
+  const int R = quant == 2 ? tc + 2 * halo : T;
   if (quant) clip_scale_kernel<<<B, 512, 0, st>>>(xb, sx, (long long)T * 64);
   dim3 grid1((R + 7) / 8, B * nch);
   if (quant == 2)
     conv1_kernel<true, float><<<grid1, 256, 0, st>>>(
-        xb, w1, a1, b1, sx, static_cast<float*>(y1), T, nch, tc, R, -1);
+        xb, w1, a1, b1, sx, static_cast<float*>(y1), T, nch, tc, R, -halo);
   else if (quant)
     conv1_kernel<true, bf16><<<grid1, 256, 0, st>>>(
         xb, w1, a1, b1, sx, static_cast<bf16*>(y1), T, 1, 0, T, 0);
@@ -189,15 +194,15 @@ extern "C" int ttg_conv_block1(int quant, const void* x, int B, int T,
   if (quant == 2) {
     requant_kernel<<<B * nch, 512, 0, st>>>(static_cast<const float*>(y1),
                                             static_cast<int8_t*>(y1q), sy,
-                                            nch, tc, T, R, 64 * 64);
+                                            nch, tc, T, R, 64 * 64, halo);
     c2.src = y1q;
     c2.gscale = sy;
     c2.G = B * nch;
     c2.nch = nch;
     c2.tc = tc;
-    c2.R_in = tc + 2;
+    c2.R_in = R;
     c2.R_out = tc;
-    c2.in_off = 0;
+    c2.in_off = halo - 1;
     if (c2.T_out > 0) ttg::launch_conv<int8_t, 3>(c2, st);
   } else if (c2.R_out > 0) {
     ttg::launch_conv<bf16, 3>(c2, st);

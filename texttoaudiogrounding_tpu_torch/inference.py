@@ -87,11 +87,18 @@ class GroundingPredictor:
             "text": text_ids.astype(np.int64),
             "text_len": np.asarray(tokens["text_len"], np.int64),
         }
+        # MultiText models expect a phrase axis: [B, L] -> [B, 1, L]
+        if hasattr(self.model, "text_forward_keys"):
+            batch["text"] = batch["text"][:, None]
+            batch["text_len"] = batch["text_len"][:, None]
         sims, lens = [], []
         for start, size, target in self._chunk_plan(audio.shape[0]):
             chunk = {k: v[start:start + size] for k, v in batch.items()}
             out = self._forward(pad_batch(chunk, target))
-            sims.append(out["frame_sim"][:size].float().cpu().numpy())
+            frame_sim = out["frame_sim"][:size].float().cpu().numpy()
+            if frame_sim.ndim == 3:     # [B, T, phrases]: the one phrase
+                frame_sim = frame_sim[..., 0]
+            sims.append(frame_sim)
             lens.append(out["length"][:size].cpu().numpy())
         frame_sim = np.concatenate(sims)
         lengths = np.concatenate(lens)

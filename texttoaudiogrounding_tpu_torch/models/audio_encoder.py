@@ -22,7 +22,8 @@ The JAX package picks its kernels with environment variables
   flagship serving path.  There ``block1_quant`` and ``block1_tc`` take
   the place of ``TTG_B1_QUANT`` and ``TTG_B1_TC`` (``ConvBlock``):
   ``"conv1"`` (the default, the JAX ``mixed``), ``"int8"`` (``1``: block 1
-  all in int8) or ``"bf16"`` (``0``).
+  all in int8) or ``"bf16"`` (``0``), and ``block1_mode`` that of
+  ``TTG_B1_MODE``: ``"triple"`` (the default) or ``"single"``.
 
 ``bn_pool`` and ``pool_vjp`` list the out-channels of the blocks that run
 the pool kernels (``ConvBlock``); ``gru_bwd`` is ``BiGRU``'s ``bwd``:
@@ -86,7 +87,7 @@ class Cnn8Rnn(nn.Module):
                  bn_pool: tuple = (), pool_vjp: tuple = (),
                  gru_bwd: str | None = None, freeze_cnn: bool = False,
                  freeze_bn: bool = False, block1_quant: str = "conv1",
-                 block1_tc: int = 48):
+                 block1_tc: int = 48, block1_mode: str = "triple"):
         super().__init__()
         if freeze_cnn or freeze_bn:
             raise NotImplementedError(
@@ -108,7 +109,7 @@ class Cnn8Rnn(nn.Module):
             setattr(self, f"conv_block{i}", ConvBlock(
                 cin, cout, conv_mode, bn_pool=cout in bn_pool,
                 pool_vjp=cout in pool_vjp, block1_quant=block1_quant,
-                block1_tc=block1_tc))
+                block1_tc=block1_tc, block1_mode=block1_mode))
         self.fc1 = nn.Linear(512, 512)
         self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel,
                          bwd=gru_bwd)

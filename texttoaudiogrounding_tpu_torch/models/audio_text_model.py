@@ -137,18 +137,21 @@ def flagship_model(serving: bool = True, device="cuda",
                    shared_dim: int = 512,
                    gru_kernel: bool | None = None,
                    block1_quant: str = "conv1",
-                   block1_tc: int = 48) -> BiEncoder:
+                   block1_tc: int = 48,
+                   block1_mode: str = "triple") -> BiEncoder:
     """The flagship grounding model (the JAX package's
     ``__graft_entry__._flagship_model``): ``BiEncoder(Cnn8Rnn,
     EmbeddingAgg(5000, 512), DotProduct, shared_dim=512, add_proj=True)``.
     ``serving=True`` is the int8 serving path (bf16 dtype, int8 conv
     blocks), ``False`` the f32 path; ``gru_kernel`` as in ``BiGRU``
     (``False`` with ``serving=False`` is the all-plain path);
-    ``block1_quant`` and ``block1_tc`` as in ``Cnn8Rnn`` (the JAX
-    ``TTG_B1_QUANT`` / ``TTG_B1_TC``, read only by the serving path)."""
+    ``block1_quant``, ``block1_tc`` and ``block1_mode`` as in ``Cnn8Rnn``
+    (the JAX ``TTG_B1_QUANT`` / ``TTG_B1_TC`` / ``TTG_B1_MODE``, read only
+    by the serving path)."""
     audio = (Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8",
                      gru_kernel=gru_kernel, block1_quant=block1_quant,
-                     block1_tc=block1_tc) if serving
+                     block1_tc=block1_tc, block1_mode=block1_mode)
+             if serving
              else Cnn8Rnn(gru_kernel=gru_kernel))
     return BiEncoder(audio, EmbeddingAgg(vocab_size, embed_dim),
                      DotProduct(), shared_dim=shared_dim, add_proj=True,

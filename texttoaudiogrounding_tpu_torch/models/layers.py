@@ -14,7 +14,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair, gru
+from texttoaudiogrounding_tpu_torch.ops.kernels import (
+    conv_block1_pair,
+    conv_block_wino,
+    gru,
+)
 from texttoaudiogrounding_tpu_torch.ops.kernels.bn_pool import (
     bn_relu_dual_pool,
 )
@@ -87,9 +91,14 @@ class ConvBlock(nn.Module):
       ``TTG_B1_QUANT`` does: ``"conv1"``, int8 conv1 and bf16 conv2, the
       default; ``"int8"``, both convs in int8, y1 requantized per chunk of
       ``block1_tc`` frames (``TTG_B1_TC``); ``"bf16"``; bf16 serving runs
-      it in bf16);
+      it in bf16), with the staging ``block1_mode`` names (``TTG_B1_MODE``:
+      ``"triple"`` or ``"single"``, whose y1 scale window differs under
+      ``"int8"``);
     * Cin = 64, Cout a multiple of 128, pool (2, 2) → block 2
       (``fused_block2_pair``);
+    * with ``wino`` (the JAX ``TTG_WINO=1``), Cin ≥ 128, pool (2, 2), M
+      even and a chunking both TPU kernels accept (``layers.py:207-245``)
+      → the Winograd block (``fused_block_wino``);
     * otherwise → ``fused_double_conv_pool`` (blocks 3 and 4).
 
     The kernels' weights (HWIO, BN folded, quantized and laid out for the
@@ -112,7 +121,8 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  conv_mode: str | None = None, bn_pool: bool = False,
                  pool_vjp: bool = False, block1_quant: str = "conv1",
-                 block1_tc: int = 48):
+                 block1_tc: int = 48, block1_mode: str = "triple",
+                 wino: bool = False):
         super().__init__()
         if conv_mode not in CONV_MODES:
             raise ValueError(f"conv_mode must be one of {CONV_MODES}")
@@ -120,8 +130,10 @@ class ConvBlock(nn.Module):
         if block1_quant not in BLOCK1_QUANT:
             raise ValueError(f"block1_quant must be one of "
                              f"{tuple(BLOCK1_QUANT)}")
-        conv_block1_pair.check_mode(BLOCK1_QUANT[block1_quant], block1_tc)
+        conv_block1_pair.check_mode(BLOCK1_QUANT[block1_quant], block1_tc,
+                                    block1_mode)
         self.block1_quant, self.block1_tc = block1_quant, block1_tc
+        self.block1_mode, self.wino = block1_mode, wino
         self.bn_pool = bn_pool
         self.pool_vjp = pool_vjp
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
@@ -132,15 +144,16 @@ class ConvBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(out_channels)
         self._kept = (None, None)
 
-    def _kernel_weights(self, block1: bool, quantize) -> tuple:
-        """(w1, ab1, w2, ab2, the kernel's layout or None on the CPU) for
+    def _kernel_weights(self, kind: str, quantize) -> tuple:
+        """(w1, ab1, w2, ab2, the layout of the ``kind`` kernel —
+        ``"block1"``, ``"wino"`` or ``"direct"`` — or None on the CPU) for
         the kernel's ``quantize`` mode, made anew only when a tensor they
         come from is replaced or written in place (``load_state_dict``,
         ``.to``)."""
         src = (self.conv1.weight, self.conv2.weight) + tuple(
             t for bn in (self.bn1, self.bn2)
             for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var))
-        key = (block1, quantize) + tuple(
+        key = (kind, quantize) + tuple(
             (t.data_ptr(), t._version) for t in src)
         if self._kept[0] != key:
             with torch.no_grad():
@@ -150,8 +163,11 @@ class ConvBlock(nn.Module):
                                     bn.running_var, bn.eps)
                             for bn in (self.bn1, self.bn2))
                 prep = None
-                if w1.is_cuda and block1:
+                if w1.is_cuda and kind == "block1":
                     prep = conv_block1_pair.kernel_weights(
+                        w1, ab1, w2, ab2, quantize)
+                elif w1.is_cuda and kind == "wino":
+                    prep = conv_block_wino.wino_weights(
                         w1, ab1, w2, ab2, quantize)
                 elif w1.is_cuda:
                     prep = kernel_weights(w1, ab1, w2, ab2, quantize)
@@ -218,14 +234,20 @@ class ConvBlock(nn.Module):
         pool = tuple(pool_size)
         if cin == 1 and cout == 64 and x.shape[2] == 64 and pool == (2, 2):
             mode = BLOCK1_QUANT[self.block1_quant] if quantize else False
-            *w, prep = self._kernel_weights(True, mode)
+            *w, prep = self._kernel_weights("block1", mode)
             return fused_block1_pair(x[..., 0].contiguous(), *w,
                                      quantize=mode, tc=self.block1_tc,
-                                     prepared=prep)
-        *w, prep = self._kernel_weights(False, quantize)
+                                     mode=self.block1_mode, prepared=prep)
         if (cin == 64 and cout % 128 == 0 and pool == (2, 2)
                 and x.shape[2] % 2 == 0):
+            *w, prep = self._kernel_weights("direct", quantize)
             return fused_block2_pair(x, *w, quantize=quantize, prepared=prep)
+        if self.wino and conv_block_wino.routes(x.shape, cout, pool,
+                                                quantize):
+            *w, prep = self._kernel_weights("wino", quantize)
+            return conv_block_wino.fused_block_wino(
+                x, *w, quantize=quantize, prepared=prep)
+        *w, prep = self._kernel_weights("direct", quantize)
         return fused_double_conv_pool(x, *w, pool, quantize=quantize,
                                       prepared=prep)
 

@@ -148,16 +148,28 @@ def frame_waveform(waveform: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
     return x.unfold(1, cfg.n_fft, cfg.hop_length)
 
 
+_device_tables: dict = {}
+
+
+def _tables(cfg: LogMelConfig, device: torch.device) -> tuple:
+    """(DFT basis, filterbank) as f32 tensors on ``device``, made once."""
+    key = (cfg, str(device))
+    if key not in _device_tables:
+        _device_tables[key] = (
+            torch.from_numpy(_dft_kernel(cfg)).to(device),
+            torch.from_numpy(mel_filterbank(cfg)).to(device))
+    return _device_tables[key]
+
+
 def log_mel_spectrogram(waveform: torch.Tensor,
                         cfg: LogMelConfig) -> torch.Tensor:
     """``[B, N] -> [B, T, n_mels]`` log-mel (dB), all in f32."""
     if cfg.top_db is not None:
         raise NotImplementedError("the Cnn8Rnn frontend uses top_db=None")
     frames = frame_waveform(waveform.to(torch.float32), cfg)
-    basis = torch.from_numpy(_dft_kernel(cfg)).to(waveform.device)
+    basis, fb = _tables(cfg, waveform.device)
     spec = torch.matmul(frames, basis)                  # [B, T, 2F]
     real, imag = spec[..., :cfg.n_freqs], spec[..., cfg.n_freqs:]
     power = real ** 2 + imag ** 2
-    fb = torch.from_numpy(mel_filterbank(cfg)).to(waveform.device)
     mel = torch.matmul(power, fb)
     return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))

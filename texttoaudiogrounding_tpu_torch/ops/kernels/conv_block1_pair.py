@@ -30,8 +30,14 @@ arithmetic, not their layout:
 * every mode: BN, ReLU, y2 rounded to bf16 and pooled in bf16, time pairs
   first, then mel pairs.
 
-The TPU kernel's ``mode="single"`` staging (``TTG_B1_MODE``) is not
-ported yet; see ROADMAP.md.
+``mode="single"`` (the JAX ``TTG_B1_MODE``, ``:239 _kernel_single``)
+stages y1 once per chunk with a two-row halo, times ``[j tc - 2, j tc + tc
++ 1]``.  In ``"conv1"`` and ``False`` that is the same sum as ``"triple"``
+and the same launch here.  Under ``True`` the chunk's y1 scale is taken over
+those ``tc + 4`` rows (``:260-281``), against ``"triple"``'s ``tc + 2``, so
+the int8 result is its own; the out-of-clip rows are zeroed after the scale
+as in ``"triple"`` (the TPU kernel leaves row ``t = -2`` as it is, which
+feeds only discarded outputs).
 
 :func:`fused_block1_pair` launches the kernel for a CUDA tensor and runs
 :func:`block1_plain` for a CPU tensor.
@@ -54,9 +60,12 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
 
 __all__ = ["fused_block1_pair", "block1_plain", "fold_bn"]
 
-# kernel launches through fused_block1_pair: "conv1" and False modes, and
-# the all-int8 mode
-launches = {"conv_block1_pair": 0, "conv_block1_pair_int8": 0}
+# kernel launches through fused_block1_pair: "conv1" and False modes (either
+# staging), and the all-int8 mode in "triple" and in "single" staging
+launches = {"conv_block1_pair": 0, "conv_block1_pair_int8": 0,
+            "conv_block1_pair_single": 0}
+# the y1 rows each side of a chunk, by staging (mode)
+HALO = {"triple": 1, "single": 2}
 
 _M = 64
 
@@ -94,7 +103,8 @@ def _taps(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pool_bf16(y: torch.Tensor) -> torch.Tensor:
-    """bf16 avg+max 2×2 pool of ``[B, T, 64, C]``, time pairs first."""
+    """avg+max 2×2 pool of ``[B, T, 64, C]`` in y's type (bf16 on the
+    serving path), time pairs first."""
     b, t, m, c = y.shape
     v = y[:, :t // 2 * 2].reshape(b, t // 2, 2, m // 2, 2, c)
     s, mx = v[:, :, 0] + v[:, :, 1], torch.maximum(v[:, :, 0], v[:, :, 1])
@@ -104,10 +114,13 @@ def _pool_bf16(y: torch.Tensor) -> torch.Tensor:
 
 
 def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1",
-                 tc: int = 48) -> torch.Tensor:
+                 tc: int = 48, mode: str = "triple",
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """The block-1 kernel's arithmetic in plain PyTorch.  x ``[B, T, 64]``
-    bf16 → ``[B, T // 2, 32, 64]`` bf16; ``tc`` acts only with
-    ``quantize=True``."""
+    bf16 → ``[B, T // 2, 32, 64]`` bf16; ``tc`` and ``mode`` act only with
+    ``quantize=True``.  Without it, ``compute_dtype=torch.float32`` runs
+    the JAX kernel's f32 mode (operands, y1 and the pool in f32; the card
+    kernel computes in bf16 only)."""
     a1, b1 = (v.float() for v in ab1)
     a2, b2 = (v.float() for v in ab2)
     if quantize in ("conv1", True):
@@ -116,43 +129,48 @@ def block1_plain(x, w1, ab1, w2, ab2, *, quantize="conv1",
         wq, s1 = conv1_weights(w1)
         mul = (a1[None] * s1)[None] * sx.float()[:, None, None]
         if quantize is True:
-            return _int8_conv2(xq, wq, mul, b1, w2, (a2, b2), tc)
+            return _int8_conv2(xq, wq, mul, b1, w2, (a2, b2), tc,
+                               HALO[mode])
         acc = torch.einsum("btmk,mkc->btmc", _taps(xq.double()),
                            wq.double()).float()
         y1 = acc * mul[:, None] + b1
     else:
-        wb = w1[:, :, 0, :].reshape(9, -1).to(torch.bfloat16).float()
+        wb = w1[:, :, 0, :].reshape(9, -1).to(compute_dtype).float()
         acc = torch.einsum("btmk,kc->btmc", _taps(x.float()), wb)
         y1 = acc * a1 + b1
-    y1 = torch.relu(y1).to(torch.bfloat16)
+    y1 = torch.relu(y1).to(compute_dtype)
     acc2 = F.conv2d(y1.float().permute(0, 3, 1, 2),
-                    w2.to(torch.bfloat16).float().permute(3, 2, 0, 1),
+                    w2.to(compute_dtype).float().permute(3, 2, 0, 1),
                     padding=1).permute(0, 2, 3, 1)
-    y2 = torch.relu(acc2 * a2 + b2).to(torch.bfloat16)
+    y2 = torch.relu(acc2 * a2 + b2).to(compute_dtype)
     return _pool_bf16(y2)
 
 
-def _int8_conv2(xq, wq, mul, b1, w2, ab2, tc: int) -> torch.Tensor:
+def _int8_conv2(xq, wq, mul, b1, w2, ab2, tc: int,
+                halo: int = 1) -> torch.Tensor:
     """``quantize=True`` after the int8 input: conv1 per chunk of ``tc``
-    frames over times ``[j tc - 1, j tc + tc]``, the chunk's y1 scale over
+    frames over times ``[j tc - halo, j tc + tc + halo)`` (``halo`` 1 for
+    the triple staging, 2 for the single one), the chunk's y1 scale over
     all of those rows, requantize, zero the rows outside the clip, int8
     conv2, BN, ReLU, bf16 pool."""
     b, t, _ = xq.shape
     nch = -(-t // tc)
     tp = nch * tc
-    xpad = F.pad(xq.double(), (0, 0, 1, tp + 1 - t))      # times -1 .. tp
+    rows = tc + 2 * halo
+    xpad = F.pad(xq.double(), (0, 0, halo, tp + halo - t))
     acc = torch.einsum("btmk,mkc->btmc", _taps(xpad), wq.double()).float()
-    y1 = torch.relu(acc * mul[:, None] + b1)              # [B, tp + 2, ...]
+    y1 = torch.relu(acc * mul[:, None] + b1)        # times -halo .. tp+halo
     c = y1.shape[-1]
-    win = y1.unfold(1, tc + 2, tc).permute(0, 1, 4, 2, 3).reshape(
-        b * nch, tc + 2, _M, c)
+    win = y1.unfold(1, rows, tc).permute(0, 1, 4, 2, 3).reshape(
+        b * nch, rows, _M, c)
     sy = over127(torch.clamp(win.amax(dim=(1, 2, 3)), min=1e-6))
     yq = _quant_i8(win, (1.0 / sy)[:, None, None, None])
-    time = (torch.arange(nch, device=xq.device)[:, None] * tc - 1
-            + torch.arange(tc + 2, device=xq.device)[None])
+    time = (torch.arange(nch, device=xq.device)[:, None] * tc - halo
+            + torch.arange(rows, device=xq.device)[None])
     valid = ((time >= 0) & (time < t)).repeat(b, 1)[:, :, None, None]
     yq = torch.where(valid, yq, torch.zeros((), dtype=yq.dtype,
                                             device=yq.device))
+    yq = yq[:, halo - 1:rows - halo + 1]          # conv2's rows: tc + 2
     w2q, s2 = quant_weight(w2.float())
     acc2 = _conv_valid_time(yq, w2q, torch.float64).float()
     mul2 = (ab2[0] * s2)[None] * sy[:, None]
@@ -161,8 +179,8 @@ def _int8_conv2(xq, wq, mul, b1, w2, ab2, tc: int) -> torch.Tensor:
 
 
 _P, _I = _build.P, _build.I
-_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _P]
+_ARGS = [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _P, _P]
 _MODES = {False: 0, "conv1": 1, True: 2}
 
 
@@ -189,10 +207,12 @@ def kernel_weights(w1, ab1, w2, ab2, quantize) -> tuple:
     return wk1, ak1, b1, wk2.contiguous(), a2, b2
 
 
-def check_mode(quantize, tc: int):
-    """The mode as ``conv_block1_pair.py:375-384`` reads it (``"conv1"``,
-    or any other value taken as a bool), after the TPU kernel's limits on
-    tc (``:397-398``)."""
+def check_mode(quantize, tc: int, mode: str = "triple"):
+    """The mode as ``conv_block1_pair.py:373-384`` reads it (``"conv1"``,
+    or any other value taken as a bool; the staging ``"triple"`` or
+    ``"single"``), after the TPU kernel's limits on tc (``:397-398``)."""
+    if mode not in HALO:
+        raise ValueError(f"unknown block1 pair mode: {mode!r}")
     if tc % 16 or _M // 2 * (tc + 2) > 2200:
         raise ValueError(f"invalid tc={tc}: a multiple of 16, at most 64")
     if isinstance(quantize, str):
@@ -205,18 +225,21 @@ def check_mode(quantize, tc: int):
 def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                       w2: torch.Tensor, ab2: tuple, *,
                       quantize="conv1", tc: int = 48,
+                      mode: str = "triple",
                       prepared: tuple | None = None) -> torch.Tensor:
     """Fused (conv3x3 → BN → ReLU) × 2 → avg+max 2×2 pool for Cin = 1.
 
     x ``[B, T, 64]`` bf16 (the bn0 output); w1 ``[3, 3, 1, 64]``, w2
     ``[3, 3, 64, 64]`` HWIO f32; ab from :func:`fold_bn`; ``quantize``
     ``"conv1"``, ``False`` or ``True``; ``tc`` the chunk of the y1 scales
-    under ``True``; ``prepared``, if given, is :func:`kernel_weights` of
+    under ``True``; ``mode`` the staging, ``"triple"`` or ``"single"``
+    (its own y1 scale window under ``True``); ``prepared``, if given, is
+    :func:`kernel_weights` of
     the same weights and mode, kept by the caller so that a forward does
     not lay them out again.  Returns ``[B, T // 2, 32, 64]`` bf16.
     Serving only (running BN statistics).
     """
-    quantize = check_mode(quantize, tc)
+    quantize = check_mode(quantize, tc, mode)
     if x.dim() != 3 or x.shape[2] != _M or x.dtype != torch.bfloat16 \
             or not x.is_contiguous():
         raise ValueError("x must be a contiguous [B, T, 64] bf16 tensor")
@@ -224,17 +247,20 @@ def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
         raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
     check_device(x, w1, w2, *ab1, *ab2)
     if not x.is_cuda:
-        return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc)
+        return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc,
+                            mode=mode)
     b, t, _ = x.shape
     wk1, ak1, b1, wk2, a2, b2 = prepared or kernel_weights(
         w1, ab1, w2, ab2, quantize)
     check_device(x, wk1, ak1, b1, wk2, a2, b2)
     dev = x.device
     sx = torch.empty(b, 2, device=dev)
+    halo = HALO[mode] if quantize is True else 1
     if quantize is True:
         g = b * -(-t // tc)
-        y1 = torch.empty(g, tc + 2, _M, 64, device=dev)
-        y1q = torch.empty(g, tc + 2, _M, 64, dtype=torch.int8, device=dev)
+        y1 = torch.empty(g, tc + 2 * halo, _M, 64, device=dev)
+        y1q = torch.empty(g, tc + 2 * halo, _M, 64, dtype=torch.int8,
+                          device=dev)
         sy = torch.empty(g, device=dev)
     else:
         y1 = torch.empty(b, t, _M, 64, dtype=torch.bfloat16, device=dev)
@@ -242,11 +268,12 @@ def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
                       device=dev)
     fn = _build.function("conv_block1_pair", "ttg_conv_block1", _ARGS)
-    err = fn(_MODES[quantize], x.data_ptr(), b, t, tc, wk1.data_ptr(),
-             ak1.data_ptr(), b1.data_ptr(), wk2.data_ptr(), a2.data_ptr(),
-             b2.data_ptr(), sx.data_ptr(), y1.data_ptr(), y1q.data_ptr(),
-             sy.data_ptr(), out.data_ptr(), _build.stream())
-    launches["conv_block1_pair_int8" if quantize is True
-             else "conv_block1_pair"] += 1
+    err = fn(_MODES[quantize], halo, x.data_ptr(), b, t, tc,
+             wk1.data_ptr(), ak1.data_ptr(), b1.data_ptr(), wk2.data_ptr(),
+             a2.data_ptr(), b2.data_ptr(), sx.data_ptr(), y1.data_ptr(),
+             y1q.data_ptr(), sy.data_ptr(), out.data_ptr(), _build.stream())
+    launches["conv_block1_pair" if quantize is not True
+             else f"conv_block1_pair_{'single' if halo == 2 else 'int8'}"
+             ] += 1
     _build.check(err, "ttg_conv_block1")
     return out

@@ -109,6 +109,25 @@ _ARGS = [_build.P, _build.L, _build.I, _build.I, _build.P, _build.P,
          _build.P, _build.P, _build.P]
 
 
+def check_kernel_config(cfg: LogMelConfig, device: torch.device) -> None:
+    """The kernels' geometry: n_fft 1024, hop 320, 64 mels, 512 bins."""
+    if (cfg.n_fft, cfg.hop_length, cfg.n_mels) != (1024, 320, 64):
+        raise ValueError("the kernel is built for n_fft 1024, hop 320, "
+                         "64 mels")
+    if _basis(cfg, device)[0].shape[1] != _F:
+        raise ValueError(f"the kernel is built for {_F} retained bins")
+
+
+def kernel_input(waveform: torch.Tensor, cfg: LogMelConfig) -> tuple:
+    """(the bf16 reflect-padded waveform ``[B, npad]``, npad) that the
+    kernels of rows 1 and 10 read their 16-frame tiles from."""
+    check_kernel_config(cfg, waveform.device)
+    t = num_frames(waveform.shape[1], cfg.hop_length)
+    rows = -(-t // _TILE) * _TILE
+    npad = -(-((rows - 1) * cfg.hop_length + cfg.n_fft) // 16) * 16
+    return _padded_bf16(waveform.contiguous(), cfg, npad), npad
+
+
 def fused_log_mel_spectrogram(waveform: torch.Tensor,
                               cfg: LogMelConfig) -> torch.Tensor:
     """``[B, N]`` f32 → ``[B, T, n_mels]`` f32 log-mel (dB)."""
@@ -116,17 +135,10 @@ def fused_log_mel_spectrogram(waveform: torch.Tensor,
     _check(waveform, cfg)
     if not waveform.is_cuda:
         return log_mel_plain(waveform, cfg)
-    if (cfg.n_fft, cfg.hop_length, cfg.n_mels) != (1024, 320, 64):
-        raise ValueError("the kernel is built for n_fft 1024, hop 320, "
-                         "64 mels")
+    xb, npad = kernel_input(waveform, cfg)
     real, imag, fb = _basis(cfg, waveform.device)
-    if real.shape[1] != _F:
-        raise ValueError(f"the kernel is built for {_F} retained bins")
-    b, n = waveform.shape
-    t = num_frames(n, cfg.hop_length)
-    rows = -(-t // _TILE) * _TILE
-    npad = -(-((rows - 1) * cfg.hop_length + cfg.n_fft) // 16) * 16
-    xb = _padded_bf16(waveform.contiguous(), cfg, npad)
+    b = waveform.shape[0]
+    t = num_frames(waveform.shape[1], cfg.hop_length)
     out = torch.empty(b, t, cfg.n_mels, dtype=torch.float32,
                       device=waveform.device)
     fn = _build.function("logmel", "ttg_logmel", _ARGS)
