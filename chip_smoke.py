@@ -51,10 +51,17 @@ Phases, each printing one line:
    request's block-2 output with the served blocks 3-4 weights, driven
    through ``ConvBlock(..., wino=True)``, beside the direct9 kernel at
    pool (2, 2) on the same input and bound by the Winograd products'
-   operations (the direct conv's beside it); and the log-mel variants v3
-   and v4 on that request's waveform beside row 1's kernel.  Each design
-   runs once (its launches counted, exactly), then each int8 kernel is
-   held bit for bit against its plain version and its bf16 mode within
+   operations (the direct conv's beside it); row 4's mel3 and tri tap
+   modes (``mel3=(True, True)``, ``tri=(True, True)``, the slab kernel,
+   int8 at each mode's own chunk and the bf16 mode) at the flagship's
+   blocks 3 and 4 (pool (1, 2), a record each) on that request's block-2
+   output and then the mode's own block-3 output, with the served
+   weights, beside direct9 on the same input, tri also at direct9's chunk
+   bit for bit against the row-4 kernel, each traced by launch; and the
+   log-mel variants v3 and v4 on that request's waveform beside row 1's
+   kernel.  Each design runs once (its launches counted, exactly), then
+   each int8 kernel is held bit for bit against its plain version and its
+   bf16 mode within
    1e-2 relative RMS (v3 within 0.035 dB max and 1e-4 dB mean of its plain
    version, limits that row 1's kernel must miss; v4 bit for bit against
    row 1's kernel), is timed with CUDA events with its weights laid out
@@ -988,7 +995,8 @@ def _design(kernel, plain, ref, ops, in_bytes, source, replaces, *,
     {type: count} and ``in_bytes`` (output bytes added) give its bound;
     ``bf16`` is (kernel, plain) of the bf16 mode, held within 1e-2
     relative RMS; ``beside`` {name: fn} are other kernels timed in the same
-    call and compared with ``ref``, ``timed`` {name: fn} are only timed;
+    call and compared with ``ref`` (and with ``trace``, traced by launch
+    as the design is), ``timed`` {name: fn} are only timed;
     ``counter`` is the launch counter where it is not the record's name;
     ``extra`` goes into the JSON row as it is."""
     return {"kernel": kernel, "plain": plain, "ref": ref, "ops": ops,
@@ -1042,11 +1050,13 @@ def _design_row(name: str, d: dict, out) -> dict:
                     **vs_ref("bf16_", got16)})
     for key, fn in d["beside"].items():
         row.update({f"{key}_ms": _cuda_ms(fn, 10), **vs_ref(f"{key}_", fn())})
+        if d["trace"]:
+            row[f"{key}_trace"] = _trace(fn, row[f"{key}_ms"], by_launch=True)
     for key, fn in d["timed"].items():
         row[f"{key}_ms"] = _cuda_ms(fn, 10)
     if d["trace"]:
         # device time by launch
-        row["trace"] = _trace(d["kernel"], ms)
+        row["trace"] = _trace(d["kernel"], ms, by_launch=True)
     row.update(d["extra"])
     return row
 
@@ -1069,7 +1079,8 @@ def designs_phase(x1, y1, enc, y2, wave) -> tuple:
     designs["conv_block1_pair_single"]["extra"]["loud_frame"] = loud
     _reset_counts()
     outs = {name: d["kernel"]() for name, d in designs.items()}
-    for more, got in (_wino_designs(enc, y2), _logmel_designs(wave)):
+    for more, got in (_wino_designs(enc, y2), _slab_designs(enc, y2),
+                      _logmel_designs(wave)):
         designs.update(more)
         outs.update(got)
     torch.cuda.synchronize()
@@ -1324,6 +1335,88 @@ def _wino_designs(enc, y2) -> tuple:
     return records, outs
 
 
+# row 4's tap modes at the flagship's blocks 3-4, pool (1, 2): (block,
+# Cin, Cout)
+SLAB_BLOCKS = ((3, 128, 256), (4, 256, 512))
+
+
+def _slab_designs(enc, y2) -> tuple:
+    """Row 4's mel3 and tri modes, each (True, True), on the slab kernel
+    with the served blocks 3-4 weights at the flagship's pool (1, 2): on
+    the served block-2 output (block 3) and on the mode's own block-3
+    output (block 4); one record per mode and block, int8 at the mode's
+    own JAX chunk and its bf16 mode at its own, beside direct9 (row 4) on
+    the same input, each with its weights laid out once.  Bound by the
+    direct conv's operations, all of which the slab does.  tri's records
+    also hold tri at direct9's chunk bit for bit against the row-4 kernel
+    (their scales are direct9's).  Returns (records, the outputs of the
+    counted run)."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block as cb
+
+    records, outs = {}, {}
+    for mode in ("mel3", "tri"):
+        x = y2
+        for i, cin, cout in SLAB_BLOCKS:
+            name = f"conv_block_{mode}_block{i}"
+            blk = getattr(enc, f"conv_block{i}")
+            w = _block_weights(blk)
+            kw = {mode: (True, True)}
+            pq, p16 = (cb.kernel_weights(*w, q) for q in (True, False))
+            modes = {q: cb.tap_modes(cin, q, **kw) for q in (True, False)}
+            tcs = {q: cb.block_tc(x.shape, cout, (1, 2), q, modes[q])
+                   for q in (True, False)}
+            d9_tc = {q: cb.block_tc(x.shape, cout, (1, 2), q, (False,) * 4)
+                     for q in (True, False)}
+            outs[name] = cb.fused_double_conv_pool(
+                x, *w, (1, 2), quantize=True, prepared=pq, **kw)
+            with torch.no_grad():
+                f32 = blk._plain(x.float(), (1, 2))
+            b, t, m, _ = x.shape
+            ops = 2.0 * b * t * m * 9 * (cin * cout + cout * cout)
+
+            def run(q, x=x, w=w, kw=kw, pq=pq, p16=p16, **over):
+                return cb.fused_double_conv_pool(
+                    x, *w, (1, 2), quantize=q, prepared=pq if q else p16,
+                    **{**kw, **over})
+
+            def plain(q, x=x, w=w, modes=modes, tcs=tcs):
+                return cb.block_plain(x, *w, (1, 2), quantize=q, tc=tcs[q],
+                                      modes=modes[q])
+
+            check = _bit_exact
+            if mode == "tri":
+                def check(out, target, run=run, tc=d9_tc[True]):
+                    got = run(True, tc=tc)
+                    same = _err(got, run(True, tri=None, tc=tc))[0]
+                    if same != 0.0:
+                        raise AssertionError(f"tri at direct9's tc {tc} "
+                                             f"differs from the row-4 "
+                                             f"kernel: max_abs {same}")
+                    return {**_bit_exact(out, target),
+                            "vs_direct9_at_its_tc_max_abs": same}
+            records[name] = _design(
+                kernel=lambda run=run: run(True),
+                plain=lambda plain=plain: plain(True),
+                bf16=(lambda run=run: run(False),
+                      lambda plain=plain: plain(False)),
+                ref=("f32_block", f32), ops={"int8": ops},
+                in_bytes=x.numel() * 2 + _wbytes(w),
+                source="conv_block_mel3.cu", replaces="conv_block.py:370",
+                counter=f"conv_block_{mode}", check=check,
+                beside={"direct9": lambda run=run: run(True, mel3=None,
+                                                       tri=None),
+                        "direct9_bf16": lambda run=run: run(
+                            False, mel3=None, tri=None)},
+                trace=True, input_shape=list(x.shape), cin=cin, cout=cout,
+                mode=f"{mode}=(True, True)", tc=tcs[True],
+                bf16_tc=tcs[False], direct9_tc=d9_tc[True],
+                direct9_bf16_tc=d9_tc[False])
+            x = outs[name]
+    return records, outs
+
+
 def _v3_check(wave, cfg, t_lo: int, t_hi: int):
     """Row 9's check: within V3_MAX_DB max and V3_MEAN_DB mean of its plain
     version, while row 1's kernel (f32 mel) on the interior frames must
@@ -1484,10 +1577,10 @@ def _counter_modules() -> tuple:
         conv_block_pair, conv_block_wino, dual_pool, gru, logmel, logmel_v3,
         logmel_v4, pair_conv_pool)
     return ({"logmel": logmel, "conv_block_pair": conv_block_pair,
-             "conv_block": conv_block, "conv_block_wino": conv_block_wino,
+             "conv_block_wino": conv_block_wino,
              "logmel_v3": logmel_v3, "logmel_v4": logmel_v4},
-            (conv_block1_pair, gru, dual_pool, bn_pool, pair_conv_pool,
-             block2_small, block1_small))
+            (conv_block, conv_block1_pair, gru, dual_pool, bn_pool,
+             pair_conv_pool, block2_small, block1_small))
 
 
 def _counts() -> dict:
@@ -1977,26 +2070,47 @@ _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
                  "conv1_kernel", "conv1_im2col_kernel", "requant_kernel",
                  "clip_scale_kernel", "gru_fwd_step",
                  "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_",
-                 "wino_", "logmel_v3_kernel", "logmel_v4_kernel")
+                 "wino_", "logmel_v3_kernel", "logmel_v4_kernel",
+                 "slab_gemm")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
-def _trace(fn, request_ms: float) -> dict:
+def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
     """Device time by kernel name over one profiled call of ``fn``, and the
     device's idle share of the untraced time ``request_ms`` (kernels run
     on one stream, so their times add up).  ``gru_ms`` sums the port's
     GRU kernels, ``conv_ms`` the device time under PyTorch's convolution
     operators, forward and backward (the plain path's convolutions),
-    ``pool_ms`` the pool kernels."""
+    ``pool_ms`` the pool kernels; with ``by_launch`` also each launch's
+    device ms in launch order."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    # a by-launch trace of a call that launches kernels is taken again
+    # when the profiler recorded none of them, which happened once in
+    # dozens of profiles on an H100
+    for attempt in range(1, 4 if by_launch else 2):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the first kernel launched under the profiler can go
+            # unrecorded on the card's machine: a marker kernel takes
+            # that place, and is left out by its name if it was recorded
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        launched = sorted((e for e in events
+                           if "spin_kernel" not in e.name),
+                          key=lambda e: e.time_range.start)
+        if launched:
+            break
     kernels = {}
+    for e in launched:
+        ms, count = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     conv_ms = 0.0
     for evt in prof.key_averages():
         if evt.key in _CONV_OPS:
@@ -2004,13 +2118,6 @@ def _trace(fn, request_ms: float) -> dict:
             if total is None:
                 total = evt.cuda_time_total
             conv_ms += total / 1e3
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + us / 1e3,
-                            evt.count)
     busy = sum(ms for ms, _ in kernels.values())
     port = sum(ms for k, (ms, _) in kernels.items()
                if any(p in k for p in _PORT_KERNELS))
@@ -2018,7 +2125,14 @@ def _trace(fn, request_ms: float) -> dict:
     pool_ms = sum(ms for k, (ms, _) in kernels.items()
                   if "dual_pool_" in k or "bn_pool_" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"request_ms": request_ms, "device_busy_ms": busy,
+    order = {}
+    if by_launch:
+        order["by_launch"] = [{"kernel": e.name[:60],
+                               "ms": e.time_range.elapsed_us() / 1e3}
+                              for e in launched]
+    return {**order, "attempts": attempt,
+            "marker_recorded": len(events) - len(launched),
+            "request_ms": request_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / request_ms,
             "port_kernels_ms": port, "gru_ms": gru_ms, "pool_ms": pool_ms,
             "conv_ms": conv_ms,
@@ -2092,7 +2206,8 @@ def main() -> int:
     kernels += designs
     print(json.dumps({"phase": "designs", "card": smi, "kernels": [
         {k: v for k, v in row.items() if k not in (
-            "route", "source", "replaces", "tolerance", "library", "trace")}
+            "route", "source", "replaces", "tolerance", "library")
+            and not k.endswith("trace")}
         for row in designs]}), flush=True)
     train = training_phase(tok)
     report["train"] = train

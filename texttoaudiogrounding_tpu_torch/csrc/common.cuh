@@ -155,15 +155,15 @@ using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
                                        typename Mma<T>::acc_t>;
 
 // One staged K step of a BM x BN tile on the tensor cores: acc += A B^T
-// over the step's KC elements, A in As as KC / 16 slices of [BM][16] and
-// B^T in Bs as slices of [BN][16] (row-major, 16 elements a row); warp
-// (wm, wn) of the 4 x 2 warps owns rows wm * 32 and columns wn * 32 as
-// 2 x 2 fragments.
+// over the step's KC elements, A in As as KC / 16 slices of [a_rows][16]
+// (the tile's rows first) and B^T in Bs as slices of [BN][16] (row-major,
+// 16 elements a row); warp (wm, wn) of the 4 x 2 warps owns rows wm * 32
+// and columns wn * 32 as 2 x 2 fragments.
 template <typename T>
 __device__ __forceinline__ void mma_step(const unsigned char* As,
                                          const unsigned char* Bs,
                                          AccFrag<T> (&acc)[2][2], int wm,
-                                         int wn) {
+                                         int wn, int a_rows = BM) {
   using namespace nvcuda;
   using FT = typename Mma<T>::frag_t;
   constexpr int SLAB = 16 * sizeof(T), NKS = Mma<T>::KC / 16;
@@ -175,7 +175,7 @@ __device__ __forceinline__ void mma_step(const unsigned char* As,
     for (int i = 0; i < 2; ++i)
       wmma::load_matrix_sync(
           fa[i],
-          reinterpret_cast<const FT*>(As + ks * BM * SLAB +
+          reinterpret_cast<const FT*>(As + ks * a_rows * SLAB +
                                       (wm * 32 + i * 16) * SLAB),
           16);
 #pragma unroll
@@ -390,12 +390,27 @@ inline void launch_conv(const ConvArgs& a, cudaStream_t st) {
   conv3x3_gemm<T, MODE><<<grid, NT, 0, st>>>(a);
 }
 
+// Requantizes each group's conv1 rows y1 [G, tc + 2, M, C] (f32, or
+// bf16 with y1_half) with one scale over all its rows into y1q int8, the
+// scale to sy [G].
+inline void requant_y1(bool y1_half, const void* y1, int8_t* y1q, float* sy,
+                       int G, int tc, int M, int C, cudaStream_t st) {
+  const long long n = (long long)(tc + 2) * M * C;
+  if (y1_half)
+    gather_kernel<bf16, int8_t, true><<<G, 512, 0, st>>>(
+        static_cast<const bf16*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
+        tc + 2, 0, 0, n);
+  else
+    gather_kernel<float, int8_t, true><<<G, 512, 0, st>>>(
+        static_cast<const float*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
+        tc + 2, 0, 0, n);
+}
+
 // The second half of a chunked block: y1 [G, tc + 2, M, C] holds the
 // conv1 rows of group g = b * nch + j at times [j tc - 1, j tc + tc + 1),
 // zero outside the clip: f32 for quant (bf16 with y1_half), bf16
-// otherwise.  quant: requantize each group with one scale over all its
-// rows into y1q [G, tc + 2, M, C] int8, the scale to sy [G]; then conv2 ->
-// BN -> ReLU -> f32 avg+max pool into out [B, T / pt, M / pm, C] bf16.
+// otherwise.  quant: requant_y1 into y1q and sy; then conv2 -> BN ->
+// ReLU -> f32 avg+max pool into out [B, T / pt, M / pm, C] bf16.
 inline cudaError_t conv2_pool(bool quant, bool y1_half, const void* y1,
                               int8_t* y1q, float* sy, int B, int nch, int T,
                               int M, int C, int tc, int pt, int pm,
@@ -404,15 +419,7 @@ inline cudaError_t conv2_pool(bool quant, bool y1_half, const void* y1,
   const int G = B * nch;
   const void* src = y1;
   if (quant) {
-    const long long n = (long long)(tc + 2) * M * C;
-    if (y1_half)
-      gather_kernel<bf16, int8_t, true><<<G, 512, 0, st>>>(
-          static_cast<const bf16*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
-          tc + 2, 0, 0, n);
-    else
-      gather_kernel<float, int8_t, true><<<G, 512, 0, st>>>(
-          static_cast<const float*>(y1), y1q, sy, 1, tc + 2, M * C, 0, 0,
-          tc + 2, 0, 0, n);
+    requant_y1(y1_half, y1, y1q, sy, G, tc, M, C, st);
     src = y1q;
   }
   ConvArgs c{};
@@ -443,30 +450,18 @@ inline cudaError_t conv2_pool(bool quant, bool y1_half, const void* y1,
   return cudaGetLastError();
 }
 
-// The fused block of the TPU kernels: conv3x3 -> BN -> ReLU -> conv3x3 ->
-// BN -> ReLU -> avg+max pool over chunks of tc output times.
-//   x   [B, T, M, Cin] bf16; the last chunk may be ragged
-//   w1  [Cout, 9 Cin], w2 [Cout, 9 Cout]: int8 (quant) or bf16
-//   a*, b*: [Cout] f32 (int8: BN scale x per-channel weight scale)
-//   xs  [G, tc + 4, M, Cin] scratch, int8 or bf16 (G = B ceil(T / tc))
-//   y1  [G, tc + 2, M, Cout] scratch, f32 (quant) or bf16 (also for
-//       quant with y1_half)
-//   y1q [G, tc + 2, M, Cout] int8 scratch (quant only)
-//   sx, sy [G] f32 scratch: per-group activation scales (quant only)
-//   out [B, T / pt, M / pm, Cout] bf16
-// The x scale of group (b, j) is taken over the flat element window
-// [j * win_step + win_lo, j * win_step + win_hi) of clip b; the y1 scale
-// over the group's conv1 rows (times [j tc - 1, j tc + tc + 1), zeroed
-// outside the clip), as f32 or, with y1_half, rounded to bf16 first.
-inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
-                               int M, int Cin, int Cout, int tc, int pt,
-                               int pm, long long win_step, long long win_lo,
-                               long long win_hi, const void* w1,
-                               const float* a1, const float* b1,
-                               const void* w2, const float* a2,
-                               const float* b2, void* xs, void* y1,
-                               int8_t* y1q, float* sx, float* sy, bf16* out,
-                               cudaStream_t st, bool y1_half = false) {
+// The first half of a chunked block, in direct 3x3 taps: gathers the
+// input of every group with its two-time halo into xs [G, tc + 4, M, Cin]
+// (int8 with quant, its scale to sx [G] taken over the flat element window
+// [j * win_step + win_lo, j * win_step + win_hi) of clip b), then conv1 ->
+// BN -> ReLU into y1 [G, tc + 2, M, Cout] (f32 for quant without y1_half,
+// bf16 otherwise), rows outside the clip zeroed.
+inline void conv1_direct(bool quant, bool y1_half, const bf16* x, int B,
+                         int T, int M, int Cin, int Cout, int tc,
+                         long long win_step, long long win_lo,
+                         long long win_hi, const void* w1, const float* a1,
+                         const float* b1, void* xs, void* y1, float* sx,
+                         cudaStream_t st) {
   const int nch = (T + tc - 1) / tc, G = B * nch;  // last chunk ragged
   if (quant)
     gather_kernel<bf16, int8_t, true><<<G, 512, 0, st>>>(
@@ -503,9 +498,36 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
     launch_conv<int8_t, 1>(c1, st);
   else
     launch_conv<bf16, 1>(c1, st);
+}
 
-  return conv2_pool(quant, y1_half, y1, y1q, sy, B, nch, T, M, Cout, tc, pt,
-                    pm, w2, a2, b2, out, st);
+// The fused block of the TPU kernels: conv3x3 -> BN -> ReLU -> conv3x3 ->
+// BN -> ReLU -> avg+max pool over chunks of tc output times.
+//   x   [B, T, M, Cin] bf16; the last chunk may be ragged
+//   w1  [Cout, 9 Cin], w2 [Cout, 9 Cout]: int8 (quant) or bf16
+//   a*, b*: [Cout] f32 (int8: BN scale x per-channel weight scale)
+//   xs  [G, tc + 4, M, Cin] scratch, int8 or bf16 (G = B ceil(T / tc))
+//   y1  [G, tc + 2, M, Cout] scratch, f32 (quant) or bf16 (also for
+//       quant with y1_half)
+//   y1q [G, tc + 2, M, Cout] int8 scratch (quant only)
+//   sx, sy [G] f32 scratch: per-group activation scales (quant only)
+//   out [B, T / pt, M / pm, Cout] bf16
+// The x scale of group (b, j) is taken over the flat element window
+// [j * win_step + win_lo, j * win_step + win_hi) of clip b; the y1 scale
+// over the group's conv1 rows (times [j tc - 1, j tc + tc + 1), zeroed
+// outside the clip), as f32 or, with y1_half, rounded to bf16 first.
+inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T,
+                               int M, int Cin, int Cout, int tc, int pt,
+                               int pm, long long win_step, long long win_lo,
+                               long long win_hi, const void* w1,
+                               const float* a1, const float* b1,
+                               const void* w2, const float* a2,
+                               const float* b2, void* xs, void* y1,
+                               int8_t* y1q, float* sx, float* sy, bf16* out,
+                               cudaStream_t st, bool y1_half = false) {
+  conv1_direct(quant, y1_half, x, B, T, M, Cin, Cout, tc, win_step, win_lo,
+               win_hi, w1, a1, b1, xs, y1, sx, st);
+  return conv2_pool(quant, y1_half, y1, y1q, sy, B, (T + tc - 1) / tc, T, M,
+                    Cout, tc, pt, pm, w2, a2, b2, out, st);
 }
 
 }  // namespace ttg

@@ -1,9 +1,13 @@
-"""Fused PANNs conv block, direct 3x3 taps (serving path): ``csrc/conv_block.cu``.
+"""Fused PANNs conv block (serving path): ``csrc/conv_block.cu`` and
+``csrc/conv_block_mel3.cu``.
 
-Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py``:
+Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370``:
 (conv3x3 → BN → ReLU) × 2 → avg+max pool for one block, over chunks of
 ``tc`` output times, in int8 or bf16.  Blocks 3 and 4 of the Cnn8Rnn
-serving path run through it.
+serving path run through it in direct 3x3 taps (direct9).  Each conv can
+instead run in the TPU kernel's ``mel3`` or ``tri`` tap mode (a mel-im2col
+of K = 3 Cin and three time-tap products), which no shipped model routes;
+on the card both are the slab GEMM of ``csrc/conv_block_mel3.cu``.
 
 int8 contract (``conv_block.py:435-461``, ``:312-328``):
 
@@ -16,9 +20,23 @@ int8 contract (``conv_block.py:435-461``, ``:312-328``):
   into the BN affine; products accumulate exactly (int32 on the card,
   float64 in the plain version).
 
-:func:`fused_double_conv_pool` launches the kernel for a CUDA tensor and
-runs :func:`double_conv_plain` for a CPU tensor.  The plain version is the
-same chunked arithmetic in plain PyTorch.
+The tap modes' own int8 scales (``:162 _mel3_build``, ``:286-341``):
+
+* a ``mel3`` conv1 takes no per-clip input: its scale is per chunk, over
+  the flat (t, mel) cells ``[(j tc - 2) M - 1, (j tc + tc + 2) M + 1)`` of
+  the clip (:func:`mel3_window_scale`, the staged window ``xc_ref``);
+* a ``mel3`` conv2 after a ``mel3`` conv1 takes y1 stored in bf16, and
+  its per-chunk scale is taken over those rounded values;
+* ``tri`` keeps direct9's scales (per-clip x, per-chunk f32 y1), so its
+  int8 result is direct9's at the same ``tc``.
+
+The chunk ``tc`` follows the TPU kernel's VMEM estimate of the mode
+(:func:`_pick_tc`), which counts the im2col buffers, so each mode has its
+own ``tc`` and with it its own int8 scales.
+
+:func:`fused_double_conv_pool` launches a kernel for a CUDA tensor and
+runs :func:`block_plain` for a CPU tensor: the same chunked arithmetic in
+plain PyTorch (:func:`double_conv_plain`).
 """
 
 from __future__ import annotations
@@ -28,7 +46,9 @@ import torch.nn.functional as F
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
-launches = 0          # kernel launches through fused_double_conv_pool
+# kernel launches through fused_double_conv_pool: direct9 (the serving
+# path), and the slab kernel with a mel3 conv, or with tri only
+launches = {"conv_block": 0, "conv_block_mel3": 0, "conv_block_tri": 0}
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -61,31 +81,42 @@ def quant_weight(w: torch.Tensor, divide: bool = False) -> tuple:
     return _quant_i8(w, 1.0 / s), s
 
 
-def _vmem_bytes(t, m, cin, cout, pt, pm, tc, quantize, compute_dtype):
-    """The TPU kernel's VMEM estimate in direct9 mode
-    (``conv_block.py:62``)."""
+def _vmem_bytes(t, m, cin, cout, pt, pm, tc, quantize, compute_dtype,
+                mel3=(False, False)):
+    """The TPU kernel's VMEM estimate (``conv_block.py:62``); ``mel3``
+    marks the convs that stage an im2col (mel3 or tri)."""
     isize = compute_dtype.itemsize
+    qsize = 1 if quantize else isize
     wsize = 1 if quantize else isize
     rows1 = (tc + 2) * m
     rows2 = tc * m
+    rows_x = (tc + 4) * m
+    k1 = 3 * cin if mel3[0] else cin
+    k2 = 3 * cout if mel3[1] else cout
+    xc3 = rows_x * k1 * qsize if mel3[0] else 0
+    y2c = rows1 * k2 * qsize if mel3[1] else 0
+    w1n = 3 * k1 * cout if mel3[0] else 9 * cin * cout
+    w2n = 3 * k2 * cout if mel3[1] else 9 * cout * cout
     return (
         2 * t * m * cin * isize
         + 2 * (tc // pt) * (m // pm) * cout * 2
         + (t + 4) * m * cin * isize
         + (tc + 4) * m * cin * isize
+        + xc3 + y2c
         + (rows1 + 2) * cout * isize
         + rows1 * cout * 4 + rows2 * cout * 4
         + 2 * rows2 * cout * 4
-        + (9 * cin * cout + 9 * cout * cout) * wsize)
+        + (w1n + w2n) * wsize)
 
 
 def _pick_tc(t, m, cin, cout, pt, pm, quantize,
-             compute_dtype=torch.bfloat16, max_rows: int = 2000,
+             compute_dtype=torch.bfloat16, mel3=(False, False),
+             max_rows: int = 2000,
              budget: int = 15 * 2**20 + 2**19) -> int:
-    """The JAX package's chunk rule (``conv_block.py:88``) for direct9:
-    the largest tc dividing t, a multiple of pt, with ``tc * m <=
-    max_rows``, a pooled block of a multiple of 8 rows and the TPU
-    kernel's VMEM estimate within budget.  The chunk fixes where the y1
+    """The JAX package's chunk rule (``conv_block.py:88``): the largest tc
+    dividing t, a multiple of pt, with ``tc * m <= max_rows``, a pooled
+    block of a multiple of 8 rows and the TPU kernel's VMEM estimate for
+    the tap modes ``mel3`` within budget.  The chunk fixes where the int8
     scales change, so the port takes the same tc."""
     best = 0
     smallest = 0
@@ -94,7 +125,7 @@ def _pick_tc(t, m, cin, cout, pt, pm, quantize,
                 and ((c // pt) * (m // pm)) % 8 == 0):
             smallest = smallest or c
             if _vmem_bytes(t, m, cin, cout, pt, pm, c, quantize,
-                           compute_dtype) <= budget:
+                           compute_dtype, mel3) <= budget:
                 best = c
     best = best or smallest
     if best == 0:
@@ -103,15 +134,50 @@ def _pick_tc(t, m, cin, cout, pt, pm, quantize,
     return best
 
 
-def pick_tc(t, m, cin, cout, pt, pm, quantize) -> int:
+def pick_tc(t, m, cin, cout, pt, pm, quantize, mel3=(False, False),
+            compute_dtype=torch.bfloat16) -> int:
     """:func:`_pick_tc`, or, for the shapes where it raises (the JAX
     package then runs the XLA block instead of the kernel), the port's own
     rule: the largest multiple of pt with ``tc * m <= 2000``, the last
     chunk ragged.  The port runs its kernel for every shape."""
     try:
-        return _pick_tc(t, m, cin, cout, pt, pm, quantize)
+        return _pick_tc(t, m, cin, cout, pt, pm, quantize, compute_dtype,
+                        mel3)
     except ValueError:
         return max(pt, (2000 // m) // pt * pt)
+
+
+def tap_modes(cin: int, quantize: bool, mel3=None, tri=None) -> tuple:
+    """``(mel3_1, mel3_2, tri_1, tri_2)`` by the JAX wrapper's rule
+    (``conv_block.py:415-428``): ``mel3`` defaults to ``(not quantize and
+    cin < 128, False)``; ``tri`` clears ``mel3`` conv by conv; int8 with a
+    mel3 conv2 after a direct conv1 is rejected."""
+    if mel3 is None:
+        mel3 = (not quantize and cin < 128, False)
+    mel3_1, mel3_2 = mel3
+    tri_1, tri_2 = tri if tri is not None else (False, False)
+    mel3_1, mel3_2 = mel3_1 and not tri_1, mel3_2 and not tri_2
+    if quantize and mel3_2 and not mel3_1:
+        raise ValueError(
+            "quantize=True with mel3=(False, True) is unsupported: int8 "
+            "direct9 conv1 stores an int8 y1 whose dynamic scale the mel3 "
+            "conv2 staging does not consume; use (False, False) or "
+            "(True, True)")
+    return bool(mel3_1), bool(mel3_2), bool(tri_1), bool(tri_2)
+
+
+def block_tc(x_shape, cout: int, pool, quantize: bool, modes: tuple,
+             compute_dtype=torch.bfloat16) -> int:
+    """The chunk of :func:`fused_double_conv_pool` for ``modes`` (from
+    :func:`tap_modes`): the JAX rule on the staged convs, with Cin padded
+    to 128 where the JAX wrapper pads the per-clip int8 input
+    (``conv_block.py:445-448``)."""
+    _, t, m, cin = x_shape
+    mel3_1, mel3_2, tri_1, tri_2 = modes
+    if quantize and not mel3_1:
+        cin = max(cin, 128)
+    return pick_tc(t, m, cin, cout, pool[0], pool[1], quantize,
+                   (mel3_1 or tri_1, mel3_2 or tri_2), compute_dtype)
 
 
 def _windows(x: torch.Tensor, tc: int, halo: int, nch: int) -> torch.Tensor:
@@ -159,6 +225,26 @@ def per_clip_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
     return s[:, None].expand(-1, nch)
 
 
+def window_scale(xf: torch.Tensor, tc: int, nch: int, lead: int,
+                 size: int) -> torch.Tensor:
+    """``[B, nch]`` input scales of ``[B, T, R, C]``: max |x| over each
+    chunk's window of flat (t, r) cells ``[j tc R - lead, j tc R - lead +
+    size)`` of the clip."""
+    b, t, r, _ = xf.shape
+    cells = xf.abs().amax(dim=-1).reshape(b, t * r)
+    tail = max(0, (nch - 1) * tc * r + size - lead - t * r)
+    win = F.pad(cells, (lead, tail)).unfold(1, size, tc * r)[:, :nch]
+    return over127(torch.clamp(win.amax(dim=-1), min=1e-6))
+
+
+def mel3_window_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
+    """A mel3 conv1's ``[B, nch]`` input scales: the staged window of
+    chunk j, times ``[j tc - 2, j tc + tc + 2)`` and one cell either side,
+    ``(j tc - 3, M - 1)`` and ``(j tc + tc + 2, 0)``."""
+    m = xf.shape[2]
+    return window_scale(xf, tc, nch, 2 * m + 1, (tc + 4) * m + 2)
+
+
 def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
                       tc: int, x_scale=per_clip_scale,
                       compute_dtype=torch.bfloat16, round_y1: bool = False,
@@ -201,6 +287,20 @@ def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
         y1 = torch.where(valid, torch.relu(acc1 * a1 + b1), 0.0)
     return conv2_pool_plain(y1, w2, ab2, pool, b, t, quantize=quantize,
                             compute_dtype=compute_dtype, divide=divide)
+
+
+def block_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool, tc: int,
+                modes: tuple = (False,) * 4,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`double_conv_plain` with the int8 scales of the tap ``modes``
+    (:func:`tap_modes`): a mel3 conv1's per-chunk window scale, a mel3
+    conv2's bf16-stored y1.  In bf16 or f32, and for tri, the modes compute
+    direct9's sums."""
+    mel3_1, mel3_2 = modes[:2]
+    return double_conv_plain(
+        x, w1, ab1, w2, ab2, pool, quantize=quantize, tc=tc,
+        x_scale=mel3_window_scale if quantize and mel3_1 else per_clip_scale,
+        compute_dtype=compute_dtype, round_y1=quantize and mel3_2)
 
 
 def conv2_pool_plain(y1, w2, ab2, pool, b: int, t: int, *, quantize: bool,
@@ -262,9 +362,11 @@ def check_device(x: torch.Tensor, *tensors) -> None:
                              f"{x.device}")
 
 
-def check_block_args(x, w1, ab1, w2, ab2, pool, tc) -> None:
-    if x.dim() != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous [B, T, M, Cin] bf16 tensor")
+def check_block_args(x, w1, ab1, w2, ab2, pool, tc,
+                     dtype=torch.bfloat16) -> None:
+    if x.dim() != 4 or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [B, T, M, Cin] {dtype} "
+                         f"tensor")
     check_device(x, w1, w2, *ab1, *ab2)
     cin, cout = x.shape[3], w1.shape[-1]
     if tuple(w1.shape) != (3, 3, cin, cout) or \
@@ -279,13 +381,16 @@ def check_block_args(x, w1, ab1, w2, ab2, pool, tc) -> None:
         raise ValueError("the kernel takes Cin and Cout multiples of 64")
 
 
-def scratch(b, t, m, cin, cout, tc, quantize, device) -> tuple:
-    """(xs, y1, y1q, sx, sy) device buffers of the chunked pipeline."""
+def scratch(b, t, m, cin, cout, tc, quantize, device,
+            y1_half: bool = False) -> tuple:
+    """(xs, y1, y1q, sx, sy) device buffers of the chunked pipeline; y1 is
+    f32 for int8 unless ``y1_half``."""
     g = b * -(-t // tc)
     act = torch.int8 if quantize else torch.bfloat16
     return (torch.empty(g, tc + 4, m, cin, dtype=act, device=device),
             torch.empty(g, tc + 2, m, cout, device=device,
-                        dtype=torch.float32 if quantize else torch.bfloat16),
+                        dtype=torch.float32 if quantize and not y1_half
+                        else torch.bfloat16),
             torch.empty(g, tc + 2, m, cout, dtype=torch.int8, device=device)
             if quantize else torch.empty(1, dtype=torch.int8, device=device),
             torch.empty(g, device=device), torch.empty(g, device=device))
@@ -294,41 +399,66 @@ def scratch(b, t, m, cin, cout, tc, quantize, device) -> tuple:
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_SLAB_ARGS = [_I] * 5 + _ARGS[1:]
 
 
 def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                            w2: torch.Tensor, ab2: tuple,
                            pool: tuple = (2, 2), *, quantize: bool = False,
-                           tc: int | None = None,
+                           tc: int | None = None, mel3: tuple | None = None,
+                           tri: tuple | None = None,
+                           compute_dtype=torch.bfloat16,
                            prepared: tuple | None = None) -> torch.Tensor:
     """Fused (conv3x3 → BN → ReLU) × 2 → avg+max pool.
 
-    x ``[B, T, M, Cin]`` bf16; w ``[3, 3, Cin, Cout]`` HWIO f32; ab
-    ``(a, b)`` from :func:`fold_bn`; ``prepared``, if given, is
-    :func:`kernel_weights` of the same weights, kept by the caller so that
-    a forward does not lay them out again.  Returns ``[B, T // pt,
-    M // pm, Cout]`` bf16.  Serving only (running BN statistics).
+    x ``[B, T, M, Cin]`` in ``compute_dtype``; w ``[3, 3, Cin, Cout]``
+    HWIO f32; ab ``(a, b)`` from :func:`fold_bn`; ``mel3`` / ``tri`` the
+    per-conv tap modes ``(conv1, conv2)`` with the JAX wrapper's default
+    and precedence (:func:`tap_modes`); ``tc`` the chunk (the mode's JAX
+    pick if None); ``prepared``, if given, is :func:`kernel_weights` of
+    the same weights, kept by the caller so that a forward does not lay
+    them out again.  Returns ``[B, T // pt, M // pm, Cout]``, bf16 for
+    int8, else in ``compute_dtype``.  On the card ``compute_dtype`` is
+    bf16.  Serving only (running BN statistics).
     """
-    global launches
     b, t, m, cin = x.shape
     cout = w1.shape[-1]
     pt, pm = pool
-    tc = tc or pick_tc(t, m, cin, cout, pt, pm, quantize)
-    check_block_args(x, w1, ab1, w2, ab2, pool, tc)
+    modes = tap_modes(cin, quantize, mel3, tri)
+    mel3_1, mel3_2, tri_1, tri_2 = modes
+    tc = tc or block_tc(x.shape, cout, pool, quantize, modes, compute_dtype)
+    check_block_args(x, w1, ab1, w2, ab2, pool, tc, compute_dtype)
     if not x.is_cuda:
-        return double_conv_plain(x, w1, ab1, w2, ab2, pool,
-                                 quantize=quantize, tc=tc)
+        return block_plain(x, w1, ab1, w2, ab2, pool, quantize=quantize,
+                           tc=tc, modes=modes, compute_dtype=compute_dtype)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("the kernel computes in bf16 (or int8)")
+    slab = (mel3_1 or tri_1, mel3_2 or tri_2)
+    if any(slab) and (m % 2 or 64 % m):
+        raise ValueError(f"the mel3 / tri kernel takes M dividing 64, "
+                         f"even; got M={m}")
     wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
     check_device(x, *wk)
     xs, y1, y1q, sx, sy = scratch(b, t, m, cin, cout, tc, quantize,
-                                  x.device)
+                                  x.device, y1_half=quantize and mel3_2)
     out = torch.empty(b, t // pt, m // pm, cout, dtype=torch.bfloat16,
                       device=x.device)
-    fn = _build.function("conv_block", "ttg_conv_block", _ARGS)
-    err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, pt, pm,
-             *(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
-             y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
-             _build.stream())
-    launches += 1
-    _build.check(err, "ttg_conv_block")
+    bufs = (*(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
+            y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
+            _build.stream())
+    if any(slab):
+        name = "ttg_conv_block_mel3"
+        fn = _build.function("conv_block_mel3", name, _SLAB_ARGS)
+        err = fn(int(quantize), int(mel3_1), int(tri_1), int(slab[1]),
+                 int(quantize and mel3_2), x.data_ptr(), b, t, m, cin, cout,
+                 tc, pt, pm, *bufs)
+        launches["conv_block_mel3" if mel3_1 or mel3_2
+                 else "conv_block_tri"] += 1
+    else:
+        name = "ttg_conv_block"
+        fn = _build.function("conv_block", name, _ARGS)
+        err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, pt,
+                 pm, *bufs)
+        launches["conv_block"] += 1
+    _build.check(err, name)
     return out

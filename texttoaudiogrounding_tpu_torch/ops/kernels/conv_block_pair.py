@@ -19,7 +19,6 @@ the plain version (:func:`block2_plain`) for a CPU tensor.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
@@ -28,8 +27,8 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     double_conv_plain,
     fold_bn,
     kernel_weights,
-    over127,
     scratch,
+    window_scale,
 )
 
 __all__ = ["fused_block2_pair", "block2_plain", "fold_bn"]
@@ -89,12 +88,8 @@ def pair_window_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
     mel-pair rows ``[j tc mp - 2 mp - 1, (j tc + tc + 2) mp + 1)``."""
     b, t, m, c = xf.shape
     mp = m // 2
-    rows = xf.abs().reshape(b, t * mp, 2 * c).amax(dim=-1)
-    lead = 2 * mp + 1
-    tail = max(0, nch * tc * mp + 4 * mp + 2 - lead - t * mp)
-    rows = F.pad(rows, (lead, tail))
-    win = rows.unfold(1, (tc + 4) * mp + 2, tc * mp)[:, :nch]
-    return over127(torch.clamp(win.amax(dim=-1), min=1e-6))
+    return window_scale(xf.reshape(b, t, mp, 2 * c), tc, nch, 2 * mp + 1,
+                        (tc + 4) * mp + 2)
 
 
 def block2_plain(x, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
