@@ -7,11 +7,17 @@ Phases, each printing one line:
 
 1. build: compile every kernel of ``texttoaudiogrounding_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print the card's name and
-   power limit as ``nvidia-smi`` reports them;
+   power limit as ``nvidia-smi`` reports them; then the registers, shared
+   memory and spills of each kernel of ``conv_block_v2.cu`` from its
+   ``-Xptxas -v`` log;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
-   kernels at the largest request's bucket (32 clips of 10 s at 32 kHz);
+   kernels at the largest request's bucket (32 clips of 10 s at 32 kHz),
+   rows 3 and 4 (blocks 2-4) in their second design (the wgmma implicit
+   GEMM, ``csrc/conv_block_v2.cu``), int8 held bit for bit to the plain
+   version and to the first design, both designs timed in turns (v1 v2 v2
+   v1) in int8 and bf16 and traced by launch;
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
    with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
    v3, whose walk and dWh product are also timed apart; each gradient
@@ -177,7 +183,7 @@ def kernel_phase(clips: int, rng) -> list:
 
     from texttoaudiogrounding_tpu_torch.ops import frontend
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        conv_block, conv_block1_pair, conv_block_pair, logmel)
+        conv_block1_pair, logmel)
 
     dev = torch.device(DEVICE)
 
@@ -231,72 +237,16 @@ def kernel_phase(clips: int, rng) -> list:
             conv_block1_pair.block1_plain(x1, *w, quantize=False)),
         bound=_bound(x1.numel() * 2 + got.numel() * 2 + _wbytes(w), ops)))
 
-    # ---- block 2: [B, 500, 32, 64] -> [B, 250, 16, 128], int8
-    t2 = t1 // 2
-    x2 = tensor(np.abs(rng.normal(0, 1, (clips, t2, 32, 64))), torch.bfloat16)
-    w = weights(64, 128)
-    tc2 = conv_block_pair.pick_tc_pair(t2, 16, 128, True)
-    got = conv_block_pair.fused_block2_pair(x2, *w, quantize=True)
-    ref = conv_block_pair.block2_plain(x2, *w, quantize=True, tc=tc2)
-    pos = clips * t2 * 32
-    ops = {"int8": 2.0 * pos * 576 * 128 + 2.0 * pos * 1152 * 128}
-    rows.append(dict(
-        name="conv_block_pair",
-        source="texttoaudiogrounding_tpu_torch/csrc/conv_block_pair.cu",
-        replaces="texttoaudiogrounding_tpu/ops/pallas/conv_block_pair.py:211",
-        got=got, ref=ref, tol=("rel_rms", 1e-2),
-        kernel=lambda w=w: conv_block_pair.fused_block2_pair(
-            x2, *w, quantize=True),
-        plain=lambda w=w: conv_block_pair.block2_plain(
-            x2, *w, quantize=True, tc=tc2),
-        bf16=lambda w=w: (
-            conv_block_pair.fused_block2_pair(x2, *w, quantize=False),
-            conv_block_pair.block2_plain(
-                x2, *w, quantize=False,
-                tc=conv_block_pair.pick_tc_pair(t2, 16, 128, False))),
-        bound=_bound(x2.numel() * 2 + got.numel() * 2 + _wbytes(w), ops)))
-
-    # ---- blocks 3 and 4: one kernel, two launches per forward
-    t3 = t2 // 2
-    parts, bf16_34 = [], []
-    for m, cin, cout in ((16, 128, 256), (8, 256, 512)):
-        x = tensor(np.abs(rng.normal(0, 1, (clips, t3, m, cin))),
-                   torch.bfloat16)
-        w = weights(cin, cout)
-        tc = conv_block.pick_tc(t3, m, cin, cout, 1, 2, True)
-        g = conv_block.fused_double_conv_pool(x, *w, (1, 2), quantize=True)
-        r = conv_block.double_conv_plain(x, *w, (1, 2), quantize=True, tc=tc)
-        pos = clips * t3 * m
-        ops = {"int8": 2.0 * pos * 9 * cin * cout
-               + 2.0 * pos * 9 * cout * cout}
-        tc16 = conv_block.pick_tc(t3, m, cin, cout, 1, 2, False)
-        bf16_34.append((
-            conv_block.fused_double_conv_pool(x, *w, (1, 2)).reshape(-1),
-            conv_block.double_conv_plain(x, *w, (1, 2), quantize=False,
-                                         tc=tc16).reshape(-1)))
-        parts.append((x, w, tc, g, r,
-                       _bound(x.numel() * 2 + g.numel() * 2 + _wbytes(w),
-                              ops)))
-    rows.append(dict(
-        name="conv_block",
-        source="texttoaudiogrounding_tpu_torch/csrc/conv_block.cu",
-        replaces="texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370",
-        got=torch.cat([p[3].reshape(-1) for p in parts]),
-        ref=torch.cat([p[4].reshape(-1) for p in parts]),
-        tol=("rel_rms", 1e-2),
-        kernel=lambda: [conv_block.fused_double_conv_pool(
-            p[0], *p[1], (1, 2), quantize=True) for p in parts],
-        plain=lambda: [conv_block.double_conv_plain(
-            p[0], *p[1], (1, 2), quantize=True, tc=p[2]) for p in parts],
-        bf16=lambda: (torch.cat([b[0] for b in bf16_34]),
-                      torch.cat([b[1] for b in bf16_34])),
-        bound=(sum(p[5][0] for p in parts), parts[1][5][1])))
+    # ---- blocks 2-4 in the second design (csrc/conv_block_v2.cu), held
+    # bit for bit to the plain version and the first design, timed beside
+    # the first in turns and traced by launch, int8 and bf16
+    rows += redesigned_rows(clips, rng, tensor, weights, t1 // 2)
 
     out = []
     for row in rows:
         max_abs, rel = _err(row["got"], row["ref"])
         kind, tol = row["tol"]
-        ok = (max_abs if kind == "max_abs_db" else rel) <= tol
+        ok = (max_abs if kind != "rel_rms" else rel) <= tol
         if not ok:
             raise AssertionError(f"{row['name']}: kernel disagrees with its "
                                  f"plain version: max_abs {max_abs} "
@@ -308,7 +258,8 @@ def kernel_phase(clips: int, rng) -> list:
                 raise AssertionError(f"{row['name']} (bf16): kernel "
                                      f"disagrees with its plain version: "
                                      f"rel_rms {bf16_rel} > 0.01")
-        kernel_ms = _cuda_ms(row["kernel"], 10)
+        extra = row["designs"]() if "designs" in row else {}
+        kernel_ms = extra.get("ms") or _cuda_ms(row["kernel"], 10)
         plain_ms = _cuda_ms(row["plain"], 3)
         out.append({
             "name": row["name"], "route": "cuda", "source": row["source"],
@@ -317,8 +268,136 @@ def kernel_phase(clips: int, rng) -> list:
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": None, "clips": clips,
-            "bf16_mode_rel_rms_err": bf16_rel})
+            "bf16_mode_rel_rms_err": bf16_rel, **extra})
     return out
+
+
+def _turns(fns: dict) -> dict:
+    """ms per call of two designs {"v1": fn, "v2": fn} timed in turns v1 v2
+    v2 v1 (10 calls each): the mean of each design's two runs and all
+    four."""
+    runs = [(k, _cuda_ms(fns[k], 10)) for k in ("v1", "v2", "v2", "v1")]
+    return {k: sum(ms for n, ms in runs if n == k) / 2 for k in fns} | {
+        "runs": runs}
+
+
+def redesigned_rows(clips: int, rng, tensor, weights, t2: int) -> list:
+    """Rows 3 (block 2) and 4 (blocks 3 and 4) at the served shapes, on the
+    second design: int8 held to the plain version and to the first design
+    with max |d| = 0, bf16 to the plain version within 1e-2 relative RMS;
+    both designs timed in turns (v1 v2 v2 v1) in int8 and bf16 and traced
+    by launch, each with its weights laid out once, as the model keeps
+    them."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        conv_block, conv_block_pair)
+
+    def block(x, w, pool, pair):
+        # (v2, v1, plain, tc) for int8 (q True) and bf16
+        out = {}
+        for q in (True, False):
+            wk = conv_block.kernel_weights(*w, q)
+            if pair:
+                tc = conv_block_pair.pick_tc_pair(x.shape[1],
+                                                  x.shape[2] // 2,
+                                                  wk[0].shape[0], q)
+                out[q] = (lambda x=x, wk=wk, q=q, tc=tc:
+                          conv_block_pair.fused_block2_pair(
+                              x, *w, quantize=q, tc=tc, prepared=wk),
+                          lambda x=x, wk=wk, q=q, tc=tc:
+                          conv_block_pair._launch_v1(x, wk, q, tc),
+                          lambda x=x, q=q, tc=tc:
+                          conv_block_pair.block2_plain(x, *w, quantize=q,
+                                                       tc=tc), tc)
+            else:
+                tc = conv_block.pick_tc(x.shape[1], x.shape[2], x.shape[3],
+                                        wk[0].shape[0], *pool, q)
+                out[q] = (lambda x=x, wk=wk, q=q, tc=tc:
+                          conv_block.fused_double_conv_pool(
+                              x, *w, pool, quantize=q, tc=tc, prepared=wk),
+                          lambda x=x, wk=wk, q=q, tc=tc:
+                          conv_block._fused_double_conv_pool_v1(
+                              x, *w, pool, quantize=q, tc=tc, prepared=wk),
+                          lambda x=x, q=q, tc=tc:
+                          conv_block.double_conv_plain(
+                              x, *w, pool, quantize=q, tc=tc), tc)
+        return out
+
+    # block 2: [B, 500, 32, 64] -> [B, 250, 16, 128]
+    x2 = tensor(np.abs(rng.normal(0, 1, (clips, t2, 32, 64))),
+                torch.bfloat16)
+    w2 = weights(64, 128)
+    pos = clips * t2 * 32
+    specs = [("conv_block_pair", "conv_block_pair.py:211", [
+        (x2, w2, (2, 2), True,
+         {"int8": 2.0 * pos * 576 * 128 + 2.0 * pos * 1152 * 128})])]
+    # blocks 3 and 4: one kernel, two launches per forward
+    t3, parts = t2 // 2, []
+    for m, cin, cout in ((16, 128, 256), (8, 256, 512)):
+        x = tensor(np.abs(rng.normal(0, 1, (clips, t3, m, cin))),
+                   torch.bfloat16)
+        pos = clips * t3 * m
+        parts.append((x, weights(cin, cout), (1, 2), False,
+                      {"int8": 2.0 * pos * 9 * (cin * cout + cout * cout)}))
+    specs.append(("conv_block", "conv_block.py:370", parts))
+
+    rows = []
+    for name, replaces, blocks in specs:
+        fns = [block(*b[:4]) for b in blocks]
+
+        def each(q, k, fns=fns):
+            return lambda: [f[q][k]() for f in fns]
+
+        got = [f[True][0]() for f in fns]
+        ref = [f[True][2]() for f in fns]
+        v1 = [f[True][1]() for f in fns]
+        vs_v1 = max(_err(g, r)[0] for g, r in zip(got, v1))
+        if vs_v1 != 0.0:
+            raise AssertionError(f"{name}: the second design differs from "
+                                 f"the first: max_abs {vs_v1}")
+        bound = [_bound(b[0].numel() * 2 + g.numel() * 2 + _wbytes(b[1]),
+                        b[4]) for b, g in zip(blocks, got)]
+
+        def both_designs(fns=fns, name=name, vs_v1=vs_v1):
+            t8 = _turns({"v1": each(True, 1, fns), "v2": each(True, 0, fns)})
+            t16 = _turns({"v1": each(False, 1, fns),
+                          "v2": each(False, 0, fns)})
+            g16 = [f[False][0]() for f in fns]
+            r16 = [f[False][1]() for f in fns]
+            traces = {f"{d}_{k}_trace": _trace(each(q, i, fns), tm[d],
+                                                by_launch=True)
+                      for q, k, tm in ((True, "int8", t8),
+                                       (False, "bf16", t16))
+                      for d, i in (("v2", 0), ("v1", 1))}
+            return {"ms": t8["v2"], "v1_ms": t8["v1"], "turns_ms": t8["runs"],
+                    "bf16_ms": t16["v2"], "v1_bf16_ms": t16["v1"],
+                    "bf16_turns_ms": t16["runs"],
+                    "v1_max_abs_err": vs_v1,
+                    "bf16_v1_rel_rms": max(_err(g, r)[1]
+                                           for g, r in zip(g16, r16)),
+                    "tc": [f[True][3] for f in fns],
+                    "bf16_tc": [f[False][3] for f in fns],
+                    "v1_source": "texttoaudiogrounding_tpu_torch/csrc/"
+                                 + ("conv_block_pair.cu"
+                                    if name == "conv_block_pair"
+                                    else "conv_block.cu"),
+                    **traces}
+
+        rows.append(dict(
+            name=name,
+            source="texttoaudiogrounding_tpu_torch/csrc/conv_block_v2.cu",
+            replaces=f"texttoaudiogrounding_tpu/ops/pallas/{replaces}",
+            got=torch.cat([g.reshape(-1) for g in got]),
+            ref=torch.cat([r.reshape(-1) for r in ref]),
+            tol=("max_abs", 0.0), kernel=each(True, 0), plain=each(True, 2),
+            bf16=lambda fns=fns: (
+                torch.cat([f[False][0]().reshape(-1) for f in fns]),
+                torch.cat([f[False][2]().reshape(-1) for f in fns])),
+            designs=both_designs,
+            bound=(sum(b[0] for b in bound), bound[-1][1])))
+    return rows
 
 
 GRU_T, GRU_H, GRU_IN = 250, 256, 512     # the BiGRU at the main path's shapes
@@ -1584,9 +1663,11 @@ def _counter_modules() -> tuple:
 
 
 def _counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name (the first
+    design of row 3 counts in ``conv_block_pair.launches_v1``)."""
     ints, dicts = _counter_modules()
     out = {name: mod.launches for name, mod in ints.items()}
+    out["conv_block_pair_v1"] = ints["conv_block_pair"].launches_v1
     for mod in dicts:
         out.update(mod.launches)
     return out
@@ -1596,6 +1677,7 @@ def _reset_counts() -> None:
     ints, dicts = _counter_modules()
     for mod in ints.values():
         mod.launches = 0
+    ints["conv_block_pair"].launches_v1 = 0
     for mod in dicts:
         for k in mod.launches:
             mod.launches[k] = 0
@@ -2071,7 +2153,8 @@ _PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
                  "clip_scale_kernel", "gru_fwd_step",
                  "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_",
                  "wino_", "logmel_v3_kernel", "logmel_v4_kernel",
-                 "slab_gemm")
+                 "slab_gemm", "igemm_kernel", "window_max_kernel",
+                 "pad_quant_kernel")
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
@@ -2141,6 +2224,49 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
                     for k, (ms, c) in top]}
 
 
+def _ptxas(source: str) -> list:
+    """Registers, static shared memory, stack and spills of each kernel of
+    ``csrc/<source>.cu`` from its ``nvcc -Xptxas=-v`` build log, with the
+    GEMM's dynamic shared memory (``igemm_smem``: 4 ring stages of
+    (128 + BN) rows x 64 bytes, and 1024 bytes to align them)."""
+    import re
+    import shutil
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import _build
+    log = _build._lib_path(_build.CSRC / f"{source}.cu").with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    names = [k["function"] for k in out]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    for k, name in zip(out, names):
+        k["function"] = name
+        bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)>", name)
+        if bn:
+            k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2175,7 +2301,10 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": [s.name for s in _build.sources()],
                       "card": smi}), flush=True)
-    report = {"card": smi, "build_s": build_s}
+    ptxas = _ptxas("conv_block_v2")
+    print(json.dumps({"phase": "ptxas", "source": "conv_block_v2.cu",
+                      "kernels": ptxas}), flush=True)
+    report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)
     kernels = (kernel_phase(KERNEL_CLIPS, rng)
                + gru_kernel_phase(KERNEL_CLIPS, rng)

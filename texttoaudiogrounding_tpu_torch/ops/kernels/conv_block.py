@@ -1,4 +1,4 @@
-"""Fused PANNs conv block (serving path): ``csrc/conv_block.cu`` and
+"""Fused PANNs conv block (serving path): ``csrc/conv_block_v2.cu`` and
 ``csrc/conv_block_mel3.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370``:
@@ -36,7 +36,12 @@ own ``tc`` and with it its own int8 scales.
 
 :func:`fused_double_conv_pool` launches a kernel for a CUDA tensor and
 runs :func:`block_plain` for a CPU tensor: the same chunked arithmetic in
-plain PyTorch (:func:`double_conv_plain`).
+plain PyTorch (:func:`double_conv_plain`).  In direct9 the kernel is the
+second design, the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``;
+the first design (``csrc/conv_block.cu``, WMMA tiles on one-block-per-group
+gathers) gives the same int8 result bit for bit and is reachable only
+through :func:`_fused_double_conv_pool_v1`, which ``chip_smoke.py`` times
+beside it.
 """
 
 from __future__ import annotations
@@ -47,8 +52,10 @@ import torch.nn.functional as F
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
 # kernel launches through fused_double_conv_pool: direct9 (the serving
-# path), and the slab kernel with a mel3 conv, or with tri only
-launches = {"conv_block": 0, "conv_block_mel3": 0, "conv_block_tri": 0}
+# path, second design), and the slab kernel with a mel3 conv, or with tri
+# only; and the first design's direct9 through _fused_double_conv_pool_v1
+launches = {"conv_block": 0, "conv_block_mel3": 0, "conv_block_tri": 0,
+            "conv_block_v1": 0}
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -396,10 +403,42 @@ def scratch(b, t, m, cin, cout, tc, quantize, device,
             torch.empty(g, device=device), torch.empty(g, device=device))
 
 
+def scratch_v2(b, t, m, cin, cout, tc, quantize, device,
+               per_clip: bool) -> tuple:
+    """(xs, y1, y1q, smax) device buffers of the second design: xs and y1q
+    with one zero mel column on each side (``[G, rows, M + 2, C]``); y1 f32
+    ``[G, tc + 2, M, Cout]`` for int8, else the mel-padded bf16 conv2
+    input; smax the x scale maxes (one a clip with ``per_clip``, else one a
+    group), then the y1 maxes, as float bits."""
+    g = b * -(-t // tc)
+    act = torch.int8 if quantize else torch.bfloat16
+    xs = torch.empty(g, tc + 4, m + 2, cin, dtype=act, device=device)
+    if quantize:
+        y1 = torch.empty(g, tc + 2, m, cout, device=device)
+        y1q = torch.empty(g, tc + 2, m + 2, cout, dtype=torch.int8,
+                          device=device)
+        smax = torch.empty((b if per_clip else g) + g, dtype=torch.int32,
+                           device=device)
+    else:
+        y1 = torch.empty(g, tc + 2, m + 2, cout, dtype=torch.bfloat16,
+                         device=device)
+        y1q = smax = torch.empty(1, dtype=torch.int32, device=device)
+    return xs, y1, y1q, smax
+
+
+def check_v2_pool(m: int, pool) -> None:
+    """The second design pools time pairs inside a thread: a 128-row tile
+    holds whole windows of 8-mel groups, so M is 8, 16, 32 or 64."""
+    if pool[0] == 2 and m not in (8, 16, 32, 64):
+        raise ValueError(f"the kernel takes time-pair pooling for M in "
+                         f"(8, 16, 32, 64); got M={m}")
+
+
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SLAB_ARGS = [_I] * 5 + _ARGS[1:]
+_V2_ARGS = _ARGS[:16] + [_P] * 6
 
 
 def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
@@ -439,14 +478,14 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                          f"even; got M={m}")
     wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
     check_device(x, *wk)
-    xs, y1, y1q, sx, sy = scratch(b, t, m, cin, cout, tc, quantize,
-                                  x.device, y1_half=quantize and mel3_2)
     out = torch.empty(b, t // pt, m // pm, cout, dtype=torch.bfloat16,
                       device=x.device)
-    bufs = (*(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
-            y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
-            _build.stream())
     if any(slab):
+        bufs = (*(v.data_ptr() for v in wk),
+                *(v.data_ptr() for v in scratch(
+                    b, t, m, cin, cout, tc, quantize, x.device,
+                    y1_half=quantize and mel3_2)),
+                out.data_ptr(), _build.stream())
         name = "ttg_conv_block_mel3"
         fn = _build.function("conv_block_mel3", name, _SLAB_ARGS)
         err = fn(int(quantize), int(mel3_1), int(tri_1), int(slab[1]),
@@ -455,10 +494,46 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
         launches["conv_block_mel3" if mel3_1 or mel3_2
                  else "conv_block_tri"] += 1
     else:
-        name = "ttg_conv_block"
-        fn = _build.function("conv_block", name, _ARGS)
+        check_v2_pool(m, pool)
+        xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
+                                       x.device, per_clip=True)
+        name = "ttg_conv_block_v2"
+        fn = _build.function("conv_block_v2", name, _V2_ARGS)
         err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, pt,
-                 pm, *bufs)
+                 pm, *(v.data_ptr() for v in wk), xs.data_ptr(),
+                 y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(),
+                 out.data_ptr(), _build.stream())
         launches["conv_block"] += 1
     _build.check(err, name)
+    return out
+
+
+def _fused_double_conv_pool_v1(x: torch.Tensor, w1: torch.Tensor,
+                               ab1: tuple, w2: torch.Tensor, ab2: tuple,
+                               pool: tuple = (2, 2), *,
+                               quantize: bool = False,
+                               tc: int | None = None,
+                               prepared: tuple | None = None
+                               ) -> torch.Tensor:
+    """The first design of direct9 (``csrc/conv_block.cu``) on a CUDA
+    tensor, arguments as :func:`fused_double_conv_pool`; nothing served
+    calls it.  ``chip_smoke.py`` holds the second design to it."""
+    b, t, m, _ = x.shape
+    cout = w1.shape[-1]
+    tc = tc or block_tc(x.shape, cout, pool, quantize, (False,) * 4)
+    check_block_args(x, w1, ab1, w2, ab2, pool, tc)
+    if not x.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
+    wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
+    check_device(x, *wk)
+    out = torch.empty(b, t // pool[0], m // pool[1], cout,
+                      dtype=torch.bfloat16, device=x.device)
+    fn = _build.function("conv_block", "ttg_conv_block", _ARGS)
+    err = fn(int(quantize), x.data_ptr(), b, t, m, x.shape[3], cout, tc,
+             *pool, *(v.data_ptr() for v in wk),
+             *(v.data_ptr() for v in scratch(b, t, m, x.shape[3], cout, tc,
+                                             quantize, x.device)),
+             out.data_ptr(), _build.stream())
+    launches["conv_block_v1"] += 1
+    _build.check(err, "ttg_conv_block")
     return out

@@ -1,4 +1,4 @@
-"""Fused PANNs block 2 (64 → C → C, 2×2 pool): ``csrc/conv_block_pair.cu``.
+"""Fused PANNs block 2 (64 → C → C, 2×2 pool): ``csrc/conv_block_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block_pair.py:211
 fused_block2_pair``.  The TPU kernel's mel-pair lane packing and parity
@@ -13,7 +13,11 @@ quantized input.  The y1 scale is per (clip, chunk) over conv1 rows at
 times ``[t0 - 1, t0 + tc + 1)``, out-of-clip rows zeroed.
 
 :func:`fused_block2_pair` launches the kernel for a CUDA tensor and runs
-the plain version (:func:`block2_plain`) for a CPU tensor.
+the plain version (:func:`block2_plain`) for a CPU tensor.  The kernel is
+the second design, the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``
+(``ttg_conv_block_pair_v2``); the first design (``csrc/conv_block_pair.cu``)
+gives the same int8 result bit for bit and is reachable only through
+:func:`_launch_v1`, which ``chip_smoke.py`` times beside it.
 """
 
 from __future__ import annotations
@@ -24,16 +28,19 @@ from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     check_block_args,
     check_device,
+    check_v2_pool,
     double_conv_plain,
     fold_bn,
     kernel_weights,
     scratch,
+    scratch_v2,
     window_scale,
 )
 
 __all__ = ["fused_block2_pair", "block2_plain", "fold_bn"]
 
 launches = 0          # kernel launches through fused_block2_pair
+launches_v1 = 0       # the first design's, through _launch_v1
 
 
 def _pair_vmem_bytes(t: int, mp: int, tc: int, cout: int,
@@ -105,6 +112,7 @@ def block2_plain(x, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _P, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_V2_ARGS = _ARGS[:13] + [_P] * 6
 
 
 def fused_block2_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
@@ -136,8 +144,31 @@ def fused_block2_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
 
 def launch(x: torch.Tensor, wk: tuple, quantize: bool,
            tc: int) -> torch.Tensor:
-    """One launch of ``ttg_conv_block_pair`` on checked arguments; ``wk``
+    """One launch of ``ttg_conv_block_pair_v2`` on checked arguments; ``wk``
     is ``kernel_weights`` of the block's weights.  The caller counts it."""
+    b, t, m, cin = x.shape
+    cout = wk[0].shape[0]
+    check_device(x, *wk)
+    check_v2_pool(m, (2, 2))
+    xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
+                                   x.device, per_clip=False)
+    out = torch.empty(b, t // 2, m // 2, cout, dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.function("conv_block_v2", "ttg_conv_block_pair_v2",
+                         _V2_ARGS)
+    err = fn(int(quantize), x.data_ptr(), b, t, m, cout, tc,
+             *(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
+             y1q.data_ptr(), smax.data_ptr(), out.data_ptr(),
+             _build.stream())
+    _build.check(err, "ttg_conv_block_pair_v2")
+    return out
+
+
+def _launch_v1(x: torch.Tensor, wk: tuple, quantize: bool,
+               tc: int) -> torch.Tensor:
+    """:func:`launch` on the first design (``ttg_conv_block_pair``), counted
+    in ``launches_v1``; nothing served calls it."""
+    global launches_v1
     b, t, m, cin = x.shape
     cout = wk[0].shape[0]
     check_device(x, *wk)
@@ -150,5 +181,6 @@ def launch(x: torch.Tensor, wk: tuple, quantize: bool,
              *(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
              y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
              _build.stream())
+    launches_v1 += 1
     _build.check(err, "ttg_conv_block_pair")
     return out
