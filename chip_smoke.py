@@ -8,16 +8,22 @@ Phases, each printing one line:
 1. build: compile every kernel of ``texttoaudiogrounding_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print the card's name and
    power limit as ``nvidia-smi`` reports them; then the registers, shared
-   memory and spills of each kernel of ``conv_block_v2.cu`` from its
-   ``-Xptxas -v`` log;
+   memory and spills of each kernel of the second designs
+   (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``) from
+   their ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
    kernels at the largest request's bucket (32 clips of 10 s at 32 kHz),
-   rows 3 and 4 (blocks 2-4) in their second design (the wgmma implicit
-   GEMM, ``csrc/conv_block_v2.cu``), int8 held bit for bit to the plain
-   version and to the first design, both designs timed in turns (v1 v2 v2
-   v1) in int8 and bf16 and traced by launch;
+   all in their second designs: row 1 (the log-mel, ``logmel_v2.cu``,
+   within 2e-3 dB, its gap to the f64 log-mel reported), row 2 (block 1,
+   ``conv_block1_v2.cu``, in its four modes: int8 ``True`` and
+   ``single`` bit for bit to the plain version and the first design, the
+   bf16 modes within 1e-2 relative RMS), rows 3 and 4 (blocks 2-4, the
+   wgmma implicit GEMM, ``conv_block_v2.cu``), int8 held bit for bit to
+   the plain version and to the first design; both designs timed in turns
+   (v1 v2 v2 v1) in every mode and traced by launch, rows 1 and 2 beside a
+   PyTorch chain (``torch.stft``; cuDNN bf16 convolutions);
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
    with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
    v3, whose walk and dWh product are also timed apart; each gradient
@@ -65,12 +71,15 @@ Phases, each printing one line:
    weights, beside direct9 on the same input, tri also at direct9's chunk
    bit for bit against the row-4 kernel, each traced by launch; and the
    log-mel variants v3 and v4 on that request's waveform beside row 1's
-   kernel.  Each design runs once (its launches counted, exactly), then
-   each int8 kernel is held bit for bit against its plain version and its
+   two designs (v4 held to the first, whose tile code it shares).  Each
+   design runs once (its launches counted, exactly), then each int8
+   kernel is held bit for bit against its plain version and its
    bf16 mode within
    1e-2 relative RMS (v3 within 0.035 dB max and 1e-4 dB mean of its plain
-   version, limits that row 1's kernel must miss; v4 bit for bit against
-   row 1's kernel), is timed with CUDA events with its weights laid out
+   version, limits that row 1's first design must miss; v4 bit for bit
+   against row 1's first design; row 2's int8 records also bit for bit
+   against row 2's first design), is timed with CUDA events with its
+   weights laid out
    once, as the routes keep them, and each design's relative RMS to the
    f32 plain block (the f64 log-mel) on the same input is reported;
 5. train: ``StrongRunner.fit`` on the strong-supervision config's model
@@ -124,6 +133,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -182,8 +192,6 @@ def kernel_phase(clips: int, rng) -> list:
     import torch
 
     from texttoaudiogrounding_tpu_torch.ops import frontend
-    from texttoaudiogrounding_tpu_torch.ops.kernels import (
-        conv_block1_pair, logmel)
 
     dev = torch.device(DEVICE)
 
@@ -204,38 +212,14 @@ def kernel_phase(clips: int, rng) -> list:
     cfg = frontend.cnn8rnn_mel_config(SR)
     rows = []
 
-    # ---- log-mel
+    # ---- rows 1 (log-mel) and 2 (block 1) in their second designs
+    # (csrc/logmel_v2.cu, csrc/conv_block1_v2.cu), held to the plain
+    # versions and beside the first designs, timed in turns and traced by
+    # launch, with a PyTorch chain as a yardstick
     wave = tensor(rng.normal(0, 0.1, (clips, n)))
-    got = logmel.fused_log_mel_spectrogram(wave, cfg)
-    ref = logmel.log_mel_plain(wave, cfg)
-    ops = {"bf16": 2.0 * clips * t1 * 1024 * 1024,
-           "f32": 2.0 * clips * t1 * 512 * 64 + 3.0 * clips * t1 * 512}
-    rows.append(dict(
-        name="logmel", source="texttoaudiogrounding_tpu_torch/csrc/logmel.cu",
-        replaces="texttoaudiogrounding_tpu/ops/pallas/logmel.py:438",
-        got=got, ref=ref, tol=("max_abs_db", 2e-3),
-        kernel=lambda: logmel.fused_log_mel_spectrogram(wave, cfg),
-        plain=lambda: logmel.log_mel_plain(wave, cfg),
-        bound=_bound(wave.numel() * 4 + got.numel() * 4, ops)))
-
-    # ---- block 1: [B, 1001, 64] -> [B, 500, 32, 64], int8 conv1
+    rows.append(_logmel_row(wave, cfg, clips, t1))
     x1 = tensor(rng.normal(0, 1, (clips, t1, 64)), torch.bfloat16)
-    w = weights(1, 64)
-    got = conv_block1_pair.fused_block1_pair(x1, *w, quantize="conv1")
-    ref = conv_block1_pair.block1_plain(x1, *w, quantize="conv1")
-    ops = {"int8": 2.0 * clips * t1 * 64 * 9 * 64,
-           "bf16": 2.0 * clips * (t1 // 2 * 2) * 64 * 576 * 64}
-    rows.append(dict(
-        name="conv_block1_pair",
-        source="texttoaudiogrounding_tpu_torch/csrc/conv_block1_pair.cu",
-        replaces="texttoaudiogrounding_tpu/ops/pallas/conv_block1_pair.py:346",
-        got=got, ref=ref, tol=("rel_rms", 1e-2),
-        kernel=lambda w=w: conv_block1_pair.fused_block1_pair(x1, *w),
-        plain=lambda w=w: conv_block1_pair.block1_plain(x1, *w),
-        bf16=lambda w=w: (
-            conv_block1_pair.fused_block1_pair(x1, *w, quantize=False),
-            conv_block1_pair.block1_plain(x1, *w, quantize=False)),
-        bound=_bound(x1.numel() * 2 + got.numel() * 2 + _wbytes(w), ops)))
+    rows.append(_block1_row(x1, weights(1, 64), clips, t1))
 
     # ---- blocks 2-4 in the second design (csrc/conv_block_v2.cu), held
     # bit for bit to the plain version and the first design, timed beside
@@ -270,6 +254,180 @@ def kernel_phase(clips: int, rng) -> list:
             "library_ms": None, "clips": clips,
             "bf16_mode_rel_rms_err": bf16_rel, **extra})
     return out
+
+
+def _logmel_ops(cfg, frames: int) -> tuple:
+    """(DFT, power, mel) operations that the log-mel needs on ``frames``
+    frames: the DFT's re and im products over K = n_fft for the bins that
+    some mel filter weights, their power, and each mel's products over its
+    nonzero filter weights only (``logmel.mel_bands``)."""
+    import numpy as np
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import logmel
+    fb = logmel._trimmed_basis(cfg)[2]
+    bins = int(np.count_nonzero(fb.any(axis=1)))
+    nnz = logmel.mel_bands(fb)[1].size
+    return (2.0 * frames * cfg.n_fft * 2 * bins, 3.0 * frames * bins,
+            2.0 * frames * nnz)
+
+
+def _logmel_chain(cfg, device):
+    """The log-mel as a PyTorch chain in f32: ``torch.stft`` (cuFFT, the
+    reflect-padded Hann frames) → power → ``@`` the slaney filterbank →
+    dB; a yardstick that the port never calls."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops import frontend
+    win = torch.from_numpy(frontend._padded_window(cfg)).to(
+        device, torch.float32)
+    fb = torch.from_numpy(frontend.mel_filterbank(cfg)).to(device)
+
+    def chain(wave):
+        spec = torch.stft(wave, cfg.n_fft, cfg.hop_length, cfg.win_length,
+                          window=win, center=True, pad_mode="reflect",
+                          return_complex=True)
+        power = spec.real ** 2 + spec.imag ** 2          # [B, F, T]
+        mel = torch.matmul(power.transpose(1, 2), fb)
+        return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
+    return chain
+
+
+def _logmel_row(wave, cfg, clips: int, t1: int) -> dict:
+    """Row 1 on its second design, within 2e-3 dB of its plain version;
+    both designs timed in turns (v1 v2 v2 v1) and traced by launch, each
+    one's gap to the f64 log-mel, and the ``torch.stft`` chain beside."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import logmel
+
+    v2 = lambda: logmel.fused_log_mel_spectrogram(wave, cfg)  # noqa: E731
+    v1 = lambda: logmel._fused_log_mel_spectrogram_v1(wave, cfg)  # noqa: E731
+    got = v2()
+    dft, power, mel = _logmel_ops(cfg, clips * t1)
+    ops = {"bf16": dft, "f32": power + mel}
+    chain = _logmel_chain(cfg, wave.device)
+
+    def designs():
+        f64 = _log_mel_f64(wave, cfg)
+        first = v1()
+        turns = _turns({"v1": v1, "v2": v2})
+        return {"ms": turns["v2"], "v1_ms": turns["v1"],
+                "turns_ms": turns["runs"],
+                "v1_max_abs_err": _err(got, first)[0],
+                "max_abs_vs_f64": _err(got, f64)[0],
+                "v1_max_abs_vs_f64": _err(first, f64)[0],
+                "chain_ms": _cuda_ms(lambda: chain(wave), 10),
+                "chain_max_abs_vs_f64": _err(chain(wave), f64)[0],
+                "chain": "torch.stft (cuFFT) -> power -> @ fb -> dB, f32",
+                "v1_source": "texttoaudiogrounding_tpu_torch/csrc/logmel.cu",
+                "v2_trace": _trace(v2, turns["v2"], by_launch=True),
+                "v1_trace": _trace(v1, turns["v1"], by_launch=True)}
+
+    return dict(
+        name="logmel",
+        source="texttoaudiogrounding_tpu_torch/csrc/logmel_v2.cu",
+        replaces="texttoaudiogrounding_tpu/ops/pallas/logmel.py:438",
+        got=got, ref=logmel.log_mel_plain(wave, cfg),
+        tol=("max_abs_db", 2e-3), kernel=v2,
+        plain=lambda: logmel.log_mel_plain(wave, cfg), designs=designs,
+        bound=_bound(wave.numel() * 4 + got.numel() * 4, ops))
+
+
+def _block1_chain(w):
+    """Block 1's bf16 mode as a PyTorch chain: cuDNN bf16 ``F.conv2d``,
+    the BN affine and ReLU, again, then ``avg_pool2d + max_pool2d``; a
+    yardstick that the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    w1, (a1, b1), w2, (a2, b2) = w
+    k1 = w1.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    k2 = w2.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    aff = [(a.to(torch.bfloat16)[:, None, None], b.to(torch.bfloat16)[
+        :, None, None]) for a, b in ((a1, b1), (a2, b2))]
+
+    def chain(x):
+        y = F.conv2d(x[:, None], k1, padding=1)
+        y = torch.relu(y * aff[0][0] + aff[0][1])
+        y = F.conv2d(y, k2, padding=1)
+        y = torch.relu(y * aff[1][0] + aff[1][1])
+        return F.avg_pool2d(y, 2) + F.max_pool2d(y, 2)
+    return chain
+
+
+def _block1_row(x1, w, clips: int, t1: int) -> dict:
+    """Row 2 on its second design in the served ``"conv1"`` mode (within
+    1e-2 relative RMS of its plain version, the gap to the first design
+    reported), ``False`` likewise, ``True`` and ``single`` bit for bit to
+    the plain version and the first design; both designs timed in turns in
+    every mode with the weights laid out once, traced by launch in
+    ``"conv1"`` and ``True``, and the cuDNN bf16 chain beside."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block1_pair
+
+    modes = {"conv1": ("conv1", "triple"), "bf16": (False, "triple"),
+             "int8": (True, "triple"), "single": (True, "single")}
+    prep = {q: conv_block1_pair.kernel_weights(*w, q)
+            for q in ("conv1", False, True)}
+
+    def fn(design, key):
+        q, mode = modes[key]
+        run = (conv_block1_pair.fused_block1_pair if design == "v2"
+               else conv_block1_pair._fused_block1_pair_v1)
+        return lambda: run(x1, *w, quantize=q, mode=mode, prepared=prep[q])
+
+    got = fn("v2", "conv1")()
+    ops = {"int8": 2.0 * clips * t1 * 64 * 9 * 64,
+           "bf16": 2.0 * clips * (t1 // 2 * 2) * 64 * 576 * 64}
+    chain = _block1_chain(w)
+
+    def designs():
+        out = {}
+        for key, (q, mode) in modes.items():
+            g2, g1 = fn("v2", key)(), fn("v1", key)()
+            plain = conv_block1_pair.block1_plain(x1, *w, quantize=q,
+                                                  mode=mode)
+            if q is True and (_err(g2, plain)[0] or _err(g2, g1)[0]):
+                raise AssertionError(f"conv_block1_pair {key}: the second "
+                                     f"design differs from the plain "
+                                     f"version or the first: "
+                                     f"{_err(g2, plain)}, {_err(g2, g1)}")
+            rel = _err(g2, plain)[1]
+            if rel > 1e-2:
+                raise AssertionError(f"conv_block1_pair {key}: rel_rms "
+                                     f"{rel} to its plain version > 0.01")
+            turns = _turns({"v1": fn("v1", key), "v2": fn("v2", key)})
+            out[key] = {"ms": turns["v2"], "v1_ms": turns["v1"],
+                        "turns_ms": turns["runs"],
+                        "max_abs_err": _err(g2, plain)[0],
+                        "rel_rms_err": rel,
+                        "v1_max_abs_err": _err(g2, g1)[0],
+                        "v1_rel_rms_err": _err(g2, g1)[1]}
+            if key in ("conv1", "int8"):
+                for d in ("v2", "v1"):
+                    out[key][f"{d}_trace"] = _trace(fn(d, key), turns[d],
+                                                    by_launch=True)
+        c16 = chain(x1)
+        return {"ms": out["conv1"]["ms"], "v1_ms": out["conv1"]["v1_ms"],
+                "modes": out,
+                "chain_ms": _cuda_ms(lambda: chain(x1), 10),
+                "chain_rel_rms_vs_bf16_plain": _err(
+                    c16.permute(0, 2, 3, 1), conv_block1_pair.block1_plain(
+                        x1, *w, quantize=False))[1],
+                "chain": "cuDNN bf16 F.conv2d -> affine -> ReLU, twice -> "
+                         "avg_pool2d + max_pool2d",
+                "v1_source": "texttoaudiogrounding_tpu_torch/csrc/"
+                             "conv_block1_pair.cu"}
+
+    return dict(
+        name="conv_block1_pair",
+        source="texttoaudiogrounding_tpu_torch/csrc/conv_block1_v2.cu",
+        replaces="texttoaudiogrounding_tpu/ops/pallas/conv_block1_pair.py:346",
+        got=got, ref=conv_block1_pair.block1_plain(x1, *w, quantize="conv1"),
+        tol=("rel_rms", 1e-2), kernel=fn("v2", "conv1"),
+        plain=lambda: conv_block1_pair.block1_plain(x1, *w),
+        bf16=lambda: (fn("v2", "bf16")(), conv_block1_pair.block1_plain(
+            x1, *w, quantize=False)),
+        designs=designs,
+        bound=_bound(x1.numel() * 2 + got.numel() * 2 + _wbytes(w), ops))
 
 
 def _turns(fns: dict) -> dict:
@@ -1241,6 +1399,20 @@ def _block12_designs(x1, y1, enc) -> dict:
     b2_ops = {"int8": 2.0 * pos2 * 576 * 128 + 2.0 * pos2 * 1152 * 128}
 
     def row2(mode, line):
+        def first():
+            return conv_block1_pair._fused_block1_pair_v1(
+                x1, *b1w, quantize=True, tc=48, mode=mode,
+                prepared=prep["b1", True])
+
+        def check(out, target):
+            # bit for bit to the plain version and to the first design
+            errs = _bit_exact(out, target)
+            vs_v1 = _err(out, first())[0]
+            if vs_v1 != 0.0:
+                raise AssertionError(f"differs from the first design: "
+                                     f"max_abs {vs_v1}")
+            return {**errs, "v1_max_abs_err": vs_v1}
+
         return _design(**both(
             lambda q: conv_block1_pair.fused_block1_pair(
                 x1, *b1w, quantize=q, tc=48, mode=mode,
@@ -1248,9 +1420,11 @@ def _block12_designs(x1, y1, enc) -> dict:
             lambda q: conv_block1_pair.block1_plain(
                 x1, *b1w, quantize=q, tc=48, mode=mode),
             ref=f32_1, ops=b1_ops, in_bytes=b1_in,
-            source="conv_block1_pair.cu",
+            source="conv_block1_v2.cu", check=check,
+            tolerance=_DESIGN_TOL + "; int8 max_abs == 0 to the first "
+                      "design (conv_block1_pair.cu)",
             replaces=f"conv_block1_pair.py:{line}", beside=routed1,
-            input_shape=list(x1.shape)))
+            timed={"v1": first}, input_shape=list(x1.shape)))
 
     return {
         "conv_block1_pair_int8": row2("triple", 346),
@@ -1498,14 +1672,14 @@ def _slab_designs(enc, y2) -> tuple:
 
 def _v3_check(wave, cfg, t_lo: int, t_hi: int):
     """Row 9's check: within V3_MAX_DB max and V3_MEAN_DB mean of its plain
-    version, while row 1's kernel (f32 mel) on the interior frames must
-    miss those limits (the control: they tell the two projections
-    apart)."""
+    version, while row 1's first design (f32 mel; the tile code row 9
+    shares) on the interior frames must miss those limits (the control:
+    they tell the two projections apart)."""
     from texttoaudiogrounding_tpu_torch.ops.kernels import logmel
 
     def check(out, plain) -> dict:
         d = (out - plain).abs()
-        row1 = logmel.fused_log_mel_spectrogram(wave, cfg)
+        row1 = logmel._fused_log_mel_spectrogram_v1(wave, cfg)
         ctl = (row1 - plain)[:, t_lo:t_hi].abs()
         got = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
                "rel_rms_err": _err(out, plain)[1],
@@ -1522,8 +1696,9 @@ def _v3_check(wave, cfg, t_lo: int, t_hi: int):
 
 
 def _logmel_designs(wave) -> tuple:
-    """Rows 9 and 10 once on the served waveform, beside row 1's kernel:
-    v3 held by :func:`_v3_check`, v4 bit for bit to row 1's kernel; each
+    """Rows 9 and 10 once on the served waveform, beside row 1's two
+    designs: v3 held by :func:`_v3_check`, v4 bit for bit to row 1's first
+    design (``csrc/logmel.cu``, whose tile code rows 9 and 10 share); each
     compared with the f64 log-mel.  Returns (records, outputs)."""
     from texttoaudiogrounding_tpu_torch.ops import frontend
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
@@ -1537,13 +1712,16 @@ def _logmel_designs(wave) -> tuple:
     t_lo, t_hi = logmel_v3.edges(n, cfg)
     frames = b * (t_hi - t_lo)
     ref = ("f64", _log_mel_f64(wave, cfg))
-    row1 = {"row1": lambda: logmel.fused_log_mel_spectrogram(wave, cfg)}
+    row1 = {"row1_v1": lambda: logmel._fused_log_mel_spectrogram_v1(wave,
+                                                                     cfg),
+            "row1": lambda: logmel.fused_log_mel_spectrogram(wave, cfg)}
+    dft, _, mel = _logmel_ops(cfg, frames)        # v3: interior frames
+    dft4, power4, mel4 = _logmel_ops(cfg, b * t)
     return {
         "logmel_v3": _design(
             kernel=lambda: logmel_v3.fused_log_mel_spectrogram_v3(wave, cfg),
             plain=lambda: logmel_v3.log_mel_v3_plain(wave, cfg), ref=ref,
-            ops={"bf16": 2.0 * frames * 1024 * 1024
-                 + 2.0 * frames * 512 * 64},
+            ops={"bf16": dft + mel},
             in_bytes=wave.numel() * 4, source="logmel_v3.cu",
             replaces="logmel.py:350", check=_v3_check(wave, cfg, t_lo, t_hi),
             tolerance=f"max_abs_db <= {V3_MAX_DB}, mean_abs_db <= "
@@ -1553,11 +1731,11 @@ def _logmel_designs(wave) -> tuple:
         "logmel_v4": _design(
             kernel=lambda: logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg),
             plain=lambda: logmel.log_mel_plain(wave, cfg), ref=ref,
-            ops={"bf16": 2.0 * b * t * 1024 * 1024,
-                 "f32": 2.0 * b * t * 512 * 64 + 3.0 * b * t * 512},
+            ops={"bf16": dft4, "f32": power4 + mel4},
             in_bytes=wave.numel() * 4, source="logmel_v4.cu",
-            replaces="logmel.py:175", target=row1["row1"],
-            tolerance="bit for bit equal to row 1's kernel", beside=row1),
+            replaces="logmel.py:175", target=row1["row1_v1"],
+            tolerance="bit for bit equal to row 1's first design",
+            beside=row1),
     }, outs
 
 
@@ -1664,9 +1842,11 @@ def _counter_modules() -> tuple:
 
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name (the first
-    design of row 3 counts in ``conv_block_pair.launches_v1``)."""
+    designs of rows 1 and 3 count in ``logmel.launches_v1`` and
+    ``conv_block_pair.launches_v1``)."""
     ints, dicts = _counter_modules()
     out = {name: mod.launches for name, mod in ints.items()}
+    out["logmel_v1"] = ints["logmel"].launches_v1
     out["conv_block_pair_v1"] = ints["conv_block_pair"].launches_v1
     for mod in dicts:
         out.update(mod.launches)
@@ -1677,6 +1857,7 @@ def _reset_counts() -> None:
     ints, dicts = _counter_modules()
     for mod in ints.values():
         mod.launches = 0
+    ints["logmel"].launches_v1 = 0
     ints["conv_block_pair"].launches_v1 = 0
     for mod in dicts:
         for k in mod.launches:
@@ -2148,13 +2329,22 @@ def training_weak_phase(tok) -> dict:
     return report
 
 
-_PORT_KERNELS = ("logmel_kernel", "conv3x3_gemm", "gather_kernel",
-                 "conv1_kernel", "conv1_im2col_kernel", "requant_kernel",
-                 "clip_scale_kernel", "gru_fwd_step",
-                 "gru_bwd_step", "gru_bwd_walk", "dual_pool_", "bn_pool_",
-                 "wino_", "logmel_v3_kernel", "logmel_v4_kernel",
-                 "slab_gemm", "igemm_kernel", "window_max_kernel",
-                 "pad_quant_kernel")
+@functools.lru_cache(maxsize=None)
+def _port_kernel_pattern():
+    """A pattern for the port's kernels in a profiled kernel name: each
+    ``__global__`` function of ``csrc/``, as a whole identifier of the
+    demangled name."""
+    import re
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import _build
+    names = set()
+    for f in _build.CSRC.glob("*.cu*"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", f.read_text()))
+    return re.compile(r"(?:^|[\s:])(?:" + "|".join(sorted(names)) + r")[<(]")
+
+
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
@@ -2202,8 +2392,8 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
                 total = evt.cuda_time_total
             conv_ms += total / 1e3
     busy = sum(ms for ms, _ in kernels.values())
-    port = sum(ms for k, (ms, _) in kernels.items()
-               if any(p in k for p in _PORT_KERNELS))
+    port = sum(ms for k, (ms, _) in kernels.items() 
+               if _port_kernel_pattern().search(k))
     gru_ms = sum(ms for k, (ms, _) in kernels.items() if "gru_" in k)
     pool_ms = sum(ms for k, (ms, _) in kernels.items()
                   if "dual_pool_" in k or "bn_pool_" in k)
@@ -2301,9 +2491,9 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": [s.name for s in _build.sources()],
                       "card": smi}), flush=True)
-    ptxas = _ptxas("conv_block_v2")
-    print(json.dumps({"phase": "ptxas", "source": "conv_block_v2.cu",
-                      "kernels": ptxas}), flush=True)
+    ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
+                                          "logmel_v2")}
+    print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)
     kernels = (kernel_phase(KERNEL_CLIPS, rng)

@@ -1,6 +1,9 @@
 // Rows 3 and 4 of the port, second design (sm_90a): the chunked fused
 // PANNs block (conv3x3 -> BN -> ReLU) x 2 -> avg+max pool as a wgmma
-// implicit GEMM fed by an asynchronous shared-memory ring.
+// implicit GEMM fed by an asynchronous shared-memory ring.  Row 2's second
+// design (conv_block1_v2.cu) runs block 1's conv2 on the same GEMM (MODE
+// 3, block 1's bf16 pool) and builds its fused form from its pieces, and
+// row 1's (logmel_v2.cu) reuses the ring and the wgmma wrappers.
 //
 // The function and its int8 contract are the first design's (common.cuh
 // double_conv): the same chunks tc, the same scale windows, int8 weights
@@ -400,7 +403,10 @@ struct IgemmArgs {
 // MODE 0: conv1, f32 y1 [G, R_out, M, Cout] and its group maxes (int8);
 // 1: conv1, bf16 y1 [G, R_out, M + 2, Cout], mel padded (bf16);
 // 2: conv2 -> f32 avg+max pool (mel pairs, then time pairs) -> bf16 out
-//    [B, T_out, M / pm, Cout].
+//    [B, T_out, M / pm, Cout];
+// 3: block 1's conv2 (pool (2, 2) only) -> its bf16 pool (common.cuh MODE
+//    3, the TPU kernel's order): y2 rounded to bf16, time pairs, then mel
+//    pairs, each sum rounded to bf16, out = bf16(S / 4) + max in bf16.
 // Two blocks an SM for BN <= 128 (faster on the H100 than one, or than
 // 256-row tiles), one for BN = 256 (its accumulators take 128 registers).
 template <typename T, int BN, int MODE>
@@ -431,7 +437,7 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
   // holds in the fragment layout, k and k + 8, are times r and r + 1 of
   // one mel, and rows k, k ^ 1 (lanes l, l ^ 4) mels m, m + 1: warp W of
   // the tile takes time pair W / (M / 8), mels 8 (W % (M / 8)) + [0, 8).
-  const bool tpair = MODE == 2 && a.pt == 2;
+  const bool tpair = (MODE == 2 || MODE == 3) && a.pt == 2;
   auto perm = [&](int k) {
     if (!tpair) return k;
     const int W = k >> 4, mg = a.M >> 3;
@@ -590,6 +596,36 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
           if ((lane & 3) == 0) max_into(a.ymax + gr[h], m);
         }
       }
+    }
+  } else if constexpr (MODE == 3) {
+    // a thread's rows h = 0, 1 are one mel's two times, lanes l and l ^ 4
+    // the mel pair.  Two columns at a time in bf16x2 arithmetic: a sum of
+    // two non-negative bf16 values rounded once to bf16 is the first
+    // design's f32 sum rounded to bf16 (exact in f32 when their exponents
+    // differ by at most 15, and else far from a bf16 tie), S / 4 is exact,
+    // and the order of the operands within a pair does not matter.
+    bf16* out = static_cast<bf16*>(a.dst);
+    const int b = (int)(gr[0] / a.nch), jc = (int)(gr[0] % a.nch);
+    const int tout = (jc * a.tc + rr[0]) / 2;
+    const bool lead = ok[0] && (lane & 4) == 0 && tout < a.T_out;
+    bf16* d = out + (((long long)b * a.T_out + tout) * (a.M / 2) +
+                     mr[0] / 2) * a.Cout + n0 + col0;
+    const __nv_bfloat162 quarter = __floats2bfloat162_rn(0.25f, 0.25f);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + col0;
+      const __nv_bfloat162 v0 = __floats2bfloat162_rn(
+          fmaxf(value(0, 4 * j, n), 0.0f),
+          fmaxf(value(0, 4 * j + 1, n + 1), 0.0f));
+      const __nv_bfloat162 v1 = __floats2bfloat162_rn(
+          fmaxf(value(1, 4 * j + 2, n), 0.0f),
+          fmaxf(value(1, 4 * j + 3, n + 1), 0.0f));
+      const __nv_bfloat162 s = __hadd2(v0, v1), mx = __hmax2(v0, v1);
+      const __nv_bfloat162 S = __hadd2(s, __shfl_xor_sync(0xffffffffu, s, 4));
+      const __nv_bfloat162 MX =
+          __hmax2(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const __nv_bfloat162 o = __hadd2(__hmul2(S, quarter), MX);
+      if (lead) *reinterpret_cast<__nv_bfloat162*>(d + 8 * j) = o;
     }
   } else {
     // conv2: y = ReLU(affine), then sum and max over the mel pair (lanes

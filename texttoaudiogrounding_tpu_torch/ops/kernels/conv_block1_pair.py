@@ -40,7 +40,17 @@ as in ``"triple"`` (the TPU kernel leaves row ``t = -2`` as it is, which
 feeds only discarded outputs).
 
 :func:`fused_block1_pair` launches the kernel for a CUDA tensor and runs
-:func:`block1_plain` for a CPU tensor.
+:func:`block1_plain` for a CPU tensor.  The kernel is the second design,
+``csrc/conv_block1_v2.cu``: the clip's x scale as a wide max, then in
+``"conv1"`` mode one persistent kernel that computes each tile's y1 halo
+with conv1 on the CUDA cores into shared memory and conv2 from there on
+``wgmma``; in the other modes conv1 straight into the mel-padded y1 (bf16,
+or under ``True`` int8 from a max pass and a recompute, with no f32 y1)
+and conv2 on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``, both
+with block 1's bf16 pool.
+The first design (``csrc/conv_block1_pair.cu``) gives the same int8
+result bit for bit and is reachable only through
+:func:`_fused_block1_pair_v1`, which ``chip_smoke.py`` times beside it.
 """
 
 from __future__ import annotations
@@ -61,9 +71,10 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
 __all__ = ["fused_block1_pair", "block1_plain", "fold_bn"]
 
 # kernel launches through fused_block1_pair: "conv1" and False modes (either
-# staging), and the all-int8 mode in "triple" and in "single" staging
+# staging), and the all-int8 mode in "triple" and in "single" staging; and
+# the first design's, in any mode, through _fused_block1_pair_v1
 launches = {"conv_block1_pair": 0, "conv_block1_pair_int8": 0,
-            "conv_block1_pair_single": 0}
+            "conv_block1_pair_single": 0, "conv_block1_pair_v1": 0}
 # the y1 rows each side of a chunk, by staging (mode)
 HALO = {"triple": 1, "single": 2}
 
@@ -181,6 +192,7 @@ def _int8_conv2(xq, wq, mul, b1, w2, ab2, tc: int,
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
          _P, _P]
+_V2_ARGS = _ARGS[:12] + [_P] * 4
 _MODES = {False: 0, "conv1": 1, True: 2}
 
 
@@ -222,6 +234,35 @@ def check_mode(quantize, tc: int, mode: str = "triple"):
     return bool(quantize)
 
 
+def _check_args(x, w1, w2, quantize, tc, mode):
+    quantize = check_mode(quantize, tc, mode)
+    if x.dim() != 3 or x.shape[2] != _M or x.dtype != torch.bfloat16 \
+            or not x.is_contiguous():
+        raise ValueError("x must be a contiguous [B, T, 64] bf16 tensor")
+    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
+        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
+    return quantize
+
+
+def scratch_v2(b: int, t: int, tc: int, quantize, device) -> tuple:
+    """The second design's scratch: (smax, y1).  ``smax`` int32 holds the
+    clips' x max bits, then under ``True`` the groups' y1 max bits (G = B
+    ceil(T / tc) groups); y1 is conv2's mel-padded input: under ``False``
+    ``[B, 2 (T // 2) + 2, 66, 64]`` bf16 (rows at times -1 .. 2 (T //
+    2)), under ``True`` ``[G, tc + 2, 66, 64]`` int8 (times ``j tc - 1 ..
+    j tc + tc``), and in ``"conv1"`` mode, which keeps y1 in shared
+    memory, an empty tensor."""
+    g = b * -(-t // tc) if quantize is True else 0
+    smax = torch.empty(b + g, dtype=torch.int32, device=device)
+    if quantize == "conv1":
+        return smax, torch.empty(0, dtype=torch.int8, device=device)
+    if quantize is True:
+        return smax, torch.empty(g, tc + 2, _M + 2, 64, dtype=torch.int8,
+                                 device=device)
+    return smax, torch.empty(b, t // 2 * 2 + 2, _M + 2, 64,
+                             dtype=torch.bfloat16, device=device)
+
+
 def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                       w2: torch.Tensor, ab2: tuple, *,
                       quantize="conv1", tc: int = 48,
@@ -239,16 +280,40 @@ def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     not lay them out again.  Returns ``[B, T // 2, 32, 64]`` bf16.
     Serving only (running BN statistics).
     """
-    quantize = check_mode(quantize, tc, mode)
-    if x.dim() != 3 or x.shape[2] != _M or x.dtype != torch.bfloat16 \
-            or not x.is_contiguous():
-        raise ValueError("x must be a contiguous [B, T, 64] bf16 tensor")
-    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
-        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
+    quantize = _check_args(x, w1, w2, quantize, tc, mode)
     check_device(x, w1, w2, *ab1, *ab2)
     if not x.is_cuda:
         return block1_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc,
                             mode=mode)
+    wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
+    b, t, _ = x.shape
+    check_device(x, *wk)
+    halo = HALO[mode] if quantize is True else 1
+    smax, y1 = scratch_v2(b, t, tc, quantize, x.device)
+    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.function("conv_block1_v2", "ttg_conv_block1_v2", _V2_ARGS)
+    err = fn(_MODES[quantize], halo, x.data_ptr(), b, t, tc,
+             *(v.data_ptr() for v in wk), smax.data_ptr(), y1.data_ptr(),
+             out.data_ptr(), _build.stream())
+    launches["conv_block1_pair" if quantize is not True
+             else f"conv_block1_pair_{mode.replace('triple', 'int8')}"] += 1
+    _build.check(err, "ttg_conv_block1_v2")
+    return out
+
+
+def _fused_block1_pair_v1(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                          w2: torch.Tensor, ab2: tuple, *,
+                          quantize="conv1", tc: int = 48,
+                          mode: str = "triple",
+                          prepared: tuple | None = None) -> torch.Tensor:
+    """The first design (``csrc/conv_block1_pair.cu``) on a CUDA tensor,
+    arguments as :func:`fused_block1_pair`, counted in
+    ``launches["conv_block1_pair_v1"]``; nothing served calls it.
+    ``chip_smoke.py`` holds the second design to it."""
+    quantize = _check_args(x, w1, w2, quantize, tc, mode)
+    if not x.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
     b, t, _ = x.shape
     wk1, ak1, b1, wk2, a2, b2 = prepared or kernel_weights(
         w1, ab1, w2, ab2, quantize)
@@ -272,8 +337,6 @@ def fused_block1_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
              wk1.data_ptr(), ak1.data_ptr(), b1.data_ptr(), wk2.data_ptr(),
              a2.data_ptr(), b2.data_ptr(), sx.data_ptr(), y1.data_ptr(),
              y1q.data_ptr(), sy.data_ptr(), out.data_ptr(), _build.stream())
-    launches["conv_block1_pair" if quantize is not True
-             else f"conv_block1_pair_{'single' if halo == 2 else 'int8'}"
-             ] += 1
+    launches["conv_block1_pair_v1"] += 1
     _build.check(err, "ttg_conv_block1")
     return out

@@ -3,7 +3,8 @@
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/logmel.py:175
 fused_log_mel_spectrogram_v4``: row 1's function (``logmel.py:438``, the
-port's ``ops/kernels/logmel.py``) and framing, bit for bit, on another
+port's ``ops/kernels/logmel.py``) and framing, bit for bit with row 1's
+first design (``csrc/logmel.cu``, whose tile code it shares), on another
 schedule.  The TPU kernel defers each tile's power → mel → dB epilogue so
 that it overlaps the next tile's DFT; on the card each block walks several
 16-frame tiles and copies the next tile's waveform samples into shared
@@ -44,7 +45,7 @@ def check_single_tile(cfg: LogMelConfig) -> None:
 def fused_log_mel_spectrogram_v4(waveform: torch.Tensor,
                                  cfg: LogMelConfig) -> torch.Tensor:
     """``[B, N]`` f32 → ``[B, T, n_mels]`` f32 log-mel (dB), equal to
-    :func:`logmel.fused_log_mel_spectrogram`."""
+    :func:`logmel._fused_log_mel_spectrogram_v1`."""
     global launches
     logmel._check(waveform, cfg)
     check_single_tile(cfg)
