@@ -9,8 +9,8 @@ Phases, each printing one line:
    (one ``nvcc`` per source, in parallel) and print the card's name and
    power limit as ``nvidia-smi`` reports them; then the registers, shared
    memory and spills of each kernel of the second designs
-   (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``) from
-   their ``-Xptxas -v`` logs;
+   (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
+   ``gru_bwd_sm90.cu``) from their ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -27,7 +27,11 @@ Phases, each printing one line:
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
    with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
    v3, whose walk and dWh product are also timed apart; each gradient
-   held on its own) at T = 250, 2B = 64, H = 256, the bf16-operand
+   held on its own) at T = 250, 2B = 64, H = 256, the backward on its
+   second design (``gru_bwd_sm90.cu``, one cluster launch a walk) held to
+   its plain version and to its first design (``gru.cu``, one launch a
+   step) with the same tolerance, both timed in turns (first, second,
+   second, first) and at the latency floor, the bf16-operand
    backward also at T = 2,
    where its bf16 roundings are held tight enough that the backward
    without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
@@ -607,9 +611,79 @@ def _gru_bf16_short(proj, gy, wh, bn) -> dict:
             "unrounded_rel_rms": miss}
 
 
+# the cluster design's plan that cluster_plan does not take: groups of 8
+# rows (2 x 4 clusters at B = 32, more than the 7 of 16 CTAs an H100 holds
+# at once), timed beside the plan it takes
+GRU_ROWS_ALT = 8
+
+
+def _gru_cluster_rows(proj, ys, gy, wh, bn, dtype, rows: int):
+    """A call of the cluster backward with groups of ``rows`` rows, in
+    place of ``cluster_plan``'s, through its C entry point."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import _build, gru
+
+    t, b2, h = ys.shape
+    plan = gru.cluster_plan(b2 // 2, h, dtype)
+    groups = -(-(b2 // 2) // rows)
+    b16 = dtype == torch.bfloat16
+    whk = wh.to(dtype).float() if b16 else wh
+    n = 2 * h * 3 * h + 2 * h
+    dproj = torch.empty_like(proj)
+    out = torch.empty(n, device=proj.device)
+    part = torch.empty(groups, n, device=proj.device)
+    fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster",
+                         [_build.P] * 8 + [_build.I] * 7 + [_build.P])
+
+    def call():
+        _build.check(fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(),
+                        whk.data_ptr(), bn.data_ptr(), dproj.data_ptr(),
+                        out.data_ptr(), part.data_ptr(), t, b2 // 2, h,
+                        plan["ctas"], groups, rows, int(b16),
+                        _build.stream()), "ttg_gru_bwd_cluster")
+        return (dproj, out[:n - 2 * h].view(2, h, 3 * h),
+                out[n - 2 * h:].view(2, h))
+    return call, groups
+
+
+def _gru_designs(proj, ys, gy, wh, bn, dtype, tiny) -> dict:
+    """The backward's two designs at the main path's inputs: the first
+    design's gradients and those of the cluster design with groups of
+    GRU_ROWS_ALT rows (to hold the chosen plan to), the three timed in
+    turns (per_step, cluster, rows_alt, rows_alt, cluster, per_step; 10
+    calls each), each design's latency floor (the same walk at B = 1, H =
+    4: ``tiny`` = (proj, ys, gy, wh, bn)), the cluster plan and how many
+    of its clusters the card holds at once."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    def call(design, args=(proj, ys, gy, wh, bn)):
+        return lambda: gru.gru_backward(*args, dtype, design=design)
+
+    alt, alt_groups = _gru_cluster_rows(proj, ys, gy, wh, bn, dtype,
+                                        GRU_ROWS_ALT)
+    fns = {"per_step": call("per_step"), "cluster": call("cluster"),
+           "rows_alt": alt}
+    order = ("per_step", "cluster", "rows_alt")
+    runs = [(d, _cuda_ms(fns[d], 10)) for d in order + order[::-1]]
+    t, b2, h = ys.shape
+    plan = gru.cluster_plan(b2 // 2, h, dtype)
+    return {"per_step": call("per_step")(), "rows_alt_grads": alt(),
+            "ms": {d: sum(ms for n, ms in runs if n == d) / 2
+                   for d in order},
+            "turns_ms": runs,
+            "floor_ms": {d: _cuda_ms(call(d, tiny), 10)
+                         for d in gru.DESIGNS},
+            "plan": plan,
+            "co_resident_clusters": gru.cluster_occupancy(h, plan, dtype),
+            "clusters": 2 * plan["groups"],
+            "rows_alt": {"rows": GRU_ROWS_ALT, "clusters": 2 * alt_groups}}
+
+
 def gru_kernel_phase(clips: int, rng) -> list:
     """The GRU kernels against their plain versions at T = 250, 2B = 64,
-    H = 256, beside ``torch.nn.GRU`` on the same weights."""
+    H = 256, beside ``torch.nn.GRU`` on the same weights; the backward's
+    second design also against its first."""
     import numpy as np
     import torch
 
@@ -686,12 +760,17 @@ def gru_kernel_phase(clips: int, rng) -> list:
                                                            device=dev),
             torch.zeros(2, 4, device=dev))
     tiny_ys = gru.gru_forward(*tiny)
+    tiny_bwd = (tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:])
     floor_fwd = _cuda_ms(lambda: gru.gru_forward(*tiny), 10)
-    floor_bwd = _cuda_ms(lambda: gru.gru_backward(
-        tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:]), 10)
     floor_walk = {v: _cuda_ms(lambda v=v: gru.gru_walk(
         tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:], v), 10)
         for v in gru.VARIANTS}
+    # the backward's two designs, f32 and bf16 operands
+    designs = {"gru_bwd": _gru_designs(proj, ys_plain, gy, wh, bn,
+                                       torch.float32, tiny_bwd),
+               "gru_bwd_bf16": _gru_designs(proj, ys16_plain, gy, wh, bn,
+                                            b16, tiny_bwd)}
+    floor_bwd = designs["gru_bwd"]["floor_ms"]["per_step"]
 
     fwd_bytes = 4 * (proj.numel() + ys.numel() + wh.numel() + bn.numel())
     fwd_ops = 2.0 * t * 2 * b * h * 3 * h
@@ -741,12 +820,12 @@ def gru_kernel_phase(clips: int, rng) -> list:
              library_max_abs_diff=lib_gap),
         dict(name="gru_bwd", got=grads, ref=grads_plain, tol=1e-4,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
-             kernel=lambda: gru.gru_backward(proj, ys_plain, gy, wh, bn),
              plain=lambda: gru.gru_backward_plain(proj, ys_plain, gy, wh,
                                                   bn),
              bound=_bound(bwd_bytes, {"f32": 3 * fwd_ops}),
              library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
-             library_fwd_bwd_ms=lib_fwd_bwd_ms, latency_floor_ms=floor_bwd),
+             library_fwd_bwd_ms=lib_fwd_bwd_ms,
+             designs=designs["gru_bwd"]),
         dict(name="gru_fwd_bf16", got=ys16, ref=ys16_plain, tol=1e-2,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
              kernel=lambda: gru.gru_forward(proj, wh, bn, torch.bfloat16),
@@ -757,13 +836,12 @@ def gru_kernel_phase(clips: int, rng) -> list:
         dict(name="gru_bwd_bf16", got=grads16, ref=grads16_plain,
              tol=GRU_B16_TOL, short_T=short,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:283",
-             kernel=lambda: gru.gru_backward(proj, ys16_plain, gy, wh, bn,
-                                             b16),
              plain=lambda: gru.gru_backward_plain(proj, ys16_plain, gy, wh,
                                                   bn, b16),
              bound=_bound(bwd_bytes, {"bf16": 3 * fwd_ops}),
              library_ms=lib16_fwd_bwd_ms - lib16_grad_fwd_ms,
-             library_fwd_bwd_ms=lib16_fwd_bwd_ms, latency_floor_ms=floor_bwd),
+             library_fwd_bwd_ms=lib16_fwd_bwd_ms,
+             designs=designs["gru_bwd_bf16"]),
     ] + [
         dict(name=f"gru_bwd_{v}", got=hoisted[v], ref=hoisted_plain[v],
              tol=1e-4, parts=parts[v],
@@ -784,22 +862,50 @@ def gru_kernel_phase(clips: int, rng) -> list:
             raise AssertionError(f"{row['name']}: kernel disagrees with its "
                                  f"plain version: rel_rms {rel} > "
                                  f"{row['tol']} (max_abs {max_abs})")
-        kernel_ms = _cuda_ms(row["kernel"], 10)
         plain_ms = _cuda_ms(row["plain"], 2)
         extra = {k: row[k] for k in ("library_fwd_bwd_ms",
-                                     "library_max_abs_diff", "short_T")
+                                     "library_max_abs_diff", "short_T",
+                                     "latency_floor_ms")
                  if k in row}
         extra.update(row.get("parts", {}))
+        source = "texttoaudiogrounding_tpu_torch/csrc/gru.cu"
+        if "designs" in row:
+            d = row["designs"]
+            first = [_max_err(d["per_step"], row["ref"]),
+                     _max_err(row["got"], d["per_step"]),
+                     _max_err(d["rows_alt_grads"], row["ref"])]
+            if max(e[1] for e in first) > row["tol"]:
+                raise AssertionError(
+                    f"{row['name']}: the first design off its plain version, "
+                    f"the second design off the first or its {GRU_ROWS_ALT}"
+                    f"-row plan off the plain version: rel_rms "
+                    f"{[e[1] for e in first]} > {row['tol']}")
+            kernel_ms = d["ms"]["cluster"]
+            extra.update(
+                per_step_ms=d["ms"]["per_step"], turns_ms=d["turns_ms"],
+                rows_alt_ms=d["ms"]["rows_alt"], rows_alt=d["rows_alt"],
+                rows_alt_rel_rms_err=first[2][1],
+                latency_floor_ms=d["floor_ms"]["cluster"],
+                per_step_latency_floor_ms=d["floor_ms"]["per_step"],
+                per_step_rel_rms_err=first[0][1],
+                vs_per_step_rel_rms=first[1][1],
+                vs_per_step_max_abs=first[1][0], plan=d["plan"],
+                clusters=d["clusters"],
+                co_resident_clusters=d["co_resident_clusters"],
+                cuda_launches_per_call=2, per_step_cuda_launches_per_call=t,
+                per_step_source=source)
+            source = "texttoaudiogrounding_tpu_torch/csrc/gru_bwd_sm90.cu"
+        else:
+            kernel_ms = _cuda_ms(row["kernel"], 10)
         out.append({
             "name": row["name"], "route": "cuda",
-            "source": "texttoaudiogrounding_tpu_torch/csrc/gru.cu",
+            "source": source,
             "replaces": row["replaces"], "max_abs_err": max_abs,
             "rel_rms_err": rel, "tolerance": "rel_rms{} <= {}".format(
                 "" if isinstance(row["got"], torch.Tensor)
                 else " of each gradient", row["tol"]),
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
-            "latency_floor_ms": row["latency_floor_ms"],
             "library_ms": row["library_ms"], "library": "torch.nn.GRU "
             f"({'bf16, ' if 'bf16' in row['name'] else ''}cuDNN; includes "
             "the input projection)", "T": t,
@@ -2418,7 +2524,9 @@ def _ptxas(source: str) -> list:
     """Registers, static shared memory, stack and spills of each kernel of
     ``csrc/<source>.cu`` from its ``nvcc -Xptxas=-v`` build log, with the
     GEMM's dynamic shared memory (``igemm_smem``: 4 ring stages of
-    (128 + BN) rows x 64 bytes, and 1024 bytes to align them)."""
+    (128 + BN) rows x 64 bytes, and 1024 bytes to align them) and the
+    cluster GRU backward's (``gru.cluster_plan`` at the main path's
+    shape)."""
     import re
     import shutil
 
@@ -2454,6 +2562,10 @@ def _ptxas(source: str) -> list:
         bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)>", name)
         if bn:
             k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
+        if "gru_bwd_cluster<" in name:
+            from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+            k["dynamic_smem"] = gru.cluster_plan(KERNEL_CLIPS,
+                                                 GRU_H)["smem"]
     return out
 
 
@@ -2492,7 +2604,7 @@ def main() -> int:
                       "sources": [s.name for s in _build.sources()],
                       "card": smi}), flush=True)
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
-                                          "logmel_v2")}
+                                          "logmel_v2", "gru_bwd_sm90")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

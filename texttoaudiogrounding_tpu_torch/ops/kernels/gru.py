@@ -17,27 +17,44 @@ time-flipped), ``wh [2, H, 3H]``, ``bn [2, H]`` → ``ys [T, 2B, H]`` f32.
 
 Each wrapper launches the kernel for CUDA tensors and runs the plain
 PyTorch version of the same arithmetic for CPU tensors; ``launches``
-counts the kernel launches by wrapper (one call of the C entry point runs
-the whole walk, one CUDA launch per step).  The hoisted backward's dWh
-product after the walk is ``torch.bmm`` in full f32 on either device.
+counts the wrappers' calls by kernel (one call of a C entry point runs
+the whole walk).  The backward of ``:199`` runs by default on its second
+design, ``csrc/gru_bwd_sm90.cu``: one cluster launch a walk and one
+launch that sums the batch groups' dWh / dbn (:func:`cluster_plan`,
+:func:`gru_backward_cluster_emulated`).  Its first design, one CUDA
+launch a step in ``csrc/gru.cu``, stays callable as
+``gru_backward(..., design="per_step")``, as do the forwards and the
+hoisted walks, which still launch once a step.  The hoisted backward's
+dWh product after the walk is ``torch.bmm`` in full f32 on either device.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
-# kernel launches through gru_forward and gru_backward, by operand type,
-# and through gru_walk, by variant
+# calls of the C entry points through gru_forward and gru_backward, by
+# operand type (gru_backward's first design as ``*_per_step``), and
+# through gru_walk, by variant
 launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0, "gru_bwd_bf16": 0,
+            "gru_bwd_per_step": 0, "gru_bwd_bf16_per_step": 0,
             "gru_bwd_v2": 0, "gru_bwd_v3": 0}
 # the hoisted f32 backwards: the dh chain as one K = 3H dot (v2) or as
 # three K = H dots added in gate order (v3)
 VARIANTS = ("v2", "v3")
+# gru_backward's designs: one cluster launch a walk (csrc/gru_bwd_sm90.cu),
+# or one launch a step (csrc/gru.cu)
+DESIGNS = ("cluster", "per_step")
 
 _SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
 _JT = 4               # hidden units per block (csrc/gru.cu)
+# csrc/gru_bwd_sm90.cu: units a CTA owns and batch rows a cluster walks, at
+# most; CTAs a cluster; threads a CTA (one per k, and the rows of its Wh
+# and h tiles); the gate product's K slice a warp
+_UMAX, _RMAX, _CLUSTER_MAX, _THREADS, _KW = 16, 12, 16, 256, 32
 
 
 def _dims(proj: torch.Tensor) -> tuple:
@@ -67,10 +84,9 @@ def gru_forward_plain(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
     return torch.stack(ys)
 
 
-def _gates(pp, h_op, wh, bnb, h: int) -> tuple:
+def _gates(pp, rzn, bnb, h: int) -> tuple:
     """The recomputed gates ``(r, z, an, n)`` of one step, ``an`` the
-    recurrent n term with its bias, from the products' operand ``h_op``."""
-    rzn = torch.bmm(h_op, wh)
+    recurrent n term with its bias, from the recurrent product ``rzn``."""
     r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
     z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
     an = rzn[..., 2 * h:] + bnb
@@ -115,7 +131,7 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
         pp = proj[step].float().reshape(2, b, 3 * h)
         h_prev = ysp[step].reshape(2, b, h)
         h_op = op(h_prev)
-        r, z, an, n = _gates(pp, h_op, wh, bnb, h)
+        r, z, an, n = _gates(pp, torch.bmm(h_op, wh), bnb, h)
         dhp = gy[step].reshape(2, b, h) + dh
         da_r, da_z, da_n, drzn_n = _pre_activation_grads(dhp, h_prev, r, z,
                                                          an, n)
@@ -125,6 +141,110 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
         dwh += torch.bmm(h_op.transpose(1, 2), dcol)
         dbn += drzn_n.sum(dim=1)
     return dproj, dwh, dbn
+
+
+def cluster_plan(b: int, h: int, dtype: torch.dtype = torch.float32) -> dict:
+    """How ``csrc/gru_bwd_sm90.cu`` walks ``B = b`` rows of ``H = h`` units
+    a direction: ``ctas`` CTAs a cluster (the fewest, at most 16, that
+    divide H into at most 16 ``units`` each), ``groups`` clusters a
+    direction of at most 12 ``rows`` each, and the ``smem`` bytes of shared
+    memory a CTA takes (Wh columns, a 3-tile ring of h, dcol, the partial
+    dh twice, the gate product's warp sums).  Raises ``ValueError`` on a
+    shape the kernel cannot take."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the operands are float32 or bfloat16")
+    if b < 1 or h < 1:
+        raise ValueError("the GRU needs B >= 1 and H >= 1")
+    if h > _THREADS:
+        raise ValueError(f"the cluster GRU backward takes H <= {_THREADS}, "
+                         f"not {h}")
+    ctas = next((c for c in range(-(-h // _UMAX), _CLUSTER_MAX + 1)
+                 if h % c == 0), None)
+    if ctas is None:
+        raise ValueError(f"H = {h} splits into no cluster of at most "
+                         f"{_CLUSTER_MAX} CTAs of at most {_UMAX} units")
+    groups = -(-b // _RMAX)
+    rows = -(-b // groups)
+    cols = 3 * _UMAX
+    smem = 4 * (_THREADS * cols + 3 * _THREADS * _RMAX + _RMAX * cols
+                + 2 * _RMAX * h + _THREADS // 32 * _RMAX * cols)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the cluster GRU backward needs {smem} bytes of "
+                         f"shared memory at H={h}; the card has {_SMEM_MAX}")
+    return {"ctas": ctas, "units": h // ctas, "groups": groups,
+            "rows": rows, "smem": smem}
+
+
+def _in_order(parts) -> torch.Tensor:
+    """The sum of ``parts``, added one after another in their order."""
+    total = parts[0]
+    for x in parts[1:]:
+        total = total + x
+    return total
+
+
+def gru_backward_cluster_emulated(proj: torch.Tensor, ys: torch.Tensor,
+                                  gy: torch.Tensor, wh: torch.Tensor,
+                                  bn: torch.Tensor,
+                                  dtype: torch.dtype = torch.float32, *,
+                                  ctas: int, groups: int) -> tuple:
+    """The backward summed in ``csrc/gru_bwd_sm90.cu``'s orders, in plain
+    PyTorch: the rows split into ``groups`` batch groups (of
+    ``ceil(B / groups)`` rows), the units into ``ctas`` CTAs; the gate
+    products added by K slices of 32 in order; dh the sum, in CTA order, of
+    each CTA's partial ``dcol[:, own] · Wh[:, own]ᵀ`` over its own three
+    thirds of columns, plus ``dhp·z``; each group's dWh the rows' outer
+    products ``h_{t-1}[b]ᵀ · dcol[b]`` added one row after another, step
+    after step; dbn each row's ``drzn_n`` added over the steps, then over
+    the rows; the groups added in group order.
+    ``dtype`` rounds the products' operands as in
+    :func:`gru_backward_plain`.  Returns ``(dproj, dwh, dbn)``."""
+    t, b, h = _dims(proj)
+    if ctas < 1 or h % ctas or not 1 <= groups <= b:
+        raise ValueError("ctas must divide H and 1 <= groups <= B")
+
+    def op(v):
+        return v.to(dtype).float()
+
+    units, rows = h // ctas, -(-b // groups)
+    own = [torch.cat([torch.arange(third * h + r * units,
+                                   third * h + (r + 1) * units)
+                      for third in range(3)]) for r in range(ctas)]
+    ysp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).float()
+    wh = op(wh.float())
+    own_w = [wh[:, :, cols].transpose(1, 2) for cols in own]   # [2, 3U, H]
+    bnb = bn.float()[:, None]
+    dproj = torch.empty(t, 2, b, 3 * h, dtype=torch.float32,
+                        device=proj.device)
+    pj = proj.float().reshape(t, 2, b, 3 * h)
+    hs = ysp.reshape(t, 2, b, h)
+    gs = gy.float().reshape(t, 2, b, h)
+    dwh_parts, dbn_parts = [], []
+    for b0 in range(0, b, rows):
+        sl = slice(b0, min(b, b0 + rows))
+        dh = torch.zeros_like(hs[0, :, sl])
+        dwh = torch.zeros_like(wh)
+        dbn_rows = torch.zeros_like(dh)
+        for step in range(t - 1, -1, -1):
+            pp, h_prev = pj[step, :, sl], hs[step, :, sl]
+            h_op = op(h_prev)
+            r, z, an, n = _gates(pp, _in_order([
+                torch.bmm(h_op[..., k:k + _KW], wh[:, k:k + _KW])
+                for k in range(0, h, _KW)]), bnb, h)
+            dhp = gs[step, :, sl] + dh
+            da_r, da_z, da_n, drzn_n = _pre_activation_grads(
+                dhp, h_prev, r, z, an, n)
+            dproj[step, :, sl] = torch.cat([da_r, da_z, da_n], -1)
+            dcol = op(torch.cat([da_r, da_z, drzn_n], -1))
+            dh = dhp * z + _in_order([torch.bmm(dcol[..., cols], w)
+                                      for cols, w in zip(own, own_w)])
+            for row in range(h_op.shape[1]):
+                dwh = dwh + h_op[:, row, :, None] * dcol[:, row, None, :]
+            dbn_rows = dbn_rows + drzn_n
+        dwh_parts.append(dwh)
+        dbn_parts.append(_in_order(dbn_rows.unbind(1)))
+    return (dproj.reshape(t, 2 * b, 3 * h), _in_order(dwh_parts),
+            _in_order(dbn_parts))
 
 
 class _full_f32:
@@ -177,7 +297,7 @@ def gru_walk_plain(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     for step in range(t - 1, -1, -1):
         pp = proj[step].float().reshape(2, b, 3 * h)
         h_prev = ysp[step].reshape(2, b, h)
-        r, z, an, n = _gates(pp, h_prev, wh, bnb, h)
+        r, z, an, n = _gates(pp, torch.bmm(h_prev, wh), bnb, h)
         dhp = gy[step].reshape(2, b, h) + dh
         da_r, da_z, da_n, drzn_n = _pre_activation_grads(dhp, h_prev, r, z,
                                                          an, n)
@@ -269,24 +389,50 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
 
 def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
                  wh: torch.Tensor, bn: torch.Tensor,
-                 dtype: torch.dtype = torch.float32) -> tuple:
+                 dtype: torch.dtype = torch.float32,
+                 design: str = "cluster") -> tuple:
     """Gradients ``(dproj, dwh, dbn)`` of the recurrence, given its inputs,
     its outputs ``ys`` and their gradient ``gy``, with f32 or bf16 product
-    operands (``dtype``)."""
+    operands (``dtype``).  On the card ``design`` picks the kernel:
+    ``"cluster"`` (``csrc/gru_bwd_sm90.cu``, counted as ``gru_bwd`` /
+    ``gru_bwd_bf16``) or ``"per_step"`` (``csrc/gru.cu``'s first design,
+    counted as ``gru_bwd_per_step`` / ``gru_bwd_bf16_per_step``); a shape
+    the chosen design cannot take raises."""
     _check(proj, wh, bn)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the operands are float32 or bfloat16")
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}")
     if not proj.is_cuda:
         return gru_backward_plain(proj, ys, gy, wh, bn, dtype)
     t, b, h = _dims(proj)
-    _check_shape_for_kernel(
-        b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)
-                   + b * (4 if dtype == torch.bfloat16 else 3) * _JT))
+    b16 = dtype == torch.bfloat16
+    if design == "cluster":
+        plan = cluster_plan(b, h, dtype)
+    else:
+        _check_shape_for_kernel(
+            b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)
+                       + b * (4 if b16 else 3) * _JT))
     proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
-    name = "gru_bwd" if dtype == torch.float32 else "gru_bwd_bf16"
-    whk = wh if dtype == torch.float32 else wh.to(dtype).float()
+    name = "gru_bwd_bf16" if b16 else "gru_bwd"
+    whk = wh.to(dtype).float() if b16 else wh
     dev = proj.device
     dproj = torch.empty_like(proj)
+    if design == "cluster":
+        n = 2 * h * 3 * h + 2 * h
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        part = torch.empty(plan["groups"], n, dtype=torch.float32,
+                           device=dev)
+        fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster",
+                             [_P] * 8 + [_I] * 7 + [_P])
+        err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(),
+                 whk.data_ptr(), bn.data_ptr(), dproj.data_ptr(),
+                 out.data_ptr(), part.data_ptr(), t, b, h, plan["ctas"],
+                 plan["groups"], plan["rows"], int(b16), _build.stream())
+        launches[name] += 1
+        _build.check(err, "ttg_gru_bwd_cluster")
+        return (dproj, out[:n - 2 * h].view(2, h, 3 * h),
+                out[n - 2 * h:].view(2, h))
     dwh = torch.zeros_like(wh)
     dbn = torch.zeros_like(bn)
     dcol = torch.empty(2, 2 * b, 3 * h, dtype=torch.float32, device=dev)
@@ -295,9 +441,20 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), whk.data_ptr(),
              bn.data_ptr(), dproj.data_ptr(), dwh.data_ptr(), dbn.data_ptr(),
              dcol.data_ptr(), part.data_ptr(), t, b, h, _build.stream())
-    launches[name] += 1
+    launches[f"{name}_per_step"] += 1
     _build.check(err, f"ttg_{name}")
     return dproj, dwh, dbn
+
+
+def cluster_occupancy(h: int, plan: dict, dtype: torch.dtype) -> int:
+    """How many clusters of ``plan`` the card holds at once."""
+    count = ctypes.c_int(0)
+    fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster_occupancy",
+                         [_I] * 4 + [_P])
+    _build.check(fn(h, plan["ctas"], plan["groups"],
+                    int(dtype == torch.bfloat16), ctypes.addressof(count)),
+                 "ttg_gru_bwd_cluster_occupancy")
+    return count.value
 
 
 def gru_walk(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
