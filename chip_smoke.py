@@ -10,7 +10,8 @@ Phases, each printing one line:
    power limit as ``nvidia-smi`` reports them; then the registers, shared
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
-   ``gru_bwd_sm90.cu``) from their ``-Xptxas -v`` logs;
+   ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``) from their ``-Xptxas -v``
+   logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -27,12 +28,17 @@ Phases, each printing one line:
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
    with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
    v3, whose walk and dWh product are also timed apart; each gradient
-   held on its own) at T = 250, 2B = 64, H = 256, the backward on its
-   second design (``gru_bwd_sm90.cu``, one cluster launch a walk) held to
-   its plain version and to its first design (``gru.cu``, one launch a
-   step) with the same tolerance, both timed in turns (first, second,
-   second, first) and at the latency floor, the bf16-operand
-   backward also at T = 2,
+   held on its own) at T = 250, 2B = 64, H = 256, the forward and the
+   backward on their second designs (``gru_fwd_sm90.cu`` and
+   ``gru_bwd_sm90.cu``, one cluster launch a walk) held to their plain
+   versions and to their first designs (``gru.cu``, one launch a step)
+   with the same tolerance, both timed in turns (first, second, second,
+   first) and at the latency floor (B = 1, H = 4), their CUDA launches a
+   call counted by the profiler, the forward also at a ragged B = 13 and
+   at B = 128 against its plain version, its first design and, with the
+   f32 carry, ``torch.nn.GRU``, at T = 2 tight enough that a bf16 forward
+   without its carry roundings fails, and at odd numbers of units a CTA
+   (B = 5, H = 30 and 120), the bf16-operand backward also at T = 2,
    where its bf16 roundings are held tight enough that the backward
    without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
    the same weights as a yardstick and a third opinion; and the training
@@ -647,6 +653,12 @@ def _gru_cluster_rows(proj, ys, gy, wh, bn, dtype, rows: int):
     return call, groups
 
 
+def _launches_per_call(fn) -> int:
+    """The CUDA launches of one traced call of ``fn``, of any kernel,
+    counted by the profiler."""
+    return _trace(fn, 1.0, by_launch=True)["launches"]
+
+
 def _gru_designs(proj, ys, gy, wh, bn, dtype, tiny) -> dict:
     """The backward's two designs at the main path's inputs: the first
     design's gradients and those of the cluster design with groups of
@@ -654,7 +666,8 @@ def _gru_designs(proj, ys, gy, wh, bn, dtype, tiny) -> dict:
     turns (per_step, cluster, rows_alt, rows_alt, cluster, per_step; 10
     calls each), each design's latency floor (the same walk at B = 1, H =
     4: ``tiny`` = (proj, ys, gy, wh, bn)), the cluster plan and how many
-    of its clusters the card holds at once."""
+    of its clusters the card holds at once, and each design's CUDA
+    launches a call."""
     from texttoaudiogrounding_tpu_torch.ops.kernels import gru
 
     def call(design, args=(proj, ys, gy, wh, bn)):
@@ -672,12 +685,172 @@ def _gru_designs(proj, ys, gy, wh, bn, dtype, tiny) -> dict:
             "ms": {d: sum(ms for n, ms in runs if n == d) / 2
                    for d in order},
             "turns_ms": runs,
+            "launches_per_call": {d: _launches_per_call(call(d))
+                                  for d in gru.DESIGNS},
             "floor_ms": {d: _cuda_ms(call(d, tiny), 10)
                          for d in gru.DESIGNS},
             "plan": plan,
             "co_resident_clusters": gru.cluster_occupancy(h, plan, dtype),
             "clusters": 2 * plan["groups"],
             "rows_alt": {"rows": GRU_ROWS_ALT, "clusters": 2 * alt_groups}}
+
+
+# batch rows a direction at which the forward's two designs are also held
+# to their plain versions, to each other and to torch.nn.GRU: a ragged B
+# whose groups differ in size, and the bench's B = 128, which runs the
+# cluster design in waves
+GRU_FWD_EXTRA_B = (13, 128)
+
+
+def _gru_fwd_designs(proj, wh, bn, dtype, tiny) -> dict:
+    """The forward's two designs at the main path's inputs: the first
+    design's outputs, both timed in turns (per_step, cluster, cluster,
+    per_step; 10 calls each), each design's latency floor (the same walk
+    at B = 1, H = 4: ``tiny`` = (proj, wh, bn)), the cluster design's
+    exchange floor (B = 1 at the main path's H, where 16 CTAs exchange
+    their slices of h_t each step around almost no arithmetic), the
+    cluster plan and how many of its clusters the card holds at once, and
+    each design's CUDA launches a call."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    def call(design, args=(proj, wh, bn)):
+        return lambda: gru.gru_forward(*args, dtype, design=design)
+
+    order = ("per_step", "cluster")
+    runs = [(d, _cuda_ms(call(d), 10)) for d in order + order[::-1]]
+    t, b2, h3 = proj.shape
+    plan = gru.forward_plan(b2 // 2, h3 // 3, dtype)
+    one_row = (proj[:, ::b2 // 2].contiguous(), wh, bn)      # row 0 of each
+    return {"per_step": call("per_step")(),
+            "exchange_floor_ms": _cuda_ms(call("cluster", one_row), 10),
+            "ms": {d: sum(ms for n, ms in runs if n == d) / 2
+                   for d in order},
+            "turns_ms": runs,
+            "launches_per_call": {d: _launches_per_call(call(d))
+                                  for d in gru.DESIGNS},
+            "floor_ms": {d: _cuda_ms(call(d, tiny), 10)
+                         for d in gru.DESIGNS},
+            "plan": plan,
+            "co_resident_clusters": gru.cluster_occupancy(
+                h3 // 3, plan, dtype, forward=True),
+            "clusters": 2 * plan["groups"]}
+
+
+# The forward's first GRU_FWD_SHORT_T steps, where a sum in another order
+# moves ys by about 5e-8: both carries are held to GRU_FWD_SHORT_TOL of
+# their plain versions, and the f32 carry (on Wh rounded to bf16, and on
+# Wh as it is) must miss the bf16 carry's plain version by
+# GRU_FWD_B16_MISS times that limit in the same run, so that a bf16
+# forward that rounds no carry fails.  Also at shapes with an odd number
+# of units a CTA (GRU_FWD_ODD, B = 5 at H = 30 and 120: 2 and 8 CTAs of
+# 15), where the bf16 carry's mma.sync epilogue holds a lone last column.
+GRU_FWD_SHORT_T, GRU_FWD_SHORT_TOL, GRU_FWD_B16_MISS = 2, 1e-5, 10
+GRU_FWD_ODD = ((5, 30), (5, 120))
+
+
+def _gru_fwd_short(proj, wh, bn) -> dict:
+    """The forward of both carries at the first GRU_FWD_SHORT_T steps of
+    ``proj`` against their plain versions, beside the f32 carry's gap to
+    the bf16 carry's plain version."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    b16 = torch.bfloat16
+    p = proj[:GRU_FWD_SHORT_T].contiguous()
+    ref16 = gru.gru_forward_plain(p, wh, bn, b16)
+    rel = {"f32": _err(gru.gru_forward(p, wh, bn),
+                       gru.gru_forward_plain(p, wh, bn))[1],
+           "bf16": _err(gru.gru_forward(p, wh, bn, b16), ref16)[1]}
+    miss = {"f32_carry_bf16_wh": _err(gru.gru_forward(
+                p, wh.to(b16).float(), bn), ref16)[1],
+            "f32_carry": _err(gru.gru_forward(p, wh, bn), ref16)[1]}
+    if (max(rel.values()) > GRU_FWD_SHORT_TOL
+            or min(miss.values()) < GRU_FWD_B16_MISS * GRU_FWD_SHORT_TOL):
+        raise AssertionError(
+            f"gru_fwd at T = {GRU_FWD_SHORT_T}, rows {proj.shape[1]}, H = "
+            f"{wh.shape[1]}: rel_rms {rel} (limit {GRU_FWD_SHORT_TOL}); the "
+            f"f32 carry off the bf16 carry's plain version by {miss} (must "
+            f"reach {GRU_FWD_B16_MISS} times the limit)")
+    return {"T": GRU_FWD_SHORT_T, "rel_rms_err": rel,
+            "tolerance": GRU_FWD_SHORT_TOL,
+            "f32_carry_rel_rms_vs_bf16_plain": miss}
+
+
+def _gru_fwd_odd(b: int, h: int, rng) -> dict:
+    """The cluster forward at ``b`` rows a direction of ``h`` units, an
+    odd number a CTA: each carry against its plain version over GRU_T
+    steps (1e-4 / 1e-2) and over the first GRU_FWD_SHORT_T."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    def tensor(shape, std):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(
+            np.float32)).to(DEVICE)
+
+    proj = tensor((GRU_T, 2 * b, 3 * h), 1.0)
+    wh = tensor((2, h, 3 * h), 1 / np.sqrt(h))
+    bn = tensor((2, h), 0.05)
+    plan = gru.forward_plan(b, h)
+    if plan["units"] % 2 == 0:
+        raise AssertionError(f"GRU_FWD_ODD: B = {b}, H = {h} gives "
+                             f"{plan['units']} units a CTA, not odd")
+    out = {"B": b, "H": h, "plan": plan,
+           "short_T": _gru_fwd_short(proj, wh, bn)}
+    for dtype, key, tol in ((torch.float32, "gru_fwd", 1e-4),
+                            (torch.bfloat16, "gru_fwd_bf16", 1e-2)):
+        err = _err(gru.gru_forward(proj, wh, bn, dtype),
+                   gru.gru_forward_plain(proj, wh, bn, dtype))
+        if err[1] > tol:
+            raise AssertionError(f"{key} at B = {b}, H = {h}: rel_rms "
+                                 f"{err[1]} > {tol}")
+        out[key] = {"rel_rms_err": err[1], "max_abs_err": err[0]}
+    return out
+
+
+def _gru_fwd_extra(project, lib, as_batch_first, wh, bn, b: int,
+                   rng) -> dict:
+    """Both forward designs at ``b`` rows a direction, each carry against
+    its plain version (1e-4 / 1e-2) and the first design, the f32 carry also
+    against ``torch.nn.GRU`` (1e-3 max abs), with each design's ms."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    x = torch.from_numpy(rng.normal(0, 1, (b, GRU_T, GRU_IN)).astype(
+        "float32")).to(wh.device)
+    proj = project(x)
+    with torch.no_grad():
+        lib_out, _ = lib(x)
+    out = {"B": b}
+    for dtype, key, tol in ((torch.float32, "gru_fwd", 1e-4),
+                            (torch.bfloat16, "gru_fwd_bf16", 1e-2)):
+        ys = gru.gru_forward(proj, wh, bn, dtype)
+        first = gru.gru_forward(proj, wh, bn, dtype, design="per_step")
+        errs = [_err(ys, gru.gru_forward_plain(proj, wh, bn, dtype)),
+                _err(ys, first),
+                _err(first, gru.gru_forward_plain(proj, wh, bn, dtype))]
+        if max(e[1] for e in errs) > tol:
+            raise AssertionError(
+                f"{key} at B = {b}: rel_rms (cluster vs plain, vs first "
+                f"design, first vs plain) {[e[1] for e in errs]} > {tol}")
+        rec = {"rel_rms_err": errs[0][1], "max_abs_err": errs[0][0],
+               "vs_per_step_rel_rms": errs[1][1],
+               "plan": gru.forward_plan(b, GRU_H, dtype),
+               "ms": _cuda_ms(lambda: gru.gru_forward(proj, wh, bn, dtype),
+                              10),
+               "per_step_ms": _cuda_ms(lambda: gru.gru_forward(
+                   proj, wh, bn, dtype, design="per_step"), 10)}
+        if dtype == torch.float32:
+            gap = float((as_batch_first(ys, b) - lib_out).abs().max())
+            if gap > 1e-3:
+                raise AssertionError(f"{key} at B = {b}: off torch.nn.GRU "
+                                     f"by {gap}")
+            rec["library_max_abs_diff"] = gap
+        out[key] = rec
+    return out
 
 
 def gru_kernel_phase(clips: int, rng) -> list:
@@ -696,6 +869,7 @@ def gru_kernel_phase(clips: int, rng) -> list:
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     x = tensor(rng.normal(0, 1, (b, t, d)))
+    x_rng = np.random.default_rng(1)          # the extra batch sizes' inputs
     w_ih = tensor(rng.normal(0, 1 / np.sqrt(d), (2, 3 * h, d)))
     w_hh = tensor(rng.normal(0, 1 / np.sqrt(h), (2, 3 * h, h)))
     b_ih = tensor(rng.normal(0, 0.05, (2, 3 * h)))
@@ -705,10 +879,14 @@ def gru_kernel_phase(clips: int, rng) -> list:
     # time-flipped, the r/z recurrent biases folded into the input ones
     bi = b_ih + torch.cat([b_hh[:, :2 * h], torch.zeros_like(b_hh[:, :h])],
                           dim=1)
-    xg = torch.stack([x, torch.flip(x, dims=(1,))])
-    proj = (torch.matmul(xg, w_ih.transpose(1, 2)[:, None])
-            + bi[:, None, None]).permute(2, 0, 1, 3).reshape(
-                t, 2 * b, 3 * h).contiguous()
+
+    def project(x):
+        xg = torch.stack([x, torch.flip(x, dims=(1,))])
+        return (torch.matmul(xg, w_ih.transpose(1, 2)[:, None])
+                + bi[:, None, None]).permute(2, 0, 1, 3).reshape(
+                    t, 2 * x.shape[0], 3 * h).contiguous()
+
+    proj = project(x)
     wh = w_hh.transpose(1, 2).contiguous()
     bn = b_hh[:, 2 * h:].contiguous()
 
@@ -731,8 +909,8 @@ def gru_kernel_phase(clips: int, rng) -> list:
         out, _ = lib(x)
         out.backward(gy_lib)
 
-    def as_batch_first(ys):
-        ys = ys.reshape(t, 2, b, h).permute(1, 2, 0, 3)
+    def as_batch_first(ys, rows=b):
+        ys = ys.reshape(t, 2, rows, h).permute(1, 2, 0, 3)
         return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)
 
     ys = gru.gru_forward(proj, wh, bn)
@@ -761,7 +939,16 @@ def gru_kernel_phase(clips: int, rng) -> list:
             torch.zeros(2, 4, device=dev))
     tiny_ys = gru.gru_forward(*tiny)
     tiny_bwd = (tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:])
-    floor_fwd = _cuda_ms(lambda: gru.gru_forward(*tiny), 10)
+    # the forward's two designs, f32 and bf16 carry; then both at the
+    # extra batch sizes
+    fwd_designs = {"gru_fwd": _gru_fwd_designs(proj, wh, bn, torch.float32,
+                                               tiny),
+                   "gru_fwd_bf16": _gru_fwd_designs(proj, wh, bn,
+                                                    torch.bfloat16, tiny)}
+    fwd_extra = [_gru_fwd_extra(project, lib, as_batch_first, wh, bn, eb,
+                                x_rng) for eb in GRU_FWD_EXTRA_B]
+    fwd_short = _gru_fwd_short(proj, wh, bn)
+    fwd_odd = [_gru_fwd_odd(ob, oh, x_rng) for ob, oh in GRU_FWD_ODD]
     floor_walk = {v: _cuda_ms(lambda v=v: gru.gru_walk(
         tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:], v), 10)
         for v in gru.VARIANTS}
@@ -813,11 +1000,10 @@ def gru_kernel_phase(clips: int, rng) -> list:
     rows = [
         dict(name="gru_fwd", got=ys, ref=ys_plain, tol=1e-4,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
-             kernel=lambda: gru.gru_forward(proj, wh, bn),
              plain=lambda: gru.gru_forward_plain(proj, wh, bn),
              bound=_bound(fwd_bytes, {"f32": fwd_ops}),
-             library_ms=lib_fwd_ms, latency_floor_ms=floor_fwd,
-             library_max_abs_diff=lib_gap),
+             library_ms=lib_fwd_ms, library_max_abs_diff=lib_gap,
+             fwd_designs=fwd_designs["gru_fwd"]),
         dict(name="gru_bwd", got=grads, ref=grads_plain, tol=1e-4,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
              plain=lambda: gru.gru_backward_plain(proj, ys_plain, gy, wh,
@@ -828,11 +1014,11 @@ def gru_kernel_phase(clips: int, rng) -> list:
              designs=designs["gru_bwd"]),
         dict(name="gru_fwd_bf16", got=ys16, ref=ys16_plain, tol=1e-2,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
-             kernel=lambda: gru.gru_forward(proj, wh, bn, torch.bfloat16),
              plain=lambda: gru.gru_forward_plain(proj, wh, bn,
                                                  torch.bfloat16),
              bound=_bound(fwd_bytes, {"bf16": fwd_ops}),
-             library_ms=lib16_ms, latency_floor_ms=floor_fwd),
+             library_ms=lib16_ms, fwd_designs=fwd_designs["gru_fwd_bf16"],
+             short_T=fwd_short),
         dict(name="gru_bwd_bf16", got=grads16, ref=grads16_plain,
              tol=GRU_B16_TOL, short_T=short,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:283",
@@ -892,9 +1078,41 @@ def gru_kernel_phase(clips: int, rng) -> list:
                 vs_per_step_max_abs=first[1][0], plan=d["plan"],
                 clusters=d["clusters"],
                 co_resident_clusters=d["co_resident_clusters"],
-                cuda_launches_per_call=2, per_step_cuda_launches_per_call=t,
+                cuda_launches_per_call=d["launches_per_call"]["cluster"],
+                per_step_cuda_launches_per_call=d["launches_per_call"][
+                    "per_step"],
                 per_step_source=source)
             source = "texttoaudiogrounding_tpu_torch/csrc/gru_bwd_sm90.cu"
+        elif "fwd_designs" in row:
+            d = row["fwd_designs"]
+            first = [_max_err(d["per_step"], row["ref"]),
+                     _max_err(row["got"], d["per_step"])]
+            if max(e[1] for e in first) > row["tol"]:
+                raise AssertionError(
+                    f"{row['name']}: the first design off its plain version "
+                    f"or the second design off the first: rel_rms "
+                    f"{[e[1] for e in first]} > {row['tol']}")
+            kernel_ms = d["ms"]["cluster"]
+            key = row["name"]
+            extra.update(
+                per_step_ms=d["ms"]["per_step"], turns_ms=d["turns_ms"],
+                latency_floor_ms=d["floor_ms"]["cluster"],
+                per_step_latency_floor_ms=d["floor_ms"]["per_step"],
+                exchange_floor_ms=d["exchange_floor_ms"],
+                per_step_rel_rms_err=first[0][1],
+                vs_per_step_rel_rms=first[1][1],
+                vs_per_step_max_abs=first[1][0], plan=d["plan"],
+                clusters=d["clusters"],
+                co_resident_clusters=d["co_resident_clusters"],
+                cuda_launches_per_call=d["launches_per_call"]["cluster"],
+                per_step_cuda_launches_per_call=d["launches_per_call"][
+                    "per_step"],
+                per_step_source=source,
+                other_batches=[{"B": e["B"], **e[key]} for e in fwd_extra],
+                odd_units=[{"B": e["B"], "H": e["H"], "plan": e["plan"],
+                            "short_T": e["short_T"], **e[key]}
+                           for e in fwd_odd])
+            source = "texttoaudiogrounding_tpu_torch/csrc/gru_fwd_sm90.cu"
         else:
             kernel_ms = _cuda_ms(row["kernel"], 10)
         out.append({
@@ -2562,10 +2780,10 @@ def _ptxas(source: str) -> list:
         bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)>", name)
         if bn:
             k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
-        if "gru_bwd_cluster<" in name:
+        if "gru_bwd_cluster<" in name or "gru_fwd_cluster<" in name:
             from texttoaudiogrounding_tpu_torch.ops.kernels import gru
-            k["dynamic_smem"] = gru.cluster_plan(KERNEL_CLIPS,
-                                                 GRU_H)["smem"]
+            plan = (gru.forward_plan if "fwd" in name else gru.cluster_plan)
+            k["dynamic_smem"] = plan(KERNEL_CLIPS, GRU_H)["smem"]
     return out
 
 
@@ -2604,7 +2822,8 @@ def main() -> int:
                       "sources": [s.name for s in _build.sources()],
                       "card": smi}), flush=True)
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
-                                          "logmel_v2", "gru_bwd_sm90")}
+                                          "logmel_v2", "gru_fwd_sm90",
+                                          "gru_bwd_sm90")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

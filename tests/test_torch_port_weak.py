@@ -15,12 +15,28 @@ step).  Tolerances:
   ``weak_output_transform``), the port's GRU on the hoisted ``v2``
   backward against the JAX runner's step on the CPU (its GRU a
   ``lax.scan`` under ``jax.grad``; ``tests/test_torch_port_gru.py`` holds
-  the v2 / v3 walks to the JAX kernels in interpret mode): the tolerances
-  of ``tests/test_torch_port_train.py`` (loss rtol 1e-5, gradients 1e-4
-  relative RMS after the conv trunk and 2e-2 in it, running statistics
-  1e-5; measured 8.6e-8, 3.7e-6, 3.9e-3 and 6.2e-6).  The JAX step runs
-  eagerly: under ``jax.jit`` one ReLU at fc1 flips sign, and fc1's kernel
-  gradient moves by 5.7e-3 from the eager step's;
+  the v2 / v3 walks to the JAX kernels in interpret mode): loss rtol 1e-5
+  (measured 1.7e-7) and running statistics 1e-5, and each conv-trunk
+  gradient within twice the larger of the two packages' own change when
+  the waveform is scaled by 1 + 1e-6, measured in the test parameter by
+  parameter.  The step is that ill-conditioned: batch 2, 1 s clips,
+  train-mode BN.  Under the scaling the port's trunk gradients move by
+  1.5-1.9e-2 relative RMS and JAX's by 0.6-1.0e-2, and the port-vs-JAX
+  gap reads 1.5-2.0e-2 (0.50-0.56 of the bound, on an 8-core AMD EPYC
+  without AMX; 3.9e-3 on the CPU where the test was written).  The
+  largest discrete event is one ReLU at fc1 (clip 0, frame 14, unit 322)
+  whose input is +3.3e-7 in the port and -8.3e-6 in JAX.  The rule is the
+  same on both sides; the last-bit differences of the trunk put it on
+  either side of 0, and the scaling moves the port's to JAX's side.  It
+  moves fc1's and block 4's bn2 gradients by 5e-3.  So the gradients
+  after the trunk are held twice: within the larger of 1e-4 and twice the
+  packages' own change on the step itself (fc1 reads 5.7e-3 against an
+  own change of 5.7e-3, the GRU and text side 0.2-3.9e-6), and at 1e-4
+  (measured at most 3.5e-7) on a second port step run on from JAX's
+  trunk output (block 4's output replaced by it, a forward hook), whose
+  loss is held at rtol 1e-5 too.  The JAX step
+  runs eagerly: under ``jax.jit`` one ReLU at fc1 flips sign, and fc1's
+  kernel gradient moves by 5.7e-3 from the eager step's;
 * ``AudioSamplePhrasesDataset``: items identical to the JAX class's for
   every negative-sampling strategy at the same seed and ``reseed`` salt;
 * the NaN guard + clipping + Adam against ``optax``: 2e-7 absolute on the
@@ -198,42 +214,91 @@ def test_multitext_forward_matches_jax(case):
         assert rel <= 1e-4, (key, rel)
 
 
-def test_whole_wstag_train_step_matches_the_jax_runner(monkeypatch):
-    batch = _batch()
-    spec = _MODELS["dot_linear_softmax"]
-    jmodel = _jax_model(*spec)
-    variables = jax.tree.map(np.asarray, jmodel.init(
-        {"params": jax.random.PRNGKey(0)}, batch, train=False))
-    with monkeypatch.context() as mp:
-        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+def _is_trunk(name: str) -> bool:
+    return "conv_block" in name or "bn0" in name
 
-        def loss_of(params):
+
+def _scaled(batch: dict, factor: float) -> dict:
+    return dict(batch, waveform=(batch["waveform"] * np.float32(factor))
+                .astype(np.float32))
+
+
+def _jax_wstag_step(jmodel, variables, batch):
+    """The eager JAX step, dropout the identity: (loss, the port-named
+    gradients and mutated running statistics, block 4's output)."""
+    taken = {}
+
+    def take(f, args, kwargs, ctx):
+        out = f(*args, **kwargs)
+        if ctx.method_name == "__call__" and ctx.module.name == \
+                "conv_block4":
+            taken["trunk"] = out
+        return out
+
+    def loss_of(params):
+        with fnn.intercept_methods(take):
             out, mut = jmodel.apply(
                 {"params": params, "batch_stats": variables["batch_stats"]},
                 batch, train=True, mutable=["batch_stats"])
-            return JClipBce()(j_output_transform(out, batch)), mut
+        return JClipBce()(j_output_transform(out, batch)), (
+            mut, jax.lax.stop_gradient(taken["trunk"]))
 
-        (jloss, mut), grads = jax.value_and_grad(loss_of, has_aux=True)(
-            variables["params"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        (loss, (mut, trunk)), grads = jax.value_and_grad(
+            loss_of, has_aux=True)(variables["params"])
     ref = from_jax_variables(jax.tree.map(
         np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}))
+    return float(loss), ref, np.array(trunk, np.float32)
 
-    model = _port_model(*spec, dropout=(0.0, 0.0), gru_bwd="v2")
+
+def _port_wstag_step(variables, batch, trunk=None):
+    """The port's step on the ``v2`` backward; with ``trunk`` block 4's
+    output is replaced by it."""
+    model = _port_model(*_MODELS["dot_linear_softmax"], dropout=(0.0, 0.0),
+                        gru_bwd="v2")
     model.load_state_dict(from_jax_variables(variables))
     model.train()
+    if trunk is not None:
+        model.audio_encoder.conv_block4.register_forward_hook(
+            lambda mod, args, out: torch.from_numpy(trunk))
     tb = to_device(batch, torch.device("cpu"))
-    gru.launches["gru_bwd_v2"] = 0
     loss = ClipBceLoss()(weak_output_transform(model(tb), tb))
     loss.backward()
-    assert loss.item() == pytest.approx(float(jloss), rel=1e-5)
-    for name, p in model.named_parameters():
-        trunk = "conv_block" in name or "bn0" in name
+    return model, loss.item()
+
+
+def test_whole_wstag_train_step_matches_the_jax_runner():
+    batch = _batch()
+    jmodel = _jax_model(*_MODELS["dot_linear_softmax"])
+    variables = jax.tree.map(np.asarray, jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, batch, train=False))
+    jloss, ref, jtrunk = _jax_wstag_step(jmodel, variables, batch)
+    _, ref_s, _ = _jax_wstag_step(jmodel, variables, _scaled(batch, 1 + 1e-6))
+    gru.launches["gru_bwd_v2"] = 0
+    model, loss = _port_wstag_step(variables, batch)
+    model_s, _ = _port_wstag_step(variables, _scaled(batch, 1 + 1e-6))
+    assert loss == pytest.approx(jloss, rel=1e-5)
+    grads_s = dict(model_s.named_parameters())
+    params = list(model.named_parameters())
+    assert sum(_is_trunk(n) for n, _ in params) == 26
+    for name, p in params:
+        own = max(_rel_rms(grads_s[name].grad.numpy(), p.grad.numpy()),
+                  _rel_rms(ref_s[name].numpy(), ref[name].numpy()))
         rel = _rel_rms(p.grad.numpy(), ref[name].numpy())
-        assert rel <= (2e-2 if trunk else 1e-4), (name, rel)
+        bound = 2 * own if _is_trunk(name) else max(2 * own, 1e-4)
+        assert rel <= bound, (name, rel, own)
     for name, buf in model.named_buffers():
         if "running" in name:
             np.testing.assert_allclose(buf.numpy(), ref[name].numpy(),
                                        rtol=0, atol=1e-5, err_msg=name)
+    pinned, loss = _port_wstag_step(variables, batch, jtrunk)
+    assert loss == pytest.approx(jloss, rel=1e-5)
+    rest = [(n, p) for n, p in pinned.named_parameters() if not _is_trunk(n)]
+    assert len(rest) == 15
+    for name, p in rest:
+        rel = _rel_rms(p.grad.numpy(), ref[name].numpy())
+        assert rel <= 1e-4, (name, rel)
     assert gru.launches["gru_bwd_v2"] == 0      # the CPU runs the plain walk
 
 

@@ -92,7 +92,8 @@ class Cnn8Rnn(nn.Module):
         if freeze_cnn or freeze_bn:
             raise NotImplementedError(
                 "freeze_cnn / freeze_bn are not ported yet (ROADMAP.md, "
-                "Queue 1 item 4: the freeze masks)")
+                "Queue 1: the rest of the training surface, the freeze "
+                "masks)")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError("dtype must be torch.float32 or torch.bfloat16")
         if conv_mode is not None and dtype != torch.bfloat16:

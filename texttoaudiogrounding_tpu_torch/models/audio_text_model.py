@@ -69,7 +69,8 @@ class MultiTextBiEncoder(nn.Module):
     ``text_forward_keys`` (``text_len`` always among them) go through the
     text encoder as ``[B·N, L]``.
 
-    Not ported yet (ROADMAP.md, Queue 1 item 5): the broadcast branch
+    Not ported yet (ROADMAP.md, Queue 1: the rest of WSTAG, and the rest
+    of the training surface for the freeze masks): the broadcast branch
     (a cross encoder, or a match function without a sequence-level
     ``pairwise``), ``upsample=True`` and the freeze flags."""
 
@@ -86,11 +87,12 @@ class MultiTextBiEncoder(nn.Module):
             raise NotImplementedError(
                 "only the pairwise branch (no cross encoder, a sequence-"
                 "level match function with pairwise) is ported (ROADMAP.md, "
-                "Queue 1 item 5)")
+                "Queue 1: the rest of WSTAG)")
         if upsample or freeze_audio_encoder or freeze_text_encoder:
             raise NotImplementedError(
                 "upsample and the freeze flags are not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                "(ROADMAP.md, Queue 1: the rest of WSTAG, and the freeze "
+                "masks in the rest of the training surface)")
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be one of {sorted(POOLINGS)}")
         self.audio_encoder = audio_encoder

@@ -1,4 +1,5 @@
-"""Bidirectional GRU recurrence, forward and backward: ``csrc/gru.cu``.
+"""Bidirectional GRU recurrence, forward and backward: ``csrc/gru.cu``,
+``csrc/gru_fwd_sm90.cu`` and ``csrc/gru_bwd_sm90.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/gru.py``: ``:62
 bigru_pallas`` (the forward, with an f32 or a bf16 carry), ``:199
@@ -18,14 +19,17 @@ time-flipped), ``wh [2, H, 3H]``, ``bn [2, H]`` → ``ys [T, 2B, H]`` f32.
 Each wrapper launches the kernel for CUDA tensors and runs the plain
 PyTorch version of the same arithmetic for CPU tensors; ``launches``
 counts the wrappers' calls by kernel (one call of a C entry point runs
-the whole walk).  The backward of ``:199`` runs by default on its second
-design, ``csrc/gru_bwd_sm90.cu``: one cluster launch a walk and one
-launch that sums the batch groups' dWh / dbn (:func:`cluster_plan`,
-:func:`gru_backward_cluster_emulated`).  Its first design, one CUDA
-launch a step in ``csrc/gru.cu``, stays callable as
-``gru_backward(..., design="per_step")``, as do the forwards and the
-hoisted walks, which still launch once a step.  The hoisted backward's
-dWh product after the walk is ``torch.bmm`` in full f32 on either device.
+the whole walk).  The forward of ``:62`` runs by default on its second
+design, ``csrc/gru_fwd_sm90.cu``: one cluster launch a walk
+(:func:`forward_plan`, :func:`gru_forward_cluster_emulated`); the
+backward of ``:199`` on ``csrc/gru_bwd_sm90.cu``: one cluster launch a
+walk and one launch that sums the batch groups' dWh / dbn
+(:func:`cluster_plan`, :func:`gru_backward_cluster_emulated`).  Their
+first designs, one CUDA launch a step in ``csrc/gru.cu``, stay callable
+as ``gru_forward(..., design="per_step")`` and ``gru_backward(...,
+design="per_step")``; the hoisted walks still launch once a step.  The
+hoisted backward's dWh product after the walk is ``torch.bmm`` in full
+f32 on either device.
 """
 
 from __future__ import annotations
@@ -37,16 +41,18 @@ import torch
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
 # calls of the C entry points through gru_forward and gru_backward, by
-# operand type (gru_backward's first design as ``*_per_step``), and
-# through gru_walk, by variant
-launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_bwd": 0, "gru_bwd_bf16": 0,
+# operand type (the first designs as ``*_per_step``), and through
+# gru_walk, by variant
+launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_fwd_per_step": 0,
+            "gru_fwd_bf16_per_step": 0, "gru_bwd": 0, "gru_bwd_bf16": 0,
             "gru_bwd_per_step": 0, "gru_bwd_bf16_per_step": 0,
             "gru_bwd_v2": 0, "gru_bwd_v3": 0}
 # the hoisted f32 backwards: the dh chain as one K = 3H dot (v2) or as
 # three K = H dots added in gate order (v3)
 VARIANTS = ("v2", "v3")
-# gru_backward's designs: one cluster launch a walk (csrc/gru_bwd_sm90.cu),
-# or one launch a step (csrc/gru.cu)
+# gru_forward's and gru_backward's designs: one cluster launch a walk
+# (csrc/gru_fwd_sm90.cu, csrc/gru_bwd_sm90.cu), or one launch a step
+# (csrc/gru.cu)
 DESIGNS = ("cluster", "per_step")
 
 _SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
@@ -55,6 +61,9 @@ _JT = 4               # hidden units per block (csrc/gru.cu)
 # most; CTAs a cluster; threads a CTA (one per k, and the rows of its Wh
 # and h tiles); the gate product's K slice a warp
 _UMAX, _RMAX, _CLUSTER_MAX, _THREADS, _KW = 16, 12, 16, 256, 32
+# csrc/gru_fwd_sm90.cu: the gate product's K slices, one a warp, summed in
+# warp order
+_FWD_WARPS = 8
 
 
 def _dims(proj: torch.Tensor) -> tuple:
@@ -143,6 +152,88 @@ def gru_backward_plain(proj: torch.Tensor, ys: torch.Tensor,
     return dproj, dwh, dbn
 
 
+def _in_order(parts) -> torch.Tensor:
+    """The sum of ``parts``, added one after another in their order."""
+    total = parts[0]
+    for x in parts[1:]:
+        total = total + x
+    return total
+
+
+def _split(b: int, h: int) -> tuple:
+    """``(ctas, groups, rows)`` of a cluster design: the fewest CTAs, at
+    most 16, that divide H into at most 16 units each, and groups of at
+    most 12 rows, as evenly filled as their count allows."""
+    ctas = next((c for c in range(-(-h // _UMAX), _CLUSTER_MAX + 1)
+                 if h % c == 0), None)
+    if ctas is None:
+        raise ValueError(f"H = {h} splits into no cluster of at most "
+                         f"{_CLUSTER_MAX} CTAs of at most {_UMAX} units")
+    groups = -(-b // _RMAX)
+    return ctas, groups, -(-b // groups)
+
+
+def forward_plan(b: int, h: int, dtype: torch.dtype = torch.float32) -> dict:
+    """How ``csrc/gru_fwd_sm90.cu`` walks ``B = b`` rows of ``H = h`` units
+    a direction: ``ctas`` CTAs a cluster of ``units`` units each,
+    ``groups`` clusters a direction of at most 12 ``rows`` each (as
+    :func:`cluster_plan`), and the ``smem`` bytes of shared memory a CTA
+    takes (its Wh columns, the carry twice, the gate product's warp sums,
+    a barrier for each carry).
+    Raises ``ValueError`` on a shape the kernel cannot take."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the carry is float32 or bfloat16")
+    if b < 1 or h < 1:
+        raise ValueError("the GRU needs B >= 1 and H >= 1")
+    ctas, groups, rows = _split(b, h)
+    cols = 3 * (h // ctas)
+    smem = 4 * (-(-h * cols // 4) * 4 + 2 * h * _RMAX
+                + -(-_FWD_WARPS * _RMAX * cols // 2) * 2) + 16
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the cluster GRU forward needs {smem} bytes of "
+                         f"shared memory at H={h}; the card has {_SMEM_MAX}")
+    return {"ctas": ctas, "units": h // ctas, "groups": groups,
+            "rows": rows, "smem": smem}
+
+
+def gru_forward_cluster_emulated(proj: torch.Tensor, wh: torch.Tensor,
+                                 bn: torch.Tensor,
+                                 dtype: torch.dtype = torch.float32, *,
+                                 ctas: int, groups: int) -> torch.Tensor:
+    """The forward summed in ``csrc/gru_fwd_sm90.cu``'s order, in plain
+    PyTorch: the rows walk in ``groups`` batch groups (of ``ceil(B /
+    groups)`` rows), the units split over ``ctas`` CTAs (which changes no
+    sum), and each step's gate product is the sum, in order, of the
+    products over 8 K slices of ``ceil(H / 8)``, one a warp.  Within a
+    slice the kernel adds sequential FMAs (f32 carry) or sums on the
+    tensor cores (``mma.sync``, bf16 carry), neither of which
+    ``torch.bmm`` reproduces: only the slice order is fixed.  ``dtype`` is
+    the carry's, rounded as in :func:`gru_forward_plain`."""
+    t, b, h = _dims(proj)
+    if ctas < 1 or h % ctas or not 1 <= groups <= b:
+        raise ValueError("ctas must divide H and 1 <= groups <= B")
+    rows, kw = -(-b // groups), -(-h // _FWD_WARPS)
+    whd = wh.to(dtype).float()
+    bnb = bn.float()[:, None]
+    pj = proj.float().reshape(t, 2, b, 3 * h)
+    ys = torch.empty(t, 2, b, h, dtype=torch.float32, device=proj.device)
+    for b0 in range(0, b, rows):
+        sl = slice(b0, min(b, b0 + rows))
+        carry = torch.zeros_like(ys[0, :, sl])
+        for step in range(t):
+            rzn = _in_order([torch.bmm(carry[..., k:k + kw],
+                                       whd[:, k:k + kw])
+                             for k in range(0, h, kw)])
+            pp = pj[step, :, sl]
+            r = torch.sigmoid(pp[..., :h] + rzn[..., :h])
+            z = torch.sigmoid(pp[..., h:2 * h] + rzn[..., h:2 * h])
+            n = torch.tanh(pp[..., 2 * h:] + r * (rzn[..., 2 * h:] + bnb))
+            out = (1 - z) * n + z * carry
+            ys[step, :, sl] = out
+            carry = out.to(dtype).float()
+    return ys.reshape(t, 2 * b, h)
+
+
 def cluster_plan(b: int, h: int, dtype: torch.dtype = torch.float32) -> dict:
     """How ``csrc/gru_bwd_sm90.cu`` walks ``B = b`` rows of ``H = h`` units
     a direction: ``ctas`` CTAs a cluster (the fewest, at most 16, that
@@ -158,13 +249,7 @@ def cluster_plan(b: int, h: int, dtype: torch.dtype = torch.float32) -> dict:
     if h > _THREADS:
         raise ValueError(f"the cluster GRU backward takes H <= {_THREADS}, "
                          f"not {h}")
-    ctas = next((c for c in range(-(-h // _UMAX), _CLUSTER_MAX + 1)
-                 if h % c == 0), None)
-    if ctas is None:
-        raise ValueError(f"H = {h} splits into no cluster of at most "
-                         f"{_CLUSTER_MAX} CTAs of at most {_UMAX} units")
-    groups = -(-b // _RMAX)
-    rows = -(-b // groups)
+    ctas, groups, rows = _split(b, h)
     cols = 3 * _UMAX
     smem = 4 * (_THREADS * cols + 3 * _THREADS * _RMAX + _RMAX * cols
                 + 2 * _RMAX * h + _THREADS // 32 * _RMAX * cols)
@@ -173,14 +258,6 @@ def cluster_plan(b: int, h: int, dtype: torch.dtype = torch.float32) -> dict:
                          f"shared memory at H={h}; the card has {_SMEM_MAX}")
     return {"ctas": ctas, "units": h // ctas, "groups": groups,
             "rows": rows, "smem": smem}
-
-
-def _in_order(parts) -> torch.Tensor:
-    """The sum of ``parts``, added one after another in their order."""
-    total = parts[0]
-    for x in parts[1:]:
-        total = total + x
-    return total
 
 
 def gru_backward_cluster_emulated(proj: torch.Tensor, ys: torch.Tensor,
@@ -355,15 +432,37 @@ _P, _I = _build.P, _build.I
 
 
 def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                design: str = "cluster") -> torch.Tensor:
     """``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]`` f32, with an f32 or a bf16
-    carry (``dtype``)."""
+    carry (``dtype``).  On the card ``design`` picks the kernel:
+    ``"cluster"`` (``csrc/gru_fwd_sm90.cu``, counted as ``gru_fwd`` /
+    ``gru_fwd_bf16``) or ``"per_step"`` (``csrc/gru.cu``'s first design,
+    counted as ``gru_fwd_per_step`` / ``gru_fwd_bf16_per_step``); a shape
+    the chosen design cannot take raises."""
     _check(proj, wh, bn)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the carry is float32 or bfloat16")
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}")
     if not proj.is_cuda:
         return gru_forward_plain(proj, wh, bn, dtype)
     t, b, h = _dims(proj)
+    name = "gru_fwd_bf16" if dtype == torch.bfloat16 else "gru_fwd"
+    if design == "cluster":
+        plan = forward_plan(b, h, dtype)
+        proj, wh, bn = _kernel_ready(proj, wh, bn)
+        ys = torch.empty(t, 2 * b, h, dtype=torch.float32,
+                         device=proj.device)
+        fn = _build.function("gru_fwd_sm90", "ttg_gru_fwd_cluster",
+                             [_P] * 4 + [_I] * 7 + [_P])
+        err = fn(proj.data_ptr(), wh.data_ptr(), bn.data_ptr(),
+                 ys.data_ptr(), t, b, h, plan["ctas"], plan["groups"],
+                 plan["rows"], int(dtype == torch.bfloat16),
+                 _build.stream())
+        launches[name] += 1
+        _build.check(err, "ttg_gru_fwd_cluster")
+        return ys
     _check_shape_for_kernel(b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT))
     proj, wh, bn = _kernel_ready(proj, wh, bn)
     ys = torch.empty(t, 2 * b, h, dtype=torch.float32, device=proj.device)
@@ -372,7 +471,6 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
                              [_P, _P, _P, _P, _I, _I, _I, _P])
         err = fn(proj.data_ptr(), wh.data_ptr(), bn.data_ptr(),
                  ys.data_ptr(), t, b, h, _build.stream())
-        name = "gru_fwd"
     else:
         whr = wh.to(torch.bfloat16).float()           # the bf16 operands
         hbuf = torch.empty(2, 2 * b, h, dtype=torch.bfloat16,
@@ -381,8 +479,7 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
                              [_P, _P, _P, _P, _P, _I, _I, _I, _P])
         err = fn(proj.data_ptr(), whr.data_ptr(), bn.data_ptr(),
                  ys.data_ptr(), hbuf.data_ptr(), t, b, h, _build.stream())
-        name = "gru_fwd_bf16"
-    launches[name] += 1
+    launches[f"{name}_per_step"] += 1
     _build.check(err, f"ttg_{name}")
     return ys
 
@@ -446,14 +543,23 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     return dproj, dwh, dbn
 
 
-def cluster_occupancy(h: int, plan: dict, dtype: torch.dtype) -> int:
-    """How many clusters of ``plan`` the card holds at once."""
+def cluster_occupancy(h: int, plan: dict, dtype: torch.dtype,
+                      forward: bool = False) -> int:
+    """How many clusters of ``plan`` (:func:`cluster_plan`'s, or with
+    ``forward`` :func:`forward_plan`'s) the card holds at once."""
     count = ctypes.c_int(0)
-    fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster_occupancy",
-                         [_I] * 4 + [_P])
-    _build.check(fn(h, plan["ctas"], plan["groups"],
-                    int(dtype == torch.bfloat16), ctypes.addressof(count)),
-                 "ttg_gru_bwd_cluster_occupancy")
+    b16 = int(dtype == torch.bfloat16)
+    if forward:
+        fn = _build.function("gru_fwd_sm90", "ttg_gru_fwd_cluster_occupancy",
+                             [_I] * 5 + [_P])
+        err = fn(h, plan["ctas"], plan["groups"], plan["rows"], b16,
+                 ctypes.addressof(count))
+    else:
+        fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster_occupancy",
+                             [_I] * 4 + [_P])
+        err = fn(h, plan["ctas"], plan["groups"], b16,
+                 ctypes.addressof(count))
+    _build.check(err, "ttg_gru_cluster_occupancy")
     return count.value
 
 
