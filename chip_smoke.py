@@ -10,8 +10,8 @@ Phases, each printing one line:
    power limit as ``nvidia-smi`` reports them; then the registers, shared
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
-   ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``) from their ``-Xptxas -v``
-   logs;
+   ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``) from
+   their ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -28,13 +28,17 @@ Phases, each printing one line:
    the BiGRU recurrence (forward with an f32 and a bf16 carry, backward
    with f32 and with bf16 operands, and the hoisted f32 backwards v2 and
    v3, whose walk and dWh product are also timed apart; each gradient
-   held on its own) at T = 250, 2B = 64, H = 256, the forward and the
-   backward on their second designs (``gru_fwd_sm90.cu`` and
-   ``gru_bwd_sm90.cu``, one cluster launch a walk) held to their plain
-   versions and to their first designs (``gru.cu``, one launch a step)
-   with the same tolerance, both timed in turns (first, second, second,
-   first) and at the latency floor (B = 1, H = 4), their CUDA launches a
-   call counted by the profiler, the forward also at a ragged B = 13 and
+   held on its own) at T = 250, 2B = 64, H = 256, the forward, the
+   backward and the hoisted walks on their second designs
+   (``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu`` and ``gru_walk_sm90.cu``, one
+   cluster launch a walk) held to their plain versions and to their first
+   designs (``gru.cu``, one launch a step) with the same tolerance, each
+   timed in turns (first, second, second, first) and at the latency floor
+   (B = 1, H = 4), the forward and the walks also at the exchange floor
+   (B = 1, H = 256), their CUDA launches a call counted by the profiler
+   (1 a walk for the hoisted walks), the walks also at a ragged B = 13, at
+   odd numbers of units a CTA (B = 5, H = 30 and 120) and at T = 2 within
+   1e-5 of their plain versions, the forward also at a ragged B = 13 and
    at B = 128 against its plain version, its first design and, with the
    f32 carry, ``torch.nn.GRU``, at T = 2 tight enough that a bf16 forward
    without its carry roundings fails, and at odd numbers of units a CTA
@@ -853,6 +857,115 @@ def _gru_fwd_extra(project, lib, as_batch_first, wh, bn, b: int,
     return out
 
 
+# The hoisted walks (row 16) are also held to their plain versions at a
+# ragged B, at odd units a CTA and over their first GRU_WALK_SHORT_T steps
+# (where another order of summation moves them by about 1e-7)
+GRU_WALK_SHAPES = ((13, 256), (5, 30), (5, 120))
+GRU_WALK_SHORT_T, GRU_WALK_SHORT_TOL = 2, 1e-5
+
+
+def _gru_walk_designs(proj, ys, gy, wh, bn, variant, tiny) -> dict:
+    """The hoisted walk ``variant``'s two designs at the main path's
+    inputs: the outputs of both and of the plain walk, both timed in turns
+    (per_step, cluster, cluster, per_step; 10 calls each) and the dWh
+    product after the walk apart, the whole backward of each design, each
+    design's latency floor (the walk at B = 1, H = 4: ``tiny`` = (proj,
+    ys, gy, wh, bn)), the cluster walk's exchange floor (B = 1 at the main
+    path's H), the plan and how many of its clusters the card holds at
+    once, and each design's CUDA launches a walk."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    def call(design, args=(proj, ys, gy, wh, bn)):
+        return lambda: gru.gru_walk(*args, variant, design)
+
+    order = ("per_step", "cluster")
+    runs = [(d, _cuda_ms(call(d), 10)) for d in order + order[::-1]]
+    got = call("cluster")()
+    t, b2, h = ys.shape
+    plan = gru.walk_plan(b2 // 2, h)
+    one_row = tuple(x[:, ::b2 // 2].contiguous() for x in (proj, ys, gy))
+    launches = {d: _launches_per_call(call(d)) for d in gru.DESIGNS}
+    if launches["cluster"] != 1:
+        raise AssertionError(f"gru_bwd_{variant}: the cluster walk made "
+                             f"{launches['cluster']} CUDA launches, not 1")
+    return {"got": got, "per_step": call("per_step")(),
+            "plain": gru.gru_walk_plain(proj, ys, gy, wh, bn,
+                                        variant == "v3"),
+            "ms": {d: sum(ms for n, ms in runs if n == d) / 2
+                   for d in order},
+            "turns_ms": runs,
+            "dwh_product_ms": _cuda_ms(
+                lambda: gru.hoisted_weight_grads(ys, *got), 10),
+            "whole_ms": {d: _cuda_ms(lambda d=d: gru.gru_backward_hoisted(
+                proj, ys, gy, wh, bn, variant, d), 10) for d in gru.DESIGNS},
+            "floor_ms": {d: _cuda_ms(call(d, tiny), 10) for d in gru.DESIGNS},
+            "exchange_floor_ms": _cuda_ms(call("cluster", one_row + (wh, bn)),
+                                          10),
+            "launches_per_call": launches, "plan": plan,
+            "co_resident_clusters": gru.cluster_occupancy(
+                h, plan, torch.float32, variant=variant),
+            "clusters": 2 * plan["groups"]}
+
+
+def _gru_walk_short(proj, ys, gy, wh, bn, variant) -> dict:
+    """The cluster walk over the first GRU_WALK_SHORT_T steps of its inputs
+    against the plain walk, within GRU_WALK_SHORT_TOL."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    args = tuple(x[:GRU_WALK_SHORT_T].contiguous() for x in (proj, ys, gy))
+    err = _max_err(gru.gru_walk(*args, wh, bn, variant),
+                   gru.gru_walk_plain(*args, wh, bn, variant == "v3"))
+    if err[1] > GRU_WALK_SHORT_TOL:
+        raise AssertionError(
+            f"gru_bwd_{variant} walk at T = {GRU_WALK_SHORT_T}, rows "
+            f"{proj.shape[1]}, H = {wh.shape[1]}: rel_rms {err[1]} > "
+            f"{GRU_WALK_SHORT_TOL}")
+    return {"T": GRU_WALK_SHORT_T, "rel_rms_err": err[1],
+            "max_abs_err": err[0], "tolerance": GRU_WALK_SHORT_TOL}
+
+
+def _gru_walk_shapes(rng) -> list:
+    """Both hoisted walks at GRU_WALK_SHAPES (B, H) over GRU_T steps
+    against their plain versions (1e-4) and, where H suits it, their first
+    design, and over the first GRU_WALK_SHORT_T steps (1e-5)."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    def tensor(shape, std):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(
+            np.float32)).to(DEVICE)
+
+    out = []
+    for b, h in GRU_WALK_SHAPES:
+        proj = tensor((GRU_T, 2 * b, 3 * h), 1.0)
+        wh = tensor((2, h, 3 * h), 1 / np.sqrt(h))
+        bn = tensor((2, h), 0.05)
+        gy = tensor((GRU_T, 2 * b, h), 1.0)
+        ys = gru.gru_forward_plain(proj, wh, bn)
+        rec = {"B": b, "H": h, "plan": gru.walk_plan(b, h)}
+        for v in gru.VARIANTS:
+            got = gru.gru_walk(proj, ys, gy, wh, bn, v)
+            errs = {"plain": _max_err(got, gru.gru_walk_plain(
+                proj, ys, gy, wh, bn, v == "v3"))}
+            if h % 4 == 0:                   # the first design's JT = 4
+                errs["per_step"] = _max_err(got, gru.gru_walk(
+                    proj, ys, gy, wh, bn, v, "per_step"))
+            if max(e[1] for e in errs.values()) > 1e-4:
+                raise AssertionError(f"gru_bwd_{v} walk at B = {b}, H = {h}: "
+                                     f"rel_rms {errs} > 1e-4")
+            rec[v] = {"rel_rms_err": errs["plain"][1],
+                      "max_abs_err": errs["plain"][0],
+                      "vs_per_step_rel_rms": errs.get("per_step",
+                                                      (None, None))[1],
+                      "short_T": _gru_walk_short(proj, ys, gy, wh, bn, v)}
+        out.append(rec)
+    return out
+
+
 def gru_kernel_phase(clips: int, rng) -> list:
     """The GRU kernels against their plain versions at T = 250, 2B = 64,
     H = 256, beside ``torch.nn.GRU`` on the same weights; the backward's
@@ -949,15 +1062,18 @@ def gru_kernel_phase(clips: int, rng) -> list:
                                 x_rng) for eb in GRU_FWD_EXTRA_B]
     fwd_short = _gru_fwd_short(proj, wh, bn)
     fwd_odd = [_gru_fwd_odd(ob, oh, x_rng) for ob, oh in GRU_FWD_ODD]
-    floor_walk = {v: _cuda_ms(lambda v=v: gru.gru_walk(
-        tiny[0], tiny_ys, torch.zeros_like(tiny_ys), *tiny[1:], v), 10)
-        for v in gru.VARIANTS}
+    # the hoisted walks' two designs, at the main path's inputs, then at
+    # the extra shapes
+    walk_designs = {v: _gru_walk_designs(proj, ys_plain, gy, wh, bn, v,
+                                         tiny_bwd) for v in gru.VARIANTS}
+    walk_short = {v: _gru_walk_short(proj, ys_plain, gy, wh, bn, v)
+                  for v in gru.VARIANTS}
+    walk_shapes = _gru_walk_shapes(x_rng)
     # the backward's two designs, f32 and bf16 operands
     designs = {"gru_bwd": _gru_designs(proj, ys_plain, gy, wh, bn,
                                        torch.float32, tiny_bwd),
                "gru_bwd_bf16": _gru_designs(proj, ys16_plain, gy, wh, bn,
                                             b16, tiny_bwd)}
-    floor_bwd = designs["gru_bwd"]["floor_ms"]["per_step"]
 
     fwd_bytes = 4 * (proj.numel() + ys.numel() + wh.numel() + bn.numel())
     fwd_ops = 2.0 * t * 2 * b * h * 3 * h
@@ -972,19 +1088,9 @@ def gru_kernel_phase(clips: int, rng) -> list:
     product_bound = _bound(4 * (proj.numel() * 2 // 3 + 2 * ys.numel()
                                 + wh.numel() + bn.numel()),
                            {"f32": fwd_ops})
-    parts = {}
-    for v in gru.VARIANTS:
-        dproj_v, drznn_v = gru.gru_walk(proj, ys_plain, gy, wh, bn, v)
-        parts[v] = {
-            "walk_ms": _cuda_ms(lambda v=v: gru.gru_walk(
-                proj, ys_plain, gy, wh, bn, v), 10),
-            "dwh_product_ms": _cuda_ms(
-                lambda d=dproj_v, r=drznn_v: gru.hoisted_weight_grads(
-                    ys_plain, d, r), 10),
-            "walk_bound_ms": walk_bound[0],
-            "dwh_product_bound_ms": product_bound[0],
-            "walk_latency_floor_ms": floor_walk[v]}
-        del dproj_v, drznn_v
+    parts = {v: {"walk_bound_ms": walk_bound[0],
+                 "dwh_product_bound_ms": product_bound[0]}
+             for v in gru.VARIANTS}
     lib_fwd_ms = _cuda_ms(lambda: lib(x), 10)
     lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
     with torch.no_grad():
@@ -1033,13 +1139,14 @@ def gru_kernel_phase(clips: int, rng) -> list:
              tol=1e-4, parts=parts[v],
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:"
              + {"v2": "540", "v3": "566"}[v],
-             kernel=lambda v=v: gru.gru_backward_hoisted(
-                 proj, ys_plain, gy, wh, bn, v),
              plain=lambda v=v: gru.gru_backward_hoisted_plain(
                  proj, ys_plain, gy, wh, bn, v == "v3"),
              bound=_bound(bwd_bytes, {"f32": 3 * fwd_ops}),
              library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
-             library_fwd_bwd_ms=lib_fwd_bwd_ms, latency_floor_ms=floor_bwd)
+             library_fwd_bwd_ms=lib_fwd_bwd_ms,
+             walk_designs=walk_designs[v], short_T=walk_short[v],
+             other_shapes=[{"B": e["B"], "H": e["H"], "plan": e["plan"],
+                            **e[v]} for e in walk_shapes])
         for v in gru.VARIANTS]
     out = []
     for row in rows:
@@ -1051,7 +1158,7 @@ def gru_kernel_phase(clips: int, rng) -> list:
         plain_ms = _cuda_ms(row["plain"], 2)
         extra = {k: row[k] for k in ("library_fwd_bwd_ms",
                                      "library_max_abs_diff", "short_T",
-                                     "latency_floor_ms")
+                                     "other_shapes")
                  if k in row}
         extra.update(row.get("parts", {}))
         source = "texttoaudiogrounding_tpu_torch/csrc/gru.cu"
@@ -1113,6 +1220,38 @@ def gru_kernel_phase(clips: int, rng) -> list:
                             "short_T": e["short_T"], **e[key]}
                            for e in fwd_odd])
             source = "texttoaudiogrounding_tpu_torch/csrc/gru_fwd_sm90.cu"
+        elif "walk_designs" in row:
+            d = row["walk_designs"]
+            first = [_max_err(d["got"], d["plain"]),
+                     _max_err(d["per_step"], d["plain"]),
+                     _max_err(d["got"], d["per_step"])]
+            if max(e[1] for e in first) > row["tol"]:
+                rel = [e[1] for e in first]
+                raise AssertionError(
+                    f"{row['name']}: the cluster walk off the plain walk, "
+                    f"the first design off it or the cluster walk off the "
+                    f"first: rel_rms {rel} > {row['tol']}")
+            kernel_ms = d["whole_ms"]["cluster"]
+            extra.update(
+                per_step_ms=d["whole_ms"]["per_step"],
+                walk_ms=d["ms"]["cluster"],
+                per_step_walk_ms=d["ms"]["per_step"],
+                walk_turns_ms=d["turns_ms"],
+                dwh_product_ms=d["dwh_product_ms"],
+                latency_floor_ms=d["floor_ms"]["cluster"],
+                per_step_latency_floor_ms=d["floor_ms"]["per_step"],
+                exchange_floor_ms=d["exchange_floor_ms"],
+                walk_rel_rms_err=first[0][1],
+                per_step_walk_rel_rms_err=first[1][1],
+                vs_per_step_rel_rms=first[2][1],
+                vs_per_step_max_abs=first[2][0], plan=d["plan"],
+                clusters=d["clusters"],
+                co_resident_clusters=d["co_resident_clusters"],
+                cuda_launches_per_call=d["launches_per_call"]["cluster"],
+                per_step_cuda_launches_per_call=d["launches_per_call"][
+                    "per_step"],
+                per_step_source=source)
+            source = "texttoaudiogrounding_tpu_torch/csrc/gru_walk_sm90.cu"
         else:
             kernel_ms = _cuda_ms(row["kernel"], 10)
         out.append({
@@ -2743,8 +2882,8 @@ def _ptxas(source: str) -> list:
     ``csrc/<source>.cu`` from its ``nvcc -Xptxas=-v`` build log, with the
     GEMM's dynamic shared memory (``igemm_smem``: 4 ring stages of
     (128 + BN) rows x 64 bytes, and 1024 bytes to align them) and the
-    cluster GRU backward's (``gru.cluster_plan`` at the main path's
-    shape)."""
+    cluster GRU kernels' (``gru.cluster_plan``, ``forward_plan`` and
+    ``walk_plan`` at the main path's shape)."""
     import re
     import shutil
 
@@ -2780,10 +2919,14 @@ def _ptxas(source: str) -> list:
         bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)>", name)
         if bn:
             k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
-        if "gru_bwd_cluster<" in name or "gru_fwd_cluster<" in name:
+        plans = {"gru_bwd_cluster<": "cluster_plan",
+                 "gru_fwd_cluster<": "forward_plan",
+                 "gru_walk_cluster<": "walk_plan"}
+        plan = next((v for key, v in plans.items() if key in name), None)
+        if plan:
             from texttoaudiogrounding_tpu_torch.ops.kernels import gru
-            plan = (gru.forward_plan if "fwd" in name else gru.cluster_plan)
-            k["dynamic_smem"] = plan(KERNEL_CLIPS, GRU_H)["smem"]
+            k["dynamic_smem"] = getattr(gru, plan)(KERNEL_CLIPS,
+                                                   GRU_H)["smem"]
     return out
 
 
@@ -2823,7 +2966,7 @@ def main() -> int:
                       "card": smi}), flush=True)
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
                                           "logmel_v2", "gru_fwd_sm90",
-                                          "gru_bwd_sm90")}
+                                          "gru_bwd_sm90", "gru_walk_sm90")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

@@ -1,5 +1,6 @@
 """Bidirectional GRU recurrence, forward and backward: ``csrc/gru.cu``,
-``csrc/gru_fwd_sm90.cu`` and ``csrc/gru_bwd_sm90.cu``.
+``csrc/gru_fwd_sm90.cu``, ``csrc/gru_bwd_sm90.cu`` and
+``csrc/gru_walk_sm90.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/gru.py``: ``:62
 bigru_pallas`` (the forward, with an f32 or a bf16 carry), ``:199
@@ -24,12 +25,14 @@ design, ``csrc/gru_fwd_sm90.cu``: one cluster launch a walk
 (:func:`forward_plan`, :func:`gru_forward_cluster_emulated`); the
 backward of ``:199`` on ``csrc/gru_bwd_sm90.cu``: one cluster launch a
 walk and one launch that sums the batch groups' dWh / dbn
-(:func:`cluster_plan`, :func:`gru_backward_cluster_emulated`).  Their
-first designs, one CUDA launch a step in ``csrc/gru.cu``, stay callable
-as ``gru_forward(..., design="per_step")`` and ``gru_backward(...,
-design="per_step")``; the hoisted walks still launch once a step.  The
-hoisted backward's dWh product after the walk is ``torch.bmm`` in full
-f32 on either device.
+(:func:`cluster_plan`, :func:`gru_backward_cluster_emulated`); the
+hoisted walks of ``:412`` / ``:474`` on ``csrc/gru_walk_sm90.cu``: one
+cluster launch a walk (:func:`walk_plan`,
+:func:`gru_walk_cluster_emulated`).  Their first designs, one CUDA launch
+a step in ``csrc/gru.cu``, stay callable as ``gru_forward(...,
+design="per_step")``, ``gru_backward(..., design="per_step")`` and
+``gru_walk(..., design="per_step")``.  The hoisted backward's dWh product
+after the walk is ``torch.bmm`` in full f32 on either device.
 """
 
 from __future__ import annotations
@@ -46,13 +49,14 @@ from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "gru_fwd_per_step": 0,
             "gru_fwd_bf16_per_step": 0, "gru_bwd": 0, "gru_bwd_bf16": 0,
             "gru_bwd_per_step": 0, "gru_bwd_bf16_per_step": 0,
-            "gru_bwd_v2": 0, "gru_bwd_v3": 0}
+            "gru_bwd_v2": 0, "gru_bwd_v3": 0, "gru_bwd_v2_per_step": 0,
+            "gru_bwd_v3_per_step": 0}
 # the hoisted f32 backwards: the dh chain as one K = 3H dot (v2) or as
 # three K = H dots added in gate order (v3)
 VARIANTS = ("v2", "v3")
-# gru_forward's and gru_backward's designs: one cluster launch a walk
-# (csrc/gru_fwd_sm90.cu, csrc/gru_bwd_sm90.cu), or one launch a step
-# (csrc/gru.cu)
+# gru_forward's, gru_backward's and gru_walk's designs: one cluster launch
+# a walk (csrc/gru_fwd_sm90.cu, csrc/gru_bwd_sm90.cu,
+# csrc/gru_walk_sm90.cu), or one launch a step (csrc/gru.cu)
 DESIGNS = ("cluster", "per_step")
 
 _SMEM_MAX = 232448    # bytes of shared memory a block can use (H100)
@@ -61,8 +65,8 @@ _JT = 4               # hidden units per block (csrc/gru.cu)
 # most; CTAs a cluster; threads a CTA (one per k, and the rows of its Wh
 # and h tiles); the gate product's K slice a warp
 _UMAX, _RMAX, _CLUSTER_MAX, _THREADS, _KW = 16, 12, 16, 256, 32
-# csrc/gru_fwd_sm90.cu: the gate product's K slices, one a warp, summed in
-# warp order
+# csrc/gru_fwd_sm90.cu and csrc/gru_walk_sm90.cu: the gate product's K
+# slices, one a warp, summed in warp order
 _FWD_WARPS = 8
 
 
@@ -389,6 +393,109 @@ def gru_walk_plain(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     return dproj, drznn
 
 
+def walk_plan(b: int, h: int) -> dict:
+    """How ``csrc/gru_walk_sm90.cu`` walks ``B = b`` rows of ``H = h`` units
+    a direction: ``ctas`` CTAs a cluster of ``units`` units each,
+    ``groups`` clusters a direction of at most 12 ``rows`` each (as
+    :func:`cluster_plan`), and the ``smem`` bytes of shared memory a CTA
+    takes (its Wh columns, three steps of h tiles and item inputs, the dcol
+    exchange twice, the two products' warp sums, a barrier for each
+    exchange buffer).  Raises
+    ``ValueError`` on a shape the kernel cannot take."""
+    if b < 1 or h < 1:
+        raise ValueError("the GRU needs B >= 1 and H >= 1")
+    if h > _THREADS:
+        raise ValueError(f"the cluster GRU walk takes H <= {_THREADS}, "
+                         f"not {h}")
+    ctas, groups, rows = _split(b, h)
+    cols = 3 * (h // ctas)
+    smem = 4 * (-(-h * cols // 4) * 4 + 3 * h * _RMAX + 3 * 5 * _RMAX * _UMAX
+                + 2 * ctas * (3 * _UMAX * _RMAX + 4)
+                + -(-_FWD_WARPS * _RMAX * cols // 4) * 4
+                + _FWD_WARPS * 3 * _RMAX * _UMAX + 4)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"the cluster GRU walk needs {smem} bytes of "
+                         f"shared memory at H={h}; the card has {_SMEM_MAX}")
+    return {"ctas": ctas, "units": h // ctas, "groups": groups,
+            "rows": rows, "smem": smem}
+
+
+def gru_walk_cluster_emulated(proj: torch.Tensor, ys: torch.Tensor,
+                              gy: torch.Tensor, wh: torch.Tensor,
+                              bn: torch.Tensor, variant: str, *, ctas: int,
+                              groups: int) -> tuple:
+    """The hoisted walk ``variant`` summed in ``csrc/gru_walk_sm90.cu``'s
+    orders, in plain PyTorch: the rows walk in ``groups`` batch groups (of
+    ``ceil(B / groups)`` rows), the units split over ``ctas`` CTAs; the
+    gate recompute sums 8 K slices of ``ceil(H / 8)`` in order; the dh
+    chain sums products over half slices of each CTA's dcol (``S_q,hh,th``:
+    units ``8 hh .. 8 hh + 7`` of CTA q in third th), one pair of CTAs
+    (2w, 2w + 1) a warp, ``P_w = (S_2w,0 + S_2w,1) + (S_2w+1,0 +
+    S_2w+1,1)``, the warps in order:
+
+    * v2, one K = 3H accumulation: ``dh = dhp·z + Σ_w P_w``, each ``S_q,hh``
+      the r, z and n thirds in one sum;
+    * v3, three K = H sums added in gate order: ``dh = ((dhp·z + Σ_w
+      P_w,r) + Σ_w P_w,z) + Σ_w P_w,n``.
+
+    Within a slice the kernel adds sequential FMAs, which ``torch.bmm``
+    does not reproduce: only the slices' order is fixed.  Returns
+    ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``."""
+    t, b, h = _dims(proj)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    if (not 1 <= ctas <= _CLUSTER_MAX or h % ctas or h // ctas > _UMAX
+            or not 1 <= groups <= b):
+        raise ValueError("ctas (at most 16) must divide H into at most 16 "
+                         "units each, and 1 <= groups <= B")
+    units, rows, kw = h // ctas, -(-b // groups), -(-h // _FWD_WARPS)
+    wh = wh.float()
+    wht = wh.transpose(1, 2)                                # [2, 3H, H]
+    bnb = bn.float()[:, None]
+    pj = proj.float().reshape(t, 2, b, 3 * h)
+    hs = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).float().reshape(
+        t, 2, b, h)
+    gs = gy.float().reshape(t, 2, b, h)
+    dproj = torch.empty(t, 2, b, 3 * h, dtype=torch.float32,
+                        device=proj.device)
+    drznn = torch.empty(t, 2, b, h, dtype=torch.float32, device=proj.device)
+
+    def warp_sum(dcol, w, thirds):
+        """``P_w`` over ``thirds``, each half slice's thirds in one sum."""
+        def part(q, hh):
+            lo, hi = q * units + 8 * hh, q * units + min(8 * hh + 8, units)
+            cols = torch.cat([torch.arange(th * h + lo,
+                                           th * h + max(lo, hi))
+                              for th in thirds])
+            return torch.bmm(dcol[..., cols], wht[:, cols])
+        return _in_order([_in_order([part(q, 0), part(q, 1)])
+                          for q in (2 * w, 2 * w + 1) if q < ctas])
+
+    warps = range(-(-ctas // 2))
+    for b0 in range(0, b, rows):
+        sl = slice(b0, min(b, b0 + rows))
+        dh = torch.zeros_like(hs[0, :, sl])
+        for step in range(t - 1, -1, -1):
+            h_prev = hs[step, :, sl]
+            r, z, an, n = _gates(pj[step, :, sl], _in_order([
+                torch.bmm(h_prev[..., k:k + kw], wh[:, k:k + kw])
+                for k in range(0, h, kw)]), bnb, h)
+            dhp = gs[step, :, sl] + dh
+            da_r, da_z, da_n, drzn_n = _pre_activation_grads(
+                dhp, h_prev, r, z, an, n)
+            dproj[step, :, sl] = torch.cat([da_r, da_z, da_n], -1)
+            drznn[step, :, sl] = drzn_n
+            dcol = torch.cat([da_r, da_z, drzn_n], -1)
+            if variant == "v3":
+                dh = _in_order([dhp * z] + [
+                    _in_order([warp_sum(dcol, w, [th]) for w in warps])
+                    for th in range(3)])
+            else:
+                dh = dhp * z + _in_order([warp_sum(dcol, w, range(3))
+                                          for w in warps])
+    return dproj.reshape(t, 2 * b, 3 * h), drznn.reshape(t, 2 * b, h)
+
+
 def gru_backward_hoisted_plain(proj: torch.Tensor, ys: torch.Tensor,
                                gy: torch.Tensor, wh: torch.Tensor,
                                bn: torch.Tensor, per_third: bool) -> tuple:
@@ -544,12 +651,20 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
 
 
 def cluster_occupancy(h: int, plan: dict, dtype: torch.dtype,
-                      forward: bool = False) -> int:
-    """How many clusters of ``plan`` (:func:`cluster_plan`'s, or with
-    ``forward`` :func:`forward_plan`'s) the card holds at once."""
+                      forward: bool = False,
+                      variant: str | None = None) -> int:
+    """How many clusters of ``plan`` (:func:`cluster_plan`'s, with
+    ``forward`` :func:`forward_plan`'s, with a ``variant``
+    :func:`walk_plan`'s for that hoisted walk) the card holds at once."""
     count = ctypes.c_int(0)
     b16 = int(dtype == torch.bfloat16)
-    if forward:
+    if variant is not None:
+        fn = _build.function("gru_walk_sm90",
+                             "ttg_gru_walk_cluster_occupancy",
+                             [_I] * 5 + [_P])
+        err = fn(h, plan["ctas"], plan["groups"], plan["rows"],
+                 int(variant == "v3"), ctypes.addressof(count))
+    elif forward:
         fn = _build.function("gru_fwd_sm90", "ttg_gru_fwd_cluster_occupancy",
                              [_I] * 5 + [_P])
         err = fn(h, plan["ctas"], plan["groups"], plan["rows"], b16,
@@ -564,38 +679,59 @@ def cluster_occupancy(h: int, plan: dict, dtype: torch.dtype,
 
 
 def gru_walk(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
-             wh: torch.Tensor, bn: torch.Tensor, variant: str) -> tuple:
+             wh: torch.Tensor, bn: torch.Tensor, variant: str,
+             design: str = "cluster") -> tuple:
     """The walk of the hoisted f32 backward ``variant`` (``"v2"`` or
-    ``"v3"``): ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``, through
-    ``ttg_gru_bwd_<variant>`` on the card."""
+    ``"v3"``): ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``.  On the card
+    ``design`` picks the kernel: ``"cluster"`` (``csrc/gru_walk_sm90.cu``,
+    counted as ``gru_bwd_<variant>``) or ``"per_step"`` (``csrc/gru.cu``'s
+    ``ttg_gru_bwd_<variant>``, counted as ``gru_bwd_<variant>_per_step``);
+    a shape the chosen design cannot take raises."""
     _check(proj, wh, bn)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}")
     if not proj.is_cuda:
         return gru_walk_plain(proj, ys, gy, wh, bn, variant == "v3")
     t, b, h = _dims(proj)
-    _check_shape_for_kernel(
-        b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)))
+    name = f"gru_bwd_{variant}"
+    if design == "cluster":
+        plan = walk_plan(b, h)
+    else:
+        _check_shape_for_kernel(
+            b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)))
     proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
     dproj = torch.empty_like(proj)
     drznn = torch.empty_like(ys)
+    if design == "cluster":
+        fn = _build.function("gru_walk_sm90", "ttg_gru_walk_cluster",
+                             [_P] * 7 + [_I] * 7 + [_P])
+        err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(),
+                 wh.data_ptr(), bn.data_ptr(), dproj.data_ptr(),
+                 drznn.data_ptr(), t, b, h, plan["ctas"], plan["groups"],
+                 plan["rows"], int(variant == "v3"), _build.stream())
+        launches[name] += 1
+        _build.check(err, "ttg_gru_walk_cluster")
+        return dproj, drznn
     part = torch.empty(2 * b, h, dtype=torch.float32, device=proj.device)
-    name = f"gru_bwd_{variant}"
     fn = _build.function("gru", f"ttg_{name}", [_P] * 8 + [_I] * 3 + [_P])
     err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
              bn.data_ptr(), dproj.data_ptr(), drznn.data_ptr(),
              part.data_ptr(), t, b, h, _build.stream())
-    launches[name] += 1
+    launches[f"{name}_per_step"] += 1
     _build.check(err, f"ttg_{name}")
     return dproj, drznn
 
 
 def gru_backward_hoisted(proj: torch.Tensor, ys: torch.Tensor,
                          gy: torch.Tensor, wh: torch.Tensor,
-                         bn: torch.Tensor, variant: str) -> tuple:
+                         bn: torch.Tensor, variant: str,
+                         design: str = "cluster") -> tuple:
     """Gradients ``(dproj, dwh, dbn)`` by the hoisted f32 backward
-    ``variant``: :func:`gru_walk`, then :func:`hoisted_weight_grads`."""
-    dproj, drznn = gru_walk(proj, ys, gy, wh, bn, variant)
+    ``variant``: :func:`gru_walk` (of ``design``), then
+    :func:`hoisted_weight_grads`."""
+    dproj, drznn = gru_walk(proj, ys, gy, wh, bn, variant, design)
     return (dproj,) + hoisted_weight_grads(ys, dproj, drznn)
 
 
