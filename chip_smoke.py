@@ -10,8 +10,8 @@ Phases, each printing one line:
    power limit as ``nvidia-smi`` reports them; then the registers, shared
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
-   ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``) from
-   their ``-Xptxas -v`` logs;
+   ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``,
+   ``bn_pool_v2.cu``) from their ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -46,11 +46,20 @@ Phases, each printing one line:
    where its bf16 roundings are held tight enough that the backward
    without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
    the same weights as a yardstick and a third opinion; and the training
-   path's pool kernels (``dual_pool_fwd``/``_bwd``,
-   ``bn_pool_fwd``/``_bwd``) at the four conv blocks' outputs of a
-   batch-32 x 10 s bf16 step, and block 1 in f32,
-   beside the plain PyTorch chain they replace (ReLU or train-mode BN, then
+   path's pool kernels (``dual_pool_fwd``/``_bwd``, ``bn_pool_fwd``,
+   ``bn_pool_bwd`` on its second design, ``bn_pool_v2.cu``, and the batch
+   statistics ``bn_pool_stats``) at the four conv blocks' outputs of a
+   batch-32 x 10 s bf16 step, and block 1 in f32, beside the plain
+   PyTorch chain they replace (ReLU or train-mode BN, then
    ``F.avg_pool2d + F.max_pool2d``, forward + backward) for information;
+   the backward also within 1e-4 of its first design (``three_pass``,
+   ``bn_pool.cu``, itself held within 1e-4 of the plain version), the
+   same bits on two calls, both timed in turns and
+   their CUDA launches a call counted by the profiler (2 for the second
+   design), with its
+   two-pass streaming floor; the statistics (var within 1e-4 relative,
+   mean within 1e-5 std of plain ``batch_stats``, also on block 1's x·0.5
+   + 3) beside ``torch.var_mean`` as the library call;
 3. serving: ``GroundingPredictor`` over the flagship ``BiEncoder`` at full
    width (Cnn8Rnn 64/128/256/512, BiGRU 2x256, vocabulary 5000, embedding
    512, shared 512) with random weights from a numpy seed answers requests
@@ -112,7 +121,8 @@ Phases, each printing one line:
 6. train_bf16: the same fit in the bf16 mixed-precision mode with the
    training kernels opted in (``audio_encoder.args``: ``dtype: bfloat16``,
    ``gru_bwd: bf16``, ``bn_pool: [64, 128]``, ``pool_vjp: [256, 512]``);
-   the counts must rise by one log-mel, two of each pool kernel, one bf16
+   the counts must rise by one log-mel, two of each pool kernel (and of
+   ``bn_pool_stats``; ``bn_pool_bwd_three_pass`` none), one bf16
    GRU forward and one bf16 GRU backward per train step, and one log-mel
    and two ``dual_pool_fwd`` per validation step (the bf16 grouped GRU loop
    there, no GRU kernel); checkpoints, a finite loss that falls over 8
@@ -1275,13 +1285,81 @@ POOL_GEOMETRIES = (("block1", 1001, 64, 64, (2, 2)),
                    ("block2", 500, 32, 128, (2, 2)),
                    ("block3", 250, 16, 256, (1, 2)),
                    ("block4", 250, 8, 512, (1, 2)))
-POOL_SOURCES = {"dual_pool": ("texttoaudiogrounding_tpu_torch/csrc/"
-                              "dual_pool.cu",
-                              "texttoaudiogrounding_tpu/ops/pallas/"
-                              "dual_pool.py:263"),
-                "bn_pool": ("texttoaudiogrounding_tpu_torch/csrc/bn_pool.cu",
-                            "texttoaudiogrounding_tpu/ops/pallas/"
-                            "bn_pool.py:376")}
+_DUAL = ("texttoaudiogrounding_tpu_torch/csrc/dual_pool.cu",
+         "texttoaudiogrounding_tpu/ops/pallas/dual_pool.py:263")
+_BN = "texttoaudiogrounding_tpu/ops/pallas/bn_pool.py:376"
+POOL_SOURCES = {"dual_pool_fwd": _DUAL, "dual_pool_bwd": _DUAL,
+                "bn_pool_fwd": ("texttoaudiogrounding_tpu_torch/csrc/"
+                                "bn_pool.cu", _BN),
+                "bn_pool_bwd": ("texttoaudiogrounding_tpu_torch/csrc/"
+                                "bn_pool_v2.cu", _BN),
+                "bn_pool_stats": ("texttoaudiogrounding_tpu_torch/csrc/"
+                                  "bn_pool_v2.cu", _BN)}
+# bn_pool_stats against plain batch_stats: var within STATS_VAR_TOL
+# relative, mean within STATS_MEAN_TOL times the channel's std
+STATS_VAR_TOL, STATS_MEAN_TOL = 1e-4, 1e-5
+
+
+def _stats_err(got, ref) -> tuple:
+    """(max abs error, worst share of its limit, var rel, mean / std) of
+    ``(mean, var)`` against the plain ``(mean, var)``."""
+    (gm, gv), (rm, rv) = got, ref
+    var_rel = float(((gv - rv).abs() / rv).max())
+    mean_std = float(((gm - rm).abs() / rv.sqrt()).max())
+    max_abs = max(float((gm - rm).abs().max()), float((gv - rv).abs().max()))
+    return max_abs, max(var_rel / STATS_VAR_TOL, mean_std / STATS_MEAN_TOL), \
+        var_rel, mean_std
+
+
+def _bwd_designs(x, g, mean, inv, gamma, beta, pool, plain,
+                 label: str) -> dict:
+    """The backward's second design against the first (``three_pass``) on
+    the same inputs (1e-4), the first against its plain version ``plain()``
+    (1e-4), the same bits on two calls, both timed in turns
+    (three_pass, two_pass, two_pass, three_pass; 10 calls each) and each
+    design's CUDA launches a call counted by the profiler (two_pass must
+    make 2; three_pass makes its 3 and the wrapper's ``γ·inv`` and
+    ``torch.stack``)."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import bn_pool
+
+    def call(design):
+        return lambda: bn_pool.bn_pool_bwd(x, g, mean, inv, gamma, beta,
+                                           pool, design=design)
+
+    first, again, old = call("two_pass")(), call("two_pass")(), \
+        call("three_pass")()
+    vs_first = _max_err(first, old)
+    if vs_first[1] > 1e-4:
+        raise AssertionError(f"bn_pool_bwd ({label}): the two designs "
+                             f"disagree: rel_rms {vs_first[1]} > 1e-4")
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"bn_pool_bwd ({label}): two calls differ in "
+                             "bits")
+    del first, again
+    vs_plain = _max_err(old, plain())
+    if vs_plain[1] > 1e-4:
+        raise AssertionError(f"bn_pool_bwd ({label}): three_pass disagrees "
+                             f"with its plain version: rel_rms {vs_plain[1]} "
+                             "> 1e-4")
+    del old
+    order = ("three_pass", "two_pass")
+    runs = [(d, _cuda_ms(call(d), 10)) for d in order + order[::-1]]
+    per_call = {d: _launches_per_call(call(d)) for d in order}
+    if per_call["two_pass"] != 2:
+        raise AssertionError(f"bn_pool_bwd ({label}): CUDA launches a call "
+                             f"{per_call}, expected 2 for two_pass")
+    return {"ms_turns": {d: sum(ms for n, ms in runs if n == d) / 2
+                         for d in order},
+            "turns_ms": runs, "launches_per_call": per_call,
+            "vs_three_pass": {"max_abs_err": vs_first[0],
+                              "rel_rms_err": vs_first[1]},
+            "three_pass_vs_plain": {"max_abs_err": vs_plain[0],
+                                    "rel_rms_err": vs_plain[1]},
+            "same_bits_twice": True}
+
+
 def _pool_chains(x, g, gamma, beta, pool):
     """The plain PyTorch chains the pool kernels replace, forward +
     backward (ReLU, or train-mode BN with f32 statistics then ReLU, and
@@ -1336,10 +1414,9 @@ def pool_kernel_phase(clips: int) -> list:
     cases = [(n, t, m, c, p, torch.bfloat16)
              for n, t, m, c, p in POOL_GEOMETRIES]
     cases.append(("block1_f32", 1001, 64, 64, (2, 2), torch.float32))
-    geos = {k: [] for k in ("dual_pool_fwd", "dual_pool_bwd", "bn_pool_fwd",
-                            "bn_pool_bwd")}
+    geos = {k: [] for k in POOL_SOURCES}
     tol = {"dual_pool_fwd": 1e-5, "dual_pool_bwd": 1e-5, "bn_pool_fwd": 1e-5,
-           "bn_pool_bwd": 1e-4}
+           "bn_pool_bwd": 1e-4, "bn_pool_stats": 1.0}
     for label, t, m, c, pool, dtype in cases:
         pt = pool[0]
         # a conv output's spread, in bf16 with the ties bf16 makes
@@ -1365,6 +1442,8 @@ def pool_kernel_phase(clips: int) -> list:
                                             pool),
                 lambda: bn_pool.bn_pool_bwd_plain(x, g, mean, inv, gamma,
                                                   beta, pool)),
+            "bn_pool_stats": (lambda: bn_pool.batch_stats(x),
+                              lambda: bn_pool.batch_stats_plain(x)),
         }
         # bytes moved; at under 20 f32 operations per input element their
         # time is below a third of the bytes' on every row
@@ -1372,27 +1451,33 @@ def pool_kernel_phase(clips: int) -> list:
         nbytes = {"dual_pool_fwd": nx * es * (1 + 0.5 / pt),
                   "dual_pool_bwd": nx * es * (2 + 0.5 / pt),
                   "bn_pool_fwd": nx * es * (1 + 0.5 / pt) + 8 * c,
-                  "bn_pool_bwd": nx * es * (2 + 0.5 / pt) + 28 * c}
+                  "bn_pool_bwd": nx * es * (2 + 0.5 / pt) + 24 * c,
+                  "bn_pool_stats": nx * es + 8 * c}
         chains = _pool_chains(x, g, gamma, beta, pool)
         for name, (kern, plain) in calls.items():
             got, ref = kern(), plain()
-            if isinstance(got, torch.Tensor):
-                got, ref = (got,), (ref,)
-            errs = [_err(a, b) for a, b in zip(got, ref)]
-            max_abs = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
+            if name == "bn_pool_stats":
+                max_abs, rel, var_rel, mean_std = _stats_err(got, ref)
+                extra = {"var_rel_err": var_rel, "mean_err_over_std": mean_std}
+            else:
+                if isinstance(got, torch.Tensor):
+                    got, ref = (got,), (ref,)
+                errs = [_err(a, b) for a, b in zip(got, ref)]
+                max_abs = max(e[0] for e in errs)
+                rel = max(e[1] for e in errs)
+                extra = {}
             if rel > tol[name]:
                 raise AssertionError(f"{name} ({label}): kernel disagrees "
-                                     f"with its plain version: rel_rms "
-                                     f"{rel} > {tol[name]} (max_abs "
-                                     f"{max_abs})")
+                                     f"with its plain version: "
+                                     f"{extra or 'rel_rms'} {rel} > "
+                                     f"{tol[name]} (max_abs {max_abs})")
             del got, ref
             ms = _cuda_ms(kern, 10)
             device_ms = _trace(lambda kern=kern: [kern() for _ in range(10)],
                                10 * ms)["pool_ms"] / 10
             entry = {"geometry": label, "dtype": str(dtype).split(".")[1],
                      "x_shape": [clips, t, m, c], "pool": list(pool),
-                     "max_abs_err": max_abs, "rel_rms_err": rel,
+                     "max_abs_err": max_abs, "rel_rms_err": rel, **extra,
                      "ms": ms, "device_ms": device_ms,
                      "plain_ms": _cuda_ms(plain, 3),
                      "bound": _bound(nbytes[name], {})}
@@ -1400,15 +1485,48 @@ def pool_kernel_phase(clips: int) -> list:
                 chain, through = chains[name.split("_bwd")[0]]
                 entry["chain_fwd_bwd_ms"] = _cuda_ms(chain, 5)
                 entry["kernel_fwd_bwd_ms"] = _cuda_ms(through, 5)
+            if name == "bn_pool_bwd":
+                entry.update(_bwd_designs(x, g, mean, inv, gamma, beta, pool,
+                                          plain, label))
+                # two streaming passes: x and g read twice, dx written
+                entry["floor_ms"] = nx * es * (3 + 1 / pt) / HBM * 1e3
+            if name == "bn_pool_stats":
+                xf = lambda: torch.var_mean(x.float(), dim=(0, 1, 2),
+                                            correction=0)
+                entry["library_ms"] = _cuda_ms(xf, 10)
+                if label == "block1":
+                    entry["shifted"] = _stats_shifted(x)
             geos[name].append(entry)
         del x, g
         torch.cuda.empty_cache()
     rows = []
     for name, entries in geos.items():
         main = [e for e in entries if e["dtype"] == "bfloat16"]
-        source, replaces = POOL_SOURCES[name.rsplit("_", 1)[0]]
+        source, replaces = POOL_SOURCES[name]
         for e in entries:
             e["bound_ms"], e["bound_by"] = e.pop("bound")
+        extra = {}
+        if name == "bn_pool_bwd":
+            extra = {
+                "three_pass_ms": sum(e["ms_turns"]["three_pass"]
+                                     for e in main),
+                "two_pass_turns_ms": sum(e["ms_turns"]["two_pass"]
+                                         for e in main),
+                "floor_ms": sum(e["floor_ms"] for e in main),
+                "launches_per_call": main[0]["launches_per_call"],
+                "three_pass": "csrc/bn_pool.cu, bn_pool_bwd(..., "
+                              "design=\"three_pass\"), timed in turns"}
+        library = (None, "none: no single PyTorch call computes it")
+        if name == "bn_pool_stats":
+            library = (sum(e["library_ms"] for e in main),
+                       "torch.var_mean(x.float(), dim=(0, 1, 2), "
+                       "correction=0)")
+            extra = {"tolerance": f"var within {STATS_VAR_TOL} relative, "
+                     f"mean within {STATS_MEAN_TOL} std (rel_rms_err: the "
+                     "worst share of those limits)",
+                     "replaces_part": "the batch statistics of "
+                     "bn_relu_dual_pool, bn_pool.py:395-398 (XLA "
+                     "reductions)"}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1420,11 +1538,27 @@ def pool_kernel_phase(clips: int) -> list:
             "device_ms": sum(e["device_ms"] for e in main),
             "plain_ms": sum(e["plain_ms"] for e in main),
             "bound_ms": sum(e["bound_ms"] for e in main),
-            "bound_by": main[0]["bound_by"], "library_ms": None,
-            "library": "none: no single PyTorch call computes it",
+            "bound_by": main[0]["bound_by"], "library_ms": library[0],
+            "library": library[1], **extra,
             "times": "sum over the four bf16 blocks of a batch-32 x 10 s "
                      "step", "clips": clips, "geometries": entries})
     return rows
+
+
+def _stats_shifted(x) -> dict:
+    """``bn_pool_stats`` against plain ``batch_stats`` on x·0.5 + 3, where
+    ``E[x²] − mean²`` cancels (block 1: 2.05 M elements a channel)."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import bn_pool
+
+    xs = (x.float() * 0.5 + 3.0).to(x.dtype)
+    max_abs, share, var_rel, mean_std = _stats_err(bn_pool.batch_stats(xs),
+                                                   bn_pool.batch_stats_plain(xs))
+    if share > 1.0:
+        raise AssertionError(f"bn_pool_stats (x 0.5 + 3): var rel {var_rel} "
+                             f"(limit {STATS_VAR_TOL}), mean / std {mean_std} "
+                             f"(limit {STATS_MEAN_TOL})")
+    return {"input": "x * 0.5 + 3", "max_abs_err": max_abs,
+            "var_rel_err": var_rel, "mean_err_over_std": mean_std}
 
 
 def _embedding_gap(plain, served: list) -> float:
@@ -2501,7 +2635,8 @@ def training_bf16_phase(tok) -> dict:
         steps = TRAIN_EPOCHS * TRAIN_STEPS
         vals = TRAIN_EPOCHS * VAL_STEPS
         want = _want(logmel=steps + vals, bn_pool_fwd=2 * steps,
-                     bn_pool_bwd=2 * steps, dual_pool_fwd=2 * (steps + vals),
+                     bn_pool_bwd=2 * steps, bn_pool_stats=2 * steps,
+                     dual_pool_fwd=2 * (steps + vals),
                      dual_pool_bwd=2 * steps, gru_fwd_bf16=steps,
                      gru_bwd_bf16=steps)
         if launches != want:
@@ -2966,7 +3101,8 @@ def main() -> int:
                       "card": smi}), flush=True)
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
                                           "logmel_v2", "gru_fwd_sm90",
-                                          "gru_bwd_sm90", "gru_walk_sm90")}
+                                          "gru_bwd_sm90", "gru_walk_sm90",
+                                          "bn_pool_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)
