@@ -11,7 +11,8 @@ Phases, each printing one line:
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
    ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``,
-   ``bn_pool_v2.cu``) from their ``-Xptxas -v`` logs;
+   ``bn_pool_v2.cu``, ``conv_block_wino_v2.cu``, ``conv_block_tri_v2.cu``)
+   from their ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -81,18 +82,25 @@ Phases, each printing one line:
    ``fused_pair_conv_pool`` (with and without conv1), ``fused_block2`` and
    ``fused_block1`` on the batch-32 request's block-1 input (the bn0
    output) and output with the served model's weights, beside the routed
-   rows 2 / 3; the Winograd block (``fused_block_wino``, int8 and bf16) at
-   the pool-(2, 2) analog of blocks 3 and 4 (a record each) on that
-   request's block-2 output with the served blocks 3-4 weights, driven
-   through ``ConvBlock(..., wino=True)``, beside the direct9 kernel at
-   pool (2, 2) on the same input and bound by the Winograd products'
-   operations (the direct conv's beside it); row 4's mel3 and tri tap
-   modes (``mel3=(True, True)``, ``tri=(True, True)``, the slab kernel,
-   int8 at each mode's own chunk and the bf16 mode) at the flagship's
-   blocks 3 and 4 (pool (1, 2), a record each) on that request's block-2
-   output and then the mode's own block-3 output, with the served
-   weights, beside direct9 on the same input, tri also at direct9's chunk
-   bit for bit against the row-4 kernel, each traced by launch; and the
+   rows 2 / 3; the Winograd block (``fused_block_wino``, int8 and bf16,
+   second design ``conv_block_wino_v2.cu``) at the pool-(2, 2) analog of
+   blocks 3 and 4 (a record each) on that request's block-2 output with
+   the served blocks 3-4 weights, driven through ``ConvBlock(...,
+   wino=True)``, beside the direct9 kernel at pool (2, 2) on the same
+   input and bound by the Winograd products' operations (the direct
+   conv's beside it); row 4's mel3 and tri tap modes (``mel3=(True,
+   True)`` on the slab kernel, ``tri=(True, True)`` on its second design
+   ``conv_block_tri_v2.cu``, int8 at each mode's own chunk and the bf16
+   mode) at the flagship's blocks 3 and 4 (pool (1, 2), a record each) on
+   that request's block-2 output and then the mode's own block-3 output,
+   with the served weights, beside direct9 on the same input, tri also at
+   its own and direct9's chunk bit for bit against the row-4 kernel, each
+   traced by launch; row 8 and tri also against their first designs
+   (int8 bit for bit, the first design also against its plain version,
+   bf16 within 1e-2), timed in turns with them (v1 v2 v2 v1; tri with
+   direct9 between), each design's kernels a call counted by the
+   profiler and held to the design's count, beside the cuDNN bf16 chain
+   (two ``F.conv2d``, affine, ReLU, pools) as a yardstick; and the
    log-mel variants v3 and v4 on that request's waveform beside row 1's
    two designs (v4 held to the first, whose tile code it shares).  Each
    design runs once (its launches counted, exactly), then each int8
@@ -454,11 +462,11 @@ def _block1_row(x1, w, clips: int, t1: int) -> dict:
         bound=_bound(x1.numel() * 2 + got.numel() * 2 + _wbytes(w), ops))
 
 
-def _turns(fns: dict) -> dict:
-    """ms per call of two designs {"v1": fn, "v2": fn} timed in turns v1 v2
-    v2 v1 (10 calls each): the mean of each design's two runs and all
-    four."""
-    runs = [(k, _cuda_ms(fns[k], 10)) for k in ("v1", "v2", "v2", "v1")]
+def _turns(fns: dict, order=("v1", "v2")) -> dict:
+    """ms per call of designs {"v1": fn, "v2": fn, ...} timed in turns
+    (order, then order reversed: v1 v2 v2 v1; 10 calls each): the mean of
+    each design's two runs and all of them."""
+    runs = [(k, _cuda_ms(fns[k], 10)) for k in order + order[::-1]]
     return {k: sum(ms for n, ms in runs if n == k) / 2 for k in fns} | {
         "runs": runs}
 
@@ -1820,7 +1828,7 @@ def _bit_exact(out, target) -> dict:
 def _design(kernel, plain, ref, ops, in_bytes, source, replaces, *,
             check=_bit_exact, tolerance=_DESIGN_TOL, target=None, bf16=None,
             beside=None, timed=None, counter=None, trace=False,
-            **extra) -> dict:
+            designs=None, **extra) -> dict:
     """One record of the designs table.  ``kernel()`` runs the design as
     its route does (weights laid out once) and ``plain()`` its plain
     version; ``check(out, target())`` holds the counted run's output
@@ -1832,13 +1840,15 @@ def _design(kernel, plain, ref, ops, in_bytes, source, replaces, *,
     call and compared with ``ref`` (and with ``trace``, traced by launch
     as the design is), ``timed`` {name: fn} are only timed;
     ``counter`` is the launch counter where it is not the record's name;
+    ``designs()``, if given, runs last and its dict (a redesigned row's
+    first design, timed in turns) goes into the row;
     ``extra`` goes into the JSON row as it is."""
     return {"kernel": kernel, "plain": plain, "ref": ref, "ops": ops,
             "in_bytes": in_bytes, "source": source, "replaces": replaces,
             "check": check, "tolerance": tolerance,
             "target": target or plain, "bf16": bf16, "beside": beside or {},
             "timed": timed or {}, "counter": counter, "trace": trace,
-            "extra": extra}
+            "designs": designs, "extra": extra}
 
 
 def _design_row(name: str, d: dict, out) -> dict:
@@ -1892,6 +1902,8 @@ def _design_row(name: str, d: dict, out) -> dict:
         # device time by launch
         row["trace"] = _trace(d["kernel"], ms, by_launch=True)
     row.update(d["extra"])
+    if d["designs"]:
+        row.update(d["designs"]())
     return row
 
 
@@ -2110,21 +2122,115 @@ def _log_mel_f64(wave, cfg):
     return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
 
 
+def _block_chain(w, pool):
+    """A block's bf16 mode as a PyTorch chain on ``[B, T, M, C]``: cuDNN
+    bf16 ``F.conv2d``, the BN affine and ReLU, again, then ``avg_pool2d +
+    max_pool2d`` at ``pool``; a yardstick that the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    w1, (a1, b1), w2, (a2, b2) = w
+    k1 = w1.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    k2 = w2.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    aff = [(a.to(torch.bfloat16)[:, None, None], b.to(torch.bfloat16)[
+        :, None, None]) for a, b in ((a1, b1), (a2, b2))]
+
+    def chain(x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), k1, padding=1)
+        y = torch.relu(y * aff[0][0] + aff[0][1])
+        y = F.conv2d(y, k2, padding=1)
+        y = torch.relu(y * aff[1][0] + aff[1][1])
+        return (F.avg_pool2d(y, pool) + F.max_pool2d(y, pool)).permute(
+            0, 2, 3, 1)
+    return chain
+
+
+def _kernel_launches(trace: dict) -> int:
+    """The kernels of a by-launch trace (memsets and copies left out)."""
+    return sum(1 for e in trace["by_launch"]
+               if not e["kernel"].startswith(("Memset", "Memcpy")))
+
+
+def _redesigned(fns: dict, launches: dict, plain16, chain, x,
+                with_direct9=None) -> dict:
+    """A redesigned row's two designs ``fns`` {(design, int8?): fn}: timed
+    in turns (v1 v2 v2 v1, with ``with_direct9`` {int8?: fn} as v1 v2 d9 d9
+    v2 v1) in int8 and bf16; each traced by launch, its kernels a call
+    counted by the profiler and held to ``launches`` {(design, int8?): n};
+    the first design's bf16 mode held within 1e-2 relative RMS of its
+    plain version ``plain16()``; and the cuDNN bf16 chain on ``x``."""
+    out, counts = {}, {}
+    for q, key in ((True, ""), (False, "bf16_")):
+        fq = {d: fns[d, q] for d in ("v1", "v2")}
+        order = ("v1", "v2")
+        if with_direct9:
+            fq["direct9"], order = with_direct9[q], ("v1", "v2", "direct9")
+        t = _turns(fq, order)
+        out.update({f"{key}ms": t["v2"], f"v1_{key}ms": t["v1"],
+                    f"{key}turns_ms": t["runs"]})
+        if with_direct9:
+            out[f"direct9_{key}turns_mean_ms"] = t["direct9"]
+        for d in ("v2", "v1"):
+            tr = _trace(fq[d], t[d], by_launch=True)
+            out[f"{d}_{key}trace"] = tr
+            counts[f"{d}_{key or 'int8_'}kernels"] = _kernel_launches(tr)
+            counts[f"{d}_{key or 'int8_'}device_events"] = tr["launches"]
+    want = {f"{d}_{'int8_' if q else 'bf16_'}kernels": n
+            for (d, q), n in launches.items()}
+    got = {k: v for k, v in counts.items() if k.endswith("kernels")}
+    if got != want:
+        raise AssertionError(f"kernels a call {got}, expected {want}")
+    v1_16 = _err(fns["v1", False](), plain16())[1]
+    if v1_16 > 1e-2:
+        raise AssertionError(f"the first design's bf16 mode: rel_rms "
+                             f"{v1_16} to its plain version > 0.01")
+    return {**out, "launches_per_call": counts,
+            "v1_bf16_rel_rms_err": v1_16,
+            "chain_ms": _cuda_ms(lambda: chain(x), 10),
+            "chain": "cuDNN bf16 F.conv2d -> affine -> ReLU, twice -> "
+                     "avg_pool2d + max_pool2d",
+            "chain_rel_rms_vs_bf16_plain": _err(chain(x), plain16())[1]}
+
+
+def _held_to_v1(first, name: str):
+    """A check of the counted run against its plain version (bit for bit),
+    the first design ``first()`` against both (int8)."""
+    def check(out, target):
+        v1 = first()
+        vs_v1, v1_plain = _err(out, v1)[0], _err(v1, target)[0]
+        if vs_v1 or v1_plain:
+            raise AssertionError(f"{name}: the first design differs from "
+                                 f"the second ({vs_v1}) or from the plain "
+                                 f"version ({v1_plain})")
+        return {**_bit_exact(out, target), "v1_max_abs_err": vs_v1,
+                "v1_vs_plain_max_abs_err": v1_plain}
+    return check
+
+
 # row 8 at the pool-(2, 2) analog of blocks 3-4 (scripts/bench_wino.py):
 # (block, Cin, Cout, the bf16 chunk where the JAX rule finds none)
 WINO_BLOCKS = ((3, 128, 256, None), (4, 256, 512, 14))
+# kernels a call: second design (int8: a scale pass, the V_k pass and the
+# product kernel a conv; bf16 the last two), first design (transform,
+# products, output transform a conv)
+WINO_KERNELS = {("v2", True): 6, ("v2", False): 4, ("v1", True): 6,
+                ("v1", False): 6}
 
 
 def _wino_designs(enc, y2) -> tuple:
     """Row 8 through ``ConvBlock(..., wino=True)`` in int8, with the served
     blocks 3-4 weights, at the pool-(2, 2) analog of blocks 3-4: on the
     served block-2 output (block 3, 128 -> 256) and on that result (block 4,
-    256 -> 512); one record per block, beside the direct9 kernel (row 4)
-    at pool (2, 2) on the same input.  Bound by the Winograd products'
-    operations (16 per 2 x 2 output tile and conv), the least the function
-    needs: its int8 result is fixed by the per-(k, chunk) scales of V_k,
-    which a direct conv does not have; the direct conv's count, the
-    yardstick of rows 2-7, is printed beside it.  Returns (records, the
+    256 -> 512); one record per block, on its second design
+    (``conv_block_wino_v2.cu``), held bit for bit to its plain version and
+    to the first design (``conv_block_wino.cu``, itself held to the plain
+    version), both timed in turns in int8 and bf16 and traced by launch,
+    beside the direct9 kernel (row 4) at pool (2, 2) on the same input and
+    the cuDNN bf16 chain.  Bound by the Winograd products' operations (16
+    per 2 x 2 output tile and conv), the least the function needs: its
+    int8 result is fixed by the per-(k, chunk) scales of V_k, which a
+    direct conv does not have; the direct conv's count, the yardstick of
+    rows 2-7, is printed beside it, and the byte floor of the design (x,
+    V_k and y1 written and read, the output).  Returns (records, the
     route's outputs)."""
     import torch
 
@@ -2151,21 +2257,34 @@ def _wino_designs(enc, y2) -> tuple:
         wino_ops = 2.0 * (pos // 4) * 16 * (cin * cout + cout * cout)
         in_bytes = x.numel() * 2 + _wbytes(w)
         nbytes = in_bytes + outs[name].numel() * 2
+        g, mp = b * tpad // tc, m // 2
+        tiles = g * (tc // 2 + 2) * mp, g * tc // 2 * mp
+        y1_bytes = g * (tc + 4) * m * cout * 2
+        v_bytes = 16 * (tiles[0] * cin + tiles[1] * cout)   # int8
+        fns = {
+            ("v2", True): lambda x=x, w=w, p=wq: (
+                conv_block_wino.fused_block_wino(x, *w, quantize=True,
+                                                 prepared=p)),
+            ("v1", True): lambda x=x, w=w, p=wq: (
+                conv_block_wino._fused_block_wino_v1(x, *w, quantize=True,
+                                                     prepared=p)),
+            ("v2", False): lambda x=x, w=w, tc=tc16, p=w16: (
+                conv_block_wino.fused_block_wino(x, *w, tc=tc, prepared=p)),
+            ("v1", False): lambda x=x, w=w, tc=tc16, p=w16: (
+                conv_block_wino._fused_block_wino_v1(x, *w, tc=tc,
+                                                     prepared=p))}
+        plain16 = (lambda x=x, w=w, tc=tc16, tp=tpad16, p=w16:
+                   conv_block_wino.block_wino_plain(
+                       x, *w, quantize=False, tc=tc, tpad=tp, prepared=p))
         records[name] = _design(
-            kernel=lambda x=x, w=w, p=wq: conv_block_wino.fused_block_wino(
-                x, *w, quantize=True, prepared=p),
+            kernel=fns["v2", True],
             plain=lambda x=x, w=w, tc=tc, tp=tpad, p=wq: (
                 conv_block_wino.block_wino_plain(
                     x, *w, quantize=True, tc=tc, tpad=tp, prepared=p)),
-            bf16=(lambda x=x, w=w, tc=tc16, p=w16: (
-                      conv_block_wino.fused_block_wino(x, *w, tc=tc,
-                                                       prepared=p)),
-                  lambda x=x, w=w, tc=tc16, tp=tpad16, p=w16: (
-                      conv_block_wino.block_wino_plain(
-                          x, *w, quantize=False, tc=tc, tpad=tp,
-                          prepared=p))),
+            check=_held_to_v1(fns["v1", True], name),
+            bf16=(fns["v2", False], plain16),
             ref=("f32_block", f32), ops={"int8": wino_ops},
-            in_bytes=in_bytes, source="conv_block_wino.cu",
+            in_bytes=in_bytes, source="conv_block_wino_v2.cu",
             replaces="conv_block_wino.py:264", counter="conv_block_wino",
             beside={
                 "direct9": lambda x=x, w=w, p=dq: (
@@ -2176,11 +2295,18 @@ def _wino_designs(enc, y2) -> tuple:
                                                       prepared=p))},
             timed={"weights": lambda w=w: conv_block_wino.wino_weights(
                 *w, True)},
-            trace=True, input_shape=list(x.shape), cin=cin, cout=cout,
+            trace=True,
+            designs=lambda fns=fns, plain16=plain16, x=x, w=w: _redesigned(
+                fns, WINO_KERNELS, plain16, _block_chain(w, (2, 2)), x),
+            input_shape=list(x.shape), cin=cin, cout=cout,
             tc=tc, tpad=tpad, bf16_tc=tc16, winograd_ops=wino_ops,
             direct_ops=direct_ops,
             direct_bound_ms=_bound(nbytes, {"int8": direct_ops})[0],
-            direct_bf16_bound_ms=_bound(nbytes, {"bf16": direct_ops})[0])
+            direct_bf16_bound_ms=_bound(nbytes, {"bf16": direct_ops})[0],
+            byte_floor_ms=(nbytes + 2 * y1_bytes + 2 * v_bytes) / HBM * 1e3,
+            v_bytes=v_bytes, y1_bytes=y1_bytes,
+            v1_source="texttoaudiogrounding_tpu_torch/csrc/"
+                      "conv_block_wino.cu")
         x = outs[name]
     return records, outs
 
@@ -2188,19 +2314,29 @@ def _wino_designs(enc, y2) -> tuple:
 # row 4's tap modes at the flagship's blocks 3-4, pool (1, 2): (block,
 # Cin, Cout)
 SLAB_BLOCKS = ((3, 128, 256), (4, 256, 512))
+# tri's kernels a call: second design (int8: the clip max, the quantize
+# pass, conv1, the y1 requantization, conv2; bf16: the pad pass and the
+# two convs), first design (int8: the quantize pass, conv1, the y1
+# requantization, conv2; bf16 the two convs)
+TRI_KERNELS = {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
+               ("v1", False): 2}
 
 
 def _slab_designs(enc, y2) -> tuple:
-    """Row 4's mel3 and tri modes, each (True, True), on the slab kernel
-    with the served blocks 3-4 weights at the flagship's pool (1, 2): on
-    the served block-2 output (block 3) and on the mode's own block-3
-    output (block 4); one record per mode and block, int8 at the mode's
-    own JAX chunk and its bf16 mode at its own, beside direct9 (row 4) on
-    the same input, each with its weights laid out once.  Bound by the
-    direct conv's operations, all of which the slab does.  tri's records
-    also hold tri at direct9's chunk bit for bit against the row-4 kernel
-    (their scales are direct9's).  Returns (records, the outputs of the
-    counted run)."""
+    """Row 4's mel3 and tri modes, each (True, True), with the served
+    blocks 3-4 weights at the flagship's pool (1, 2): on the served block-2
+    output (block 3) and on the mode's own block-3 output (block 4); one
+    record per mode and block, int8 at the mode's own JAX chunk and its
+    bf16 mode at its own, beside direct9 (row 4) on the same input, each
+    with its weights laid out once.  mel3 runs the slab kernel
+    (``conv_block_mel3.cu``); tri its second design, the wgmma GEMM's slab
+    form (``conv_block_tri_v2.cu``), held bit for bit to its plain version,
+    to its first design (the slab kernel, itself held to the plain
+    version) and to direct9 at tri's chunk and at direct9's own (their
+    scales are direct9's), the designs timed in turns beside direct9 and
+    traced by launch, beside the cuDNN bf16 chain.  Bound by the direct
+    conv's operations, all of which both do.  Returns (records, the
+    outputs of the counted run)."""
     import torch
 
     from texttoaudiogrounding_tpu_torch.ops.kernels import conv_block as cb
@@ -2235,17 +2371,39 @@ def _slab_designs(enc, y2) -> tuple:
                 return cb.block_plain(x, *w, (1, 2), quantize=q, tc=tcs[q],
                                       modes=modes[q])
 
-            check = _bit_exact
+            check, more = _bit_exact, {}
             if mode == "tri":
-                def check(out, target, run=run, tc=d9_tc[True]):
+                def first(q, x=x, w=w, pq=pq, p16=p16):
+                    return cb._fused_tri_v1(x, *w, (1, 2), quantize=q,
+                                            prepared=pq if q else p16)
+
+                def check(out, target, run=run, tc=d9_tc[True],
+                          tri_tc=tcs[True], name=name, first=first):
+                    errs = _held_to_v1(lambda: first(True), name)(out,
+                                                                  target)
+                    same_tc = _err(out, run(True, tri=None, tc=tri_tc))[0]
                     got = run(True, tc=tc)
                     same = _err(got, run(True, tri=None, tc=tc))[0]
-                    if same != 0.0:
-                        raise AssertionError(f"tri at direct9's tc {tc} "
-                                             f"differs from the row-4 "
-                                             f"kernel: max_abs {same}")
-                    return {**_bit_exact(out, target),
+                    if same or same_tc:
+                        raise AssertionError(
+                            f"{name}: tri differs from the row-4 kernel at "
+                            f"tri's tc {tri_tc} ({same_tc}) or at direct9's "
+                            f"tc {tc} ({same})")
+                    return {**errs, "vs_direct9_at_tri_tc_max_abs": same_tc,
                             "vs_direct9_at_its_tc_max_abs": same}
+                fns = {(d, q): (lambda run=run, q=q: run(q)) if d == "v2"
+                       else (lambda first=first, q=q: first(q))
+                       for d in ("v2", "v1") for q in (True, False)}
+                d9 = {q: (lambda run=run, q=q, tc=tcs[q]: run(
+                    q, tri=None, tc=tc)) for q in (True, False)}
+                more = dict(
+                    designs=lambda fns=fns, plain=plain, x=x, w=w, d9=d9: (
+                        _redesigned(fns, TRI_KERNELS, lambda: plain(False),
+                                    _block_chain(w, (1, 2)), x,
+                                    with_direct9=d9)),
+                    source="conv_block_tri_v2.cu",
+                    v1_source="texttoaudiogrounding_tpu_torch/csrc/"
+                              "conv_block_mel3.cu")
             records[name] = _design(
                 kernel=lambda run=run: run(True),
                 plain=lambda plain=plain: plain(True),
@@ -2253,7 +2411,8 @@ def _slab_designs(enc, y2) -> tuple:
                       lambda plain=plain: plain(False)),
                 ref=("f32_block", f32), ops={"int8": ops},
                 in_bytes=x.numel() * 2 + _wbytes(w),
-                source="conv_block_mel3.cu", replaces="conv_block.py:370",
+                source=more.pop("source", "conv_block_mel3.cu"),
+                replaces="conv_block.py:370",
                 counter=f"conv_block_{mode}", check=check,
                 beside={"direct9": lambda run=run: run(True, mel3=None,
                                                        tri=None),
@@ -2262,7 +2421,7 @@ def _slab_designs(enc, y2) -> tuple:
                 trace=True, input_shape=list(x.shape), cin=cin, cout=cout,
                 mode=f"{mode}=(True, True)", tc=tcs[True],
                 bf16_tc=tcs[False], direct9_tc=d9_tc[True],
-                direct9_bf16_tc=d9_tc[False])
+                direct9_bf16_tc=d9_tc[False], **more)
             x = outs[name]
     return records, outs
 
@@ -2439,12 +2598,13 @@ def _counter_modules() -> tuple:
 
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name (the first
-    designs of rows 1 and 3 count in ``logmel.launches_v1`` and
-    ``conv_block_pair.launches_v1``)."""
+    designs of rows 1, 3 and 8 count in ``logmel.launches_v1``,
+    ``conv_block_pair.launches_v1`` and ``conv_block_wino.launches_v1``)."""
     ints, dicts = _counter_modules()
     out = {name: mod.launches for name, mod in ints.items()}
     out["logmel_v1"] = ints["logmel"].launches_v1
     out["conv_block_pair_v1"] = ints["conv_block_pair"].launches_v1
+    out["conv_block_wino_v1"] = ints["conv_block_wino"].launches_v1
     for mod in dicts:
         out.update(mod.launches)
     return out
@@ -2456,6 +2616,7 @@ def _reset_counts() -> None:
         mod.launches = 0
     ints["logmel"].launches_v1 = 0
     ints["conv_block_pair"].launches_v1 = 0
+    ints["conv_block_wino"].launches_v1 = 0
     for mod in dicts:
         for k in mod.launches:
             mod.launches[k] = 0
@@ -3051,9 +3212,20 @@ def _ptxas(source: str) -> list:
                                check=True).stdout.splitlines()
     for k, name in zip(out, names):
         k["function"] = name
-        bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)>", name)
-        if bn:
+        bn = re.search(r"igemm_kernel<[^,]+, (\d+), (\d+)(, true)?", name)
+        if bn and bn.group(3):
+            # the slab form: 3 (BN = 256) or 4 stages of a 256-row slab
+            # and three B slices
+            n = int(bn.group(1))
+            k["dynamic_smem"] = ((3 if n == 256 else 4)
+                                 * (256 + 3 * n) * 64 + 1024)
+        elif bn:
             k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
+        if "wino_fold_kernel<" in name:
+            # the ring (7 x (128 + 64) rows of 64 bytes), the four y and
+            # the scales
+            k["dynamic_smem"] = (7 * 192 * 64 + 4 * 32 * 256 * 4
+                                 + 16 * 192 * 4 + 1024)
         plans = {"gru_bwd_cluster<": "cluster_plan",
                  "gru_fwd_cluster<": "forward_plan",
                  "gru_walk_cluster<": "walk_plan"}
@@ -3102,7 +3274,8 @@ def main() -> int:
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
                                           "logmel_v2", "gru_fwd_sm90",
                                           "gru_bwd_sm90", "gru_walk_sm90",
-                                          "bn_pool_v2")}
+                                          "bn_pool_v2", "conv_block_wino_v2",
+                                          "conv_block_tri_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

@@ -409,35 +409,65 @@ struct IgemmArgs {
 //    pairs, each sum rounded to bf16, out = bf16(S / 4) + max in bf16.
 // Two blocks an SM for BN <= 128 (faster on the H100 than one, or than
 // 256-row tiles), one for BN = 256 (its accumulators take 128 registers).
-template <typename T, int BN, int MODE>
+//
+// SLAB (row 4's tri mode, modes 0-2, pool (1, .), M in {8, 16, 32, 64}):
+// the output positions are enumerated in the source's halo-padded space,
+// p = (g R_in + r') M + m with R_in = R_out + 2, output row r = r' - 1;
+// the rows r' = 0 and R_in - 1 of each group are junk products, computed
+// and not stored.  Then every tap is a constant row offset: output p reads
+// source (time row, mel) (p / M - 1 + dt, p % M + dm - 1).  A K stage is
+// one (dm, 64-byte K chunk): one slab of BM + 2M source rows, flat rows p0
+// - M .. p0 + BM + M of the mel-padded source at column mel + dm (the pad
+// columns are the mel-edge zeros), staged once, and the three time taps'
+// B slices (dt, dm); three wgmma sets read the slab at row offsets dt M,
+// a whole number of 8-row swizzle atoms.  Slab rows past either end of
+// the source feed only junk rows and are clamped to a valid row.
+constexpr int SLAB_MMAX = 64;  // largest M of the slab form
+
+template <int BN>
+__host__ __device__ constexpr int slab_stages() {
+  return BN == 256 ? 3 : STAGES;
+}
+template <int BN>
+__host__ __device__ constexpr int slab_smem() {
+  return slab_stages<BN>() * ((BM + 2 * SLAB_MMAX) * KB + 3 * BN * KB) +
+         1024;
+}
+
+template <typename T, int BN, int MODE, bool SLAB = false>
 __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     igemm_kernel(IgemmArgs a) {
   using AT = typename Acc<T, BN>::type;
   constexpr int ES = sizeof(T);
-  constexpr int A_STAGE = BM * KB, B_STAGE = BN * KB;
-  constexpr int A_PER_THREAD = BM * CPR / NT, B_PER_THREAD = BN * CPR / NT;
+  constexpr int NS = SLAB ? slab_stages<BN>() : STAGES;  // ring slots
+  constexpr int AH = NS - 2;  // stages loaded ahead of the products
+  constexpr int A_STAGE = (SLAB ? BM + 2 * SLAB_MMAX : BM) * KB;
+  constexpr int B_STAGE = (SLAB ? 3 : 1) * BN * KB;
+  constexpr int A_PER_THREAD = A_STAGE / 16 / NT;
+  constexpr int B_PER_THREAD = BN * CPR / NT;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle atoms must start on 1024-byte boundaries
   const unsigned base = (unsigned)__cvta_generic_to_shared(smem_raw);
   unsigned char* smem = smem_raw + ((1024 - (base & 1023)) & 1023);
   unsigned char* As = smem;
-  unsigned char* Bs = smem + STAGES * A_STAGE;
+  unsigned char* Bs = smem + NS * A_STAGE;
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const long long p0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const long long P = (long long)a.G * a.R_out * a.M;
+  const int R_pos = SLAB ? a.R_out + 2 : a.R_out;  // rows a group enumerates
+  const long long P = (long long)a.G * R_pos * a.M;
   const int Mp = a.M + 2;
   const long long row_bytes = (long long)a.Cin * ES;
   const int kch = (int)(row_bytes / KB);  // K chunks of a tap
-  const int S = 9 * kch;                  // stages of the tile
+  const int S = (SLAB ? 3 : 9) * kch;     // stages of the tile
 
   // Tile row k holds position p0 + perm(k).  With time pairs (conv2, pt 2,
   // M a multiple of 8) the rows are permuted so that the two rows a thread
   // holds in the fragment layout, k and k + 8, are times r and r + 1 of
   // one mel, and rows k, k ^ 1 (lanes l, l ^ 4) mels m, m + 1: warp W of
   // the tile takes time pair W / (M / 8), mels 8 (W % (M / 8)) + [0, 8).
-  const bool tpair = (MODE == 2 || MODE == 3) && a.pt == 2;
+  const bool tpair = !SLAB && (MODE == 2 || MODE == 3) && a.pt == 2;
   auto perm = [&](int k) {
     if (!tpair) return k;
     const int W = k >> 4, mg = a.M >> 3;
@@ -450,16 +480,25 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
   const unsigned char* wtb = static_cast<const unsigned char*>(a.wt);
   long long a_off[A_PER_THREAD];
   int a_dst[A_PER_THREAD];
+  const int a_pieces = SLAB ? (BM + 2 * a.M) * CPR : BM * CPR;
 #pragma unroll
   for (int i = 0; i < A_PER_THREAD; ++i) {
     const int q = tid + i * NT;
     const int row = (q / (8 * CPR)) * 8 + (q & 7), c = (q >> 3) % CPR;
-    long long p = p0 + perm(row);
-    p = p < P ? p : P - 1;  // the partial last tile reads a valid row
-    const long long g = p / ((long long)a.R_out * a.M);
-    const int rem = (int)(p - g * a.R_out * a.M);
-    const int r = rem / a.M, m = rem - (rem / a.M) * a.M;
-    a_off[i] = ((g * a.R_in + r) * Mp + m) * row_bytes + c * 16;
+    if constexpr (SLAB) {
+      // slab row: flat source row p0 - M + row (time row, mel)
+      long long f = p0 - a.M + row;
+      f = f < 0 ? 0 : (f < P ? f : P - 1);
+      const long long fr = f / a.M;
+      a_off[i] = (fr * Mp + (f - fr * a.M)) * row_bytes + c * 16;
+    } else {
+      long long p = p0 + perm(row);
+      p = p < P ? p : P - 1;  // the partial last tile reads a valid row
+      const long long g = p / ((long long)a.R_out * a.M);
+      const int rem = (int)(p - g * a.R_out * a.M);
+      const int r = rem / a.M, m = rem - (rem / a.M) * a.M;
+      a_off[i] = ((g * a.R_in + r) * Mp + m) * row_bytes + c * 16;
+    }
     a_dst[i] = piece_offset(row, c);
   }
   const long long w_row = 9 * row_bytes;
@@ -473,18 +512,34 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     b_dst[i] = piece_offset(row, c);
   }
   auto load = [&](int s) {
-    const int tap = s / kch, kc = s - (s / kch) * kch;
-    const int dt = tap / 3, dm = tap - (tap / 3) * 3;
-    const long long tap_a = (dt * Mp + dm) * row_bytes + kc * KB;
-    const long long tap_b = tap * row_bytes + kc * KB;
-    unsigned char* as = As + (s % STAGES) * A_STAGE;
-    unsigned char* bs = Bs + (s % STAGES) * B_STAGE;
+    unsigned char* as = As + (s % NS) * A_STAGE;
+    unsigned char* bs = Bs + (s % NS) * B_STAGE;
+    if constexpr (SLAB) {
+      const int dm = s / kch, kc = s - (s / kch) * kch;
+      const long long slab_a = dm * row_bytes + kc * KB;
 #pragma unroll
-    for (int i = 0; i < A_PER_THREAD; ++i)
-      cp_async16(as + a_dst[i], srcb + a_off[i] + tap_a);
+      for (int i = 0; i < A_PER_THREAD; ++i)
+        if (tid + i * NT < a_pieces)
+          cp_async16(as + a_dst[i], srcb + a_off[i] + slab_a);
 #pragma unroll
-    for (int i = 0; i < B_PER_THREAD; ++i)
-      cp_async16(bs + b_dst[i], wtb + b_off[i] + tap_b);
+      for (int dt = 0; dt < 3; ++dt) {
+        const long long tap_b = (dt * 3 + dm) * row_bytes + kc * KB;
+#pragma unroll
+        for (int i = 0; i < B_PER_THREAD; ++i)
+          cp_async16(bs + dt * BN * KB + b_dst[i], wtb + b_off[i] + tap_b);
+      }
+    } else {
+      const int tap = s / kch, kc = s - (s / kch) * kch;
+      const int dt = tap / 3, dm = tap - (tap / 3) * 3;
+      const long long tap_a = (dt * Mp + dm) * row_bytes + kc * KB;
+      const long long tap_b = tap * row_bytes + kc * KB;
+#pragma unroll
+      for (int i = 0; i < A_PER_THREAD; ++i)
+        cp_async16(as + a_dst[i], srcb + a_off[i] + tap_a);
+#pragma unroll
+      for (int i = 0; i < B_PER_THREAD; ++i)
+        cp_async16(bs + b_dst[i], wtb + b_off[i] + tap_b);
+    }
   };
 
   AT acc[BN / 2];
@@ -493,22 +548,32 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
   fence_acc(acc);
 
 #pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
+  for (int s = 0; s < AH; ++s) {
     if (s < S) load(s);
     cp_async_commit();
   }
   for (int s = 0; s < S; ++s) {
-    cp_async_wait<AHEAD - 1>();  // stage s has landed
-    fence_async_shared();        // ... and is visible to the tensor cores
-    __syncthreads();             // for both warpgroups; stage s - 2 is free
-    if (s + AHEAD < S) load(s + AHEAD);
+    cp_async_wait<AH - 1>();  // stage s has landed
+    fence_async_shared();     // ... and is visible to the tensor cores
+    __syncthreads();          // for both warpgroups; stage s - 2 is free
+    if (s + AH < S) load(s + AH);
     cp_async_commit();
-    const unsigned char* as = As + (s % STAGES) * A_STAGE + wg * 64 * KB;
-    const unsigned char* bs = Bs + (s % STAGES) * B_STAGE;
+    const unsigned char* as = As + (s % NS) * A_STAGE + wg * 64 * KB;
+    const unsigned char* bs = Bs + (s % NS) * B_STAGE;
     wgmma_fence();
+    if constexpr (SLAB) {
 #pragma unroll
-    for (int ks = 0; ks < KB / 32; ++ks)  // k steps: 32 bytes into the rows
-      wgmma_k32b<T, BN>(acc, smem_desc(as + ks * 32), smem_desc(bs + ks * 32));
+      for (int dt = 0; dt < 3; ++dt)  // the time taps: dt M rows on
+#pragma unroll
+        for (int ks = 0; ks < KB / 32; ++ks)
+          wgmma_k32b<T, BN>(acc, smem_desc(as + dt * a.M * KB + ks * 32),
+                            smem_desc(bs + dt * BN * KB + ks * 32));
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KB / 32; ++ks)  // k steps: 32 bytes into the rows
+        wgmma_k32b<T, BN>(acc, smem_desc(as + ks * 32),
+                          smem_desc(bs + ks * 32));
+    }
     wgmma_commit();
     wgmma_wait<1>();
   }
@@ -529,10 +594,16 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     pr[h] = p0 + perm(row0 + 8 * h);
     ok[h] = pr[h] < P;
     const long long p = ok[h] ? pr[h] : P - 1;
-    gr[h] = p / ((long long)a.R_out * a.M);
-    const int rem = (int)(p - gr[h] * a.R_out * a.M);
+    gr[h] = p / ((long long)R_pos * a.M);
+    const int rem = (int)(p - gr[h] * R_pos * a.M);
     rr[h] = rem / a.M;
     mr[h] = rem - rr[h] * a.M;
+    if constexpr (SLAB) {
+      // the halo-padded row r' = rr + 1; junk rows are not stored
+      ok[h] = ok[h] && rr[h] >= 1 && rr[h] <= a.R_out;
+      rr[h] = ok[h] ? rr[h] - 1 : 0;
+      pr[h] = (gr[h] * a.R_out + rr[h]) * a.M + mr[h];
+    }
   }
   float gs[2] = {1.0f, 1.0f};
   if (a.smax) {
@@ -683,29 +754,42 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
 template <int BN>
 constexpr int igemm_smem() { return STAGES * (BM + BN) * KB + 1024; }
 
-template <typename T, int BN, int MODE>
+template <typename T, int BN, int MODE, bool SLAB = false>
 inline cudaError_t launch_igemm_bn(const IgemmArgs& a, cudaStream_t st) {
-  constexpr int smem = igemm_smem<BN>();
+  constexpr int smem = SLAB ? slab_smem<BN>() : igemm_smem<BN>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        igemm_kernel<T, BN, MODE>,
+        igemm_kernel<T, BN, MODE, SLAB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const long long P = (long long)a.G * a.R_out * a.M;
+  const long long P = (long long)a.G * (SLAB ? a.R_out + 2 : a.R_out) * a.M;
   dim3 grid((unsigned)((P + BM - 1) / BM), (unsigned)(a.Cout / BN));
-  igemm_kernel<T, BN, MODE><<<grid, NT, smem, st>>>(a);
+  igemm_kernel<T, BN, MODE, SLAB><<<grid, NT, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // BN: the whole Cout up to 256 (Cout is a multiple of 64)
-template <typename T, int MODE>
+template <typename T, int MODE, bool SLAB = false>
 inline cudaError_t launch_igemm(const IgemmArgs& a, cudaStream_t st) {
-  if (a.Cout % 256 == 0) return launch_igemm_bn<T, 256, MODE>(a, st);
-  if (a.Cout % 128 == 0) return launch_igemm_bn<T, 128, MODE>(a, st);
-  return launch_igemm_bn<T, 64, MODE>(a, st);
+  if (a.Cout % 256 == 0) return launch_igemm_bn<T, 256, MODE, SLAB>(a, st);
+  if (a.Cout % 128 == 0) return launch_igemm_bn<T, 128, MODE, SLAB>(a, st);
+  return launch_igemm_bn<T, 64, MODE, SLAB>(a, st);
+}
+
+// the per-tap GEMM, or the slab form where it takes the conv: M a multiple
+// of 8 up to SLAB_MMAX (whole swizzle atoms of offset), no time pairs;
+// SLABS builds the slab form (only the sources that launch it)
+template <typename T, int MODE, bool SLABS>
+inline cudaError_t launch_conv(const IgemmArgs& a, bool slab,
+                               cudaStream_t st) {
+  if (!slab) return launch_igemm<T, MODE>(a, st);
+  if (!SLABS || a.M % 8 || a.M > SLAB_MMAX || (MODE == 2 && a.pt != 1))
+    return cudaErrorInvalidValue;
+  if constexpr (SLABS) return launch_igemm<T, MODE, true>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 // max |x| over piece blockIdx.x of group blockIdx.y's window, the flat
@@ -839,7 +923,9 @@ inline unsigned blocks_for(long long n, int per) {
 //   out  [B, T / pt, M / pm, Cout] bf16
 // The x scale of group (b, j) is over the flat element window
 // [j * win_step + win_lo, j * win_step + win_hi) of clip b; per_clip: one
-// window a clip, [0, T M Cin), shared by its chunks.
+// window a clip, [0, T M Cin), shared by its chunks.  slab1 / slab2 run
+// conv1 / conv2 in the slab form (SLABS builds it).
+template <bool SLABS = false>
 inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
                                int Cin, int Cout, int tc, int pt, int pm,
                                bool per_clip, long long win_step,
@@ -848,7 +934,8 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
                                const float* b1, const void* w2,
                                const float* a2, const float* b2, void* xs,
                                void* y1, int8_t* y1q, unsigned* smax,
-                               bf16* out, cudaStream_t st) {
+                               bf16* out, cudaStream_t st,
+                               bool slab1 = false, bool slab2 = false) {
   const int nch = (T + tc - 1) / tc, G = B * nch;
   const long long clip_len = (long long)T * M * Cin;
   const int nsx = per_clip ? B : G;
@@ -905,8 +992,8 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
   c1.Cout = Cout;
   c1.time_off = -1;
   c1.pt = c1.pm = 1;
-  TTG_CHECK(quant ? launch_igemm<int8_t, 0>(c1, st)
-                  : launch_igemm<bf16, 1>(c1, st));
+  TTG_CHECK(quant ? launch_conv<int8_t, 0, SLABS>(c1, slab1, st)
+                  : launch_conv<bf16, 1, SLABS>(c1, slab1, st));
   if (quant) {
     const long long nvec = (long long)G * R2 * (M + 2) * Cout / 16;
     requant_kernel<<<blocks_for(nvec, 256), 256, 0, st>>>(
@@ -929,8 +1016,8 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
   c2.pt = pt;
   c2.pm = pm;
   c2.T_out = T / pt;
-  TTG_CHECK(quant ? launch_igemm<int8_t, 2>(c2, st)
-                  : launch_igemm<bf16, 2>(c2, st));
+  TTG_CHECK(quant ? launch_conv<int8_t, 2, SLABS>(c2, slab2, st)
+                  : launch_conv<bf16, 2, SLABS>(c2, slab2, st));
 #undef TTG_CHECK
   return cudaSuccess;
 }

@@ -7,7 +7,10 @@ Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370``:
 serving path run through it in direct 3x3 taps (direct9).  Each conv can
 instead run in the TPU kernel's ``mel3`` or ``tri`` tap mode (a mel-im2col
 of K = 3 Cin and three time-tap products), which no shipped model routes;
-on the card both are the slab GEMM of ``csrc/conv_block_mel3.cu``.
+on the card ``mel3`` is the slab GEMM of ``csrc/conv_block_mel3.cu`` and
+``tri`` the slab form of the wgmma implicit GEMM
+(``csrc/conv_block_tri_v2.cu``, :func:`tri_route` says which shapes go
+where).
 
 int8 contract (``conv_block.py:435-461``, ``:312-328``):
 
@@ -52,10 +55,15 @@ import torch.nn.functional as F
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
 # kernel launches through fused_double_conv_pool: direct9 (the serving
-# path, second design), and the slab kernel with a mel3 conv, or with tri
-# only; and the first design's direct9 through _fused_double_conv_pool_v1
+# path, second design); the slab kernel with a mel3 conv; tri on the wgmma
+# slab form, or on direct9's per-tap GEMM at tri's chunk where the slab
+# form takes neither conv (tri_route); the first designs of direct9
+# (_fused_double_conv_pool_v1) and tri (_fused_tri_v1)
 launches = {"conv_block": 0, "conv_block_mel3": 0, "conv_block_tri": 0,
+            "conv_block_tri_per_tap": 0, "conv_block_tri_v1": 0,
             "conv_block_v1": 0}
+SLAB_M = (8, 16, 32, 64)   # M of the tri slab form: whole swizzle atoms
+SLAB_BM = 128              # output rows of its GEMM tile
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -255,7 +263,8 @@ def mel3_window_scale(xf: torch.Tensor, tc: int, nch: int) -> torch.Tensor:
 def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
                       tc: int, x_scale=per_clip_scale,
                       compute_dtype=torch.bfloat16, round_y1: bool = False,
-                      divide: bool = False) -> torch.Tensor:
+                      divide: bool = False,
+                      conv=_conv_valid_time) -> torch.Tensor:
     """The chunked int8 / bf16 block in plain PyTorch.
 
     x ``[B, T, M, Cin]`` bf16; w HWIO f32; ab folded BN affines.
@@ -265,7 +274,8 @@ def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
     sums) and the result is in that type.  ``round_y1`` rounds the conv1
     rows to ``compute_dtype`` before their int8 scale is taken
     (``conv_block.py:691 fused_pair_conv_pool`` stores them so);
-    ``divide`` as in :func:`quant_weight`.
+    ``divide`` as in :func:`quant_weight`; ``conv`` replaces
+    :func:`_conv_valid_time` (an emulated kernel blocking).
     Returns ``[B, T // pt, M // pm, Cout]``, bf16 for int8.
     """
     b, t, m, _ = x.shape
@@ -282,7 +292,7 @@ def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
                        (1.0 / sx).reshape(g, 1, 1, 1))
         w1q, s1 = quant_weight(w1.float(), divide)
         # int8 products summed exactly: float64 holds every partial sum
-        acc1 = _conv_valid_time(xq, w1q, torch.float64).float()
+        acc1 = conv(xq, w1q, torch.float64).float()
         mul1 = (a1 * s1)[None] * sx[:, None]
         y1 = torch.where(valid, torch.relu(acc1 * mul1[:, None, None] + b1),
                          0.0)
@@ -290,10 +300,11 @@ def double_conv_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool,
             y1 = y1.to(compute_dtype).float()
     else:
         xw = _windows(x.to(compute_dtype), tc, 2, nch)
-        acc1 = _conv_valid_time(xw, w1.to(compute_dtype), torch.float32)
+        acc1 = conv(xw, w1.to(compute_dtype), torch.float32)
         y1 = torch.where(valid, torch.relu(acc1 * a1 + b1), 0.0)
     return conv2_pool_plain(y1, w2, ab2, pool, b, t, quantize=quantize,
-                            compute_dtype=compute_dtype, divide=divide)
+                            compute_dtype=compute_dtype, divide=divide,
+                            conv=conv)
 
 
 def block_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool, tc: int,
@@ -311,12 +322,13 @@ def block_plain(x, w1, ab1, w2, ab2, pool, *, quantize: bool, tc: int,
 
 
 def conv2_pool_plain(y1, w2, ab2, pool, b: int, t: int, *, quantize: bool,
-                     compute_dtype=torch.bfloat16,
-                     divide: bool = False) -> torch.Tensor:
+                     compute_dtype=torch.bfloat16, divide: bool = False,
+                     conv=_conv_valid_time) -> torch.Tensor:
     """The second half of a chunked block: y1 ``[B * nch, tc + 2, M, C]``
     f32, conv1 rows at times ``[j tc - 1, j tc + tc + 1)`` of chunk j,
     zero outside the clip → requantize per chunk (int8) → conv2 → BN →
-    ReLU → f32 avg+max pool → ``[B, T // pt, M // pm, Cout]``."""
+    ReLU → f32 avg+max pool → ``[B, T // pt, M // pm, Cout]``; ``conv``
+    as in :func:`double_conv_plain`."""
     g, r, m, _ = y1.shape
     nch, tc = g // b, r - 2
     cout = w2.shape[-1]
@@ -326,12 +338,12 @@ def conv2_pool_plain(y1, w2, ab2, pool, b: int, t: int, *, quantize: bool,
         sy = over127(torch.clamp(y1.amax(dim=(1, 2, 3)), min=1e-6))
         y1q = _quant_i8(y1, (1.0 / sy).reshape(g, 1, 1, 1))
         w2q, s2 = quant_weight(w2.float(), divide)
-        acc2 = _conv_valid_time(y1q, w2q, torch.float64).float()
+        acc2 = conv(y1q, w2q, torch.float64).float()
         mul2 = (a2 * s2)[None] * sy[:, None]
         y2 = torch.relu(acc2 * mul2[:, None, None] + b2)
     else:
-        acc2 = _conv_valid_time(y1.to(compute_dtype),
-                                w2.to(compute_dtype), torch.float32)
+        acc2 = conv(y1.to(compute_dtype), w2.to(compute_dtype),
+                    torch.float32)
         y2 = torch.relu(acc2 * a2 + b2)
     pooled = dual_pool(y2, pt, pm)
     pooled = pooled.reshape(b, nch * tc // pt, m // pm, cout)[:, :t // pt]
@@ -434,11 +446,83 @@ def check_v2_pool(m: int, pool) -> None:
                          f"(8, 16, 32, 64); got M={m}")
 
 
+def tri_route(m: int, pool, tri_1: bool, tri_2: bool) -> tuple:
+    """``(slab1, slab2, key)`` of a tri block on the card: which convs run
+    the wgmma GEMM's slab form (``csrc/conv_block_tri_v2.cu``) and the
+    launch counter.  The slab form takes M in :data:`SLAB_M` (its time
+    taps are row offsets of whole swizzle atoms) and, for conv2, pool (1,
+    .) (its rows are not permuted for time pairs).  Where it takes neither
+    conv, the block runs direct9's per-tap GEMM at tri's chunk
+    (``"conv_block_tri_per_tap"``), the same int8 bits; at M 2 or 4 with
+    time pairs, which neither GEMM takes, it runs the first tri design
+    (``csrc/conv_block_mel3.cu``, ``"conv_block_tri_v1"``)."""
+    ok = m in SLAB_M
+    slab1, slab2 = bool(tri_1 and ok), bool(tri_2 and ok and pool[0] == 1)
+    if slab1 or slab2:
+        return slab1, slab2, "conv_block_tri"
+    if pool[0] == 1 or ok:
+        return False, False, "conv_block_tri_per_tap"
+    return False, False, "conv_block_tri_v1"
+
+
+def check_tri_slab(m: int, pool, slab1: bool, slab2: bool) -> None:
+    """Raise on a conv the slab form does not take (:func:`tri_route`)."""
+    if (slab1 or slab2) and m not in SLAB_M:
+        raise ValueError(f"the tri slab GEMM takes M in {SLAB_M}; got M={m}")
+    if slab2 and pool[0] != 1:
+        raise ValueError(f"the tri slab GEMM's conv2 takes pool (1, .); "
+                         f"got {tuple(pool)}")
+
+
+def slab_rows(n_pos: int, m: int, p0: int) -> torch.Tensor:
+    """The slab of the tile at output position ``p0`` of the slab form:
+    flat source rows ``p0 - M + q``, ``q < 128 + 2M``, as (time row * M +
+    mel) of the halo-padded source, clamped into ``[0, n_pos)``.  Tap dt
+    of tile row k reads slab row ``dt M + k``."""
+    return (p0 - m + torch.arange(SLAB_BM + 2 * m)).clamp(0, n_pos - 1)
+
+
+def slab_conv_emulated(x: torch.Tensor, w: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_conv_valid_time` in the slab form's blocking: output
+    positions ``(g R + r') M + m`` of ``x [G, R, M, Cin]`` in tiles of 128
+    rows that cross group edges; for each mel tap dm one slab of mel-padded
+    cells (column ``mel + dm``); the time taps dt read it ``dt M`` rows
+    on; rows ``r'`` 0 and ``R - 1`` of each group are junk and dropped.
+    Sums in ``dtype`` (float64: exact for int8).  → ``[G, R - 2, M,
+    Cout]``."""
+    g, r, m, cin = x.shape
+    cells = F.pad(x, (0, 0, 1, 1)).reshape(-1, cin).to(dtype)
+    wd = w.to(dtype)
+    n_pos = g * r * m
+    acc = torch.empty(n_pos, w.shape[3], dtype=dtype)
+    for p0 in range(0, n_pos, SLAB_BM):
+        f = slab_rows(n_pos, m, p0)
+        tile = 0.0
+        for dm in range(3):
+            slab = cells[(f // m) * (m + 2) + f % m + dm]
+            for dt in range(3):
+                tile = tile + slab[dt * m:dt * m + SLAB_BM] @ wd[dt, dm]
+        end = min(p0 + SLAB_BM, n_pos)
+        acc[p0:end] = tile[:end - p0]
+    return acc.reshape(g, r, m, -1)[:, 1:r - 1]
+
+
+def tri_slab_emulated(x, w1, ab1, w2, ab2, pool, *, quantize: bool, tc: int,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The second tri design, tri=(True, True), on the CPU: direct9's
+    scales and epilogues with both convs in :func:`slab_conv_emulated`."""
+    return double_conv_plain(x, w1, ab1, w2, ab2, pool, quantize=quantize,
+                             tc=tc, compute_dtype=compute_dtype,
+                             conv=slab_conv_emulated)
+
+
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SLAB_ARGS = [_I] * 5 + _ARGS[1:]
 _V2_ARGS = _ARGS[:16] + [_P] * 6
+_TRI_ARGS = [_I] * 3 + _V2_ARGS[1:]
 
 
 def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
@@ -458,7 +542,10 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     the same weights, kept by the caller so that a forward does not lay
     them out again.  Returns ``[B, T // pt, M // pm, Cout]``, bf16 for
     int8, else in ``compute_dtype``.  On the card ``compute_dtype`` is
-    bf16.  Serving only (running BN statistics).
+    bf16; a mel3 block runs the slab kernel, a tri block (without mel3)
+    the wgmma slab form where :func:`tri_route` says it takes the conv,
+    else direct9's per-tap GEMM at tri's chunk (at M 2 or 4 with time
+    pairs the first tri design).  Serving only (running BN statistics).
     """
     b, t, m, cin = x.shape
     cout = w1.shape[-1]
@@ -480,31 +567,96 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     check_device(x, *wk)
     out = torch.empty(b, t // pt, m // pm, cout, dtype=torch.bfloat16,
                       device=x.device)
-    if any(slab):
-        bufs = (*(v.data_ptr() for v in wk),
-                *(v.data_ptr() for v in scratch(
-                    b, t, m, cin, cout, tc, quantize, x.device,
-                    y1_half=quantize and mel3_2)),
-                out.data_ptr(), _build.stream())
-        name = "ttg_conv_block_mel3"
-        fn = _build.function("conv_block_mel3", name, _SLAB_ARGS)
-        err = fn(int(quantize), int(mel3_1), int(tri_1), int(slab[1]),
-                 int(quantize and mel3_2), x.data_ptr(), b, t, m, cin, cout,
-                 tc, pt, pm, *bufs)
-        launches["conv_block_mel3" if mel3_1 or mel3_2
-                 else "conv_block_tri"] += 1
-    else:
-        check_v2_pool(m, pool)
-        xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
-                                       x.device, per_clip=True)
-        name = "ttg_conv_block_v2"
-        fn = _build.function("conv_block_v2", name, _V2_ARGS)
-        err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, pt,
-                 pm, *(v.data_ptr() for v in wk), xs.data_ptr(),
-                 y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(),
-                 out.data_ptr(), _build.stream())
-        launches["conv_block"] += 1
+    if mel3_1 or mel3_2:
+        _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
+        launches["conv_block_mel3"] += 1
+        return out
+    if tri_1 or tri_2:
+        slab1, slab2, key = tri_route(m, pool, tri_1, tri_2)
+        if key == "conv_block_tri_v1":
+            _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
+        else:
+            _launch_tri_v2(x, wk, quantize, tc, pool, slab1, slab2, out)
+        launches[key] += 1
+        return out
+    check_v2_pool(m, pool)
+    xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
+                                   x.device, per_clip=True)
+    name = "ttg_conv_block_v2"
+    fn = _build.function("conv_block_v2", name, _V2_ARGS)
+    err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, pt,
+             pm, *(v.data_ptr() for v in wk), xs.data_ptr(),
+             y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(),
+             out.data_ptr(), _build.stream())
+    launches["conv_block"] += 1
     _build.check(err, name)
+    return out
+
+
+def _launch_slab_v1(x, wk, modes, quantize: bool, tc: int, pool,
+                    out) -> None:
+    """The mel3 / tri slab kernel (``csrc/conv_block_mel3.cu``): mel3's
+    design, and tri's first."""
+    b, t, m, cin = x.shape
+    cout = out.shape[-1]
+    mel3_1, mel3_2, tri_1, tri_2 = modes
+    bufs = (*(v.data_ptr() for v in wk),
+            *(v.data_ptr() for v in scratch(
+                b, t, m, cin, cout, tc, quantize, x.device,
+                y1_half=quantize and mel3_2)),
+            out.data_ptr(), _build.stream())
+    fn = _build.function("conv_block_mel3", "ttg_conv_block_mel3",
+                         _SLAB_ARGS)
+    err = fn(int(quantize), int(mel3_1), int(tri_1),
+             int(mel3_2 or tri_2), int(quantize and mel3_2), x.data_ptr(),
+             b, t, m, cin, cout, tc, *pool, *bufs)
+    _build.check(err, "ttg_conv_block_mel3")
+
+
+def _launch_tri_v2(x, wk, quantize: bool, tc: int, pool, slab1: bool,
+                   slab2: bool, out) -> None:
+    """tri's second design: direct9's pipeline at tri's chunk with conv1 /
+    conv2 in the wgmma GEMM's slab form (``csrc/conv_block_tri_v2.cu``)."""
+    b, t, m, cin = x.shape
+    cout = out.shape[-1]
+    check_tri_slab(m, pool, slab1, slab2)
+    check_v2_pool(m, pool)
+    xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
+                                   x.device, per_clip=True)
+    fn = _build.function("conv_block_tri_v2", "ttg_conv_block_tri_v2",
+                         _TRI_ARGS)
+    err = fn(int(quantize), int(slab1), int(slab2), x.data_ptr(), b, t, m,
+             cin, cout, tc, *pool, *(v.data_ptr() for v in wk),
+             xs.data_ptr(), y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(),
+             out.data_ptr(), _build.stream())
+    _build.check(err, "ttg_conv_block_tri_v2")
+
+
+def _fused_tri_v1(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                  w2: torch.Tensor, ab2: tuple, pool: tuple = (1, 2), *,
+                  quantize: bool = False, tri: tuple = (True, True),
+                  tc: int | None = None,
+                  prepared: tuple | None = None) -> torch.Tensor:
+    """tri's first design (the slab kernel of ``csrc/conv_block_mel3.cu``)
+    on a CUDA tensor, arguments as :func:`fused_double_conv_pool`;
+    nothing served calls it.  ``chip_smoke.py`` holds the second design
+    to it."""
+    b, t, m, cin = x.shape
+    cout = w1.shape[-1]
+    modes = tap_modes(cin, quantize, None, tri)
+    tc = tc or block_tc(x.shape, cout, pool, quantize, modes)
+    check_block_args(x, w1, ab1, w2, ab2, pool, tc)
+    if not x.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
+    if not (modes[2] or modes[3]) or m % 2 or 64 % m:
+        raise ValueError("the first tri design takes a tri conv and M "
+                         "dividing 64, even")
+    wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
+    check_device(x, *wk)
+    out = torch.empty(b, t // pool[0], m // pool[1], cout,
+                      dtype=torch.bfloat16, device=x.device)
+    _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
+    launches["conv_block_tri_v1"] += 1
     return out
 
 
