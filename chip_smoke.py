@@ -11,8 +11,9 @@ Phases, each printing one line:
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
    ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``,
-   ``bn_pool_v2.cu``, ``conv_block_wino_v2.cu``, ``conv_block_tri_v2.cu``)
-   from their ``-Xptxas -v`` logs;
+   ``bn_pool_v2.cu``, ``conv_block_wino_v2.cu``, ``conv_block_tri_v2.cu``,
+   ``conv_block_mel3_v2.cu``, ``pair_conv_pool_v2.cu``) from their
+   ``-Xptxas -v`` logs;
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -79,28 +80,32 @@ Phases, each printing one line:
    ``TTG_B1_MODE=single``), held to the same contract;
 4. designs: the JAX package's designs that no shipped model routes, one
    record each in one table: block 1's all-int8 mode in both stagings and
-   ``fused_pair_conv_pool`` (with and without conv1), ``fused_block2`` and
-   ``fused_block1`` on the batch-32 request's block-1 input (the bn0
-   output) and output with the served model's weights, beside the routed
-   rows 2 / 3; the Winograd block (``fused_block_wino``, int8 and bf16,
-   second design ``conv_block_wino_v2.cu``) at the pool-(2, 2) analog of
+   ``fused_pair_conv_pool`` (with and without conv1, second design
+   ``pair_conv_pool_v2.cu``), ``fused_block2`` and ``fused_block1`` on the
+   batch-32 request's block-1 input (the bn0 output) and output with the
+   served model's weights, beside the routed rows 2 / 3; the Winograd
+   block (``fused_block_wino``, int8 and bf16, second design
+   ``conv_block_wino_v2.cu``) at the pool-(2, 2) analog of
    blocks 3 and 4 (a record each) on that request's block-2 output with
    the served blocks 3-4 weights, driven through ``ConvBlock(...,
    wino=True)``, beside the direct9 kernel at pool (2, 2) on the same
    input and bound by the Winograd products' operations (the direct
    conv's beside it); row 4's mel3 and tri tap modes (``mel3=(True,
-   True)`` on the slab kernel, ``tri=(True, True)`` on its second design
-   ``conv_block_tri_v2.cu``, int8 at each mode's own chunk and the bf16
-   mode) at the flagship's blocks 3 and 4 (pool (1, 2), a record each) on
-   that request's block-2 output and then the mode's own block-3 output,
-   with the served weights, beside direct9 on the same input, tri also at
-   its own and direct9's chunk bit for bit against the row-4 kernel, each
-   traced by launch; row 8 and tri also against their first designs
-   (int8 bit for bit, the first design also against its plain version,
-   bf16 within 1e-2), timed in turns with them (v1 v2 v2 v1; tri with
-   direct9 between), each design's kernels a call counted by the
-   profiler and held to the design's count, beside the cuDNN bf16 chain
-   (two ``F.conv2d``, affine, ReLU, pools) as a yardstick; and the
+   True)`` and ``tri=(True, True)`` on their second designs
+   ``conv_block_mel3_v2.cu`` and ``conv_block_tri_v2.cu``, int8 at each
+   mode's own chunk and the bf16 mode) at the flagship's blocks 3 and 4
+   (pool (1, 2), a record each) on that request's block-2 output and then
+   the mode's own block-3 output, with the served weights, beside direct9
+   on the same input, tri also at its own and direct9's chunk bit for bit
+   against the row-4 kernel, mel3 also in its (True, False) mode and in
+   bf16 bit for bit against tri, each traced by launch; rows 5 and 8 and
+   both tap modes also against their first designs (int8 bit for bit, the
+   first design also against its plain version, bf16 within 1e-2), timed
+   in turns with them (v1 v2 v2 v1; mel3 and tri with direct9 between,
+   row 5's full block with row 3), each design's kernels a call counted
+   by the profiler and held to the design's count, beside the cuDNN bf16
+   chain (two ``F.conv2d``, or one for row 5 without conv1, affine, ReLU,
+   pools) as a yardstick; and the
    log-mel variants v3 and v4 on that request's waveform beside row 1's
    two designs (v4 held to the first, whose tile code it shares).  Each
    design runs once (its launches counted, exactly), then each int8
@@ -2007,6 +2012,28 @@ def _block12_designs(x1, y1, enc) -> dict:
     b1_ops = {"int8": 2.0 * clips * t1 * 64 * 9 * 64 + mk * (t1 // 2 * 2)}
     b2_ops = {"int8": 2.0 * pos2 * 576 * 128 + 2.0 * pos2 * 1152 * 128}
 
+    def pair(run, plain, name, w, x16, with_row3=None, **kw):
+        # row 5: the second design (the route) held to its plain version
+        # and the first, both timed in turns (beside row 3 on the same
+        # input for the full block) and traced by launch
+        fns = {(d, q): functools.partial(run, fn, q) for q in (True, False)
+               for d, fn in (
+                   ("v2", pair_conv_pool.fused_pair_conv_pool),
+                   ("v1", pair_conv_pool._fused_pair_conv_pool_v1))}
+        return _design(
+            kernel=fns["v2", True], plain=lambda: plain(True),
+            bf16=(fns["v2", False], lambda: plain(False)),
+            check=_held_to_v1(fns["v1", True], name),
+            source="pair_conv_pool_v2.cu", replaces="conv_block.py:691",
+            tolerance=_DESIGN_TOL + "; int8 max_abs == 0 to the first "
+                      "design (pair_conv_pool.cu)",
+            trace=True, designs=lambda: _redesigned(
+                fns, PAIR_KERNELS[name], lambda: plain(False),
+                _block_chain(w, (2, 2)), x16, with_direct9=with_row3,
+                beside="row3"),
+            v1_source="texttoaudiogrounding_tpu_torch/csrc/"
+                      "pair_conv_pool.cu", **kw)
+
     def row2(mode, line):
         def first():
             return conv_block1_pair._fused_block1_pair_v1(
@@ -2048,18 +2075,18 @@ def _block12_designs(x1, y1, enc) -> dict:
             in_bytes=b1_in, source="block1_small.cu",
             replaces="conv_block_small.py:471", beside=routed1,
             input_shape=list(x1.shape))),
-        "pair_conv_pool_conv2": _design(**both(
-            lambda q: pair_conv_pool.fused_pair_conv_pool(
+        "pair_conv_pool_conv2": pair(
+            lambda design, q: design(
                 aq if q else a16, None, None, w2, ab2, quantize=q,
                 x_scale=xs if q else None, prepared=prep["c2", q]),
             lambda q: pair_conv_pool.pair_conv_pool_plain(
                 aq if q else a16, None, None, w2, ab2, quantize=q,
                 tc=pair_conv_pool.pick_tc(tp, 32, 2),
                 x_scale=xs if q else None),
+            "pair_conv_pool_conv2", (None, None, w2, ab2), a16,
             ref=f32_1, ops={"int8": mk * tp},
             in_bytes=aq.numel() + 4 * (w2.numel() + 2 * 64),
-            source="pair_conv_pool.cu", replaces="conv_block.py:691",
-            beside=routed1, input_shape=list(aq.shape))),
+            beside=routed1, input_shape=list(aq.shape)),
         "block2_small": _design(**both(
             lambda q: block2_small.fused_block2(y1, *b2w, quantize=q,
                                                 prepared=prep["b2s", q]),
@@ -2069,15 +2096,29 @@ def _block12_designs(x1, y1, enc) -> dict:
             ref=f32_2, ops=b2_ops, in_bytes=b2_in,
             source="conv_block_pair.cu", replaces="conv_block_small.py:291",
             beside=routed2, input_shape=list(y1.shape))),
-        "pair_conv_pool": _design(**both(
-            lambda q: pair_conv_pool.fused_pair_conv_pool(
-                y1, *b2w, quantize=q, prepared=prep["b2", q]),
+        "pair_conv_pool": pair(
+            lambda design, q: design(y1, *b2w, quantize=q,
+                                     prepared=prep["b2", q]),
             lambda q: pair_conv_pool.pair_conv_pool_plain(
                 y1, *b2w, quantize=q, tc=pair_conv_pool.pick_tc(t2, 16, 2)),
-            ref=f32_2, ops=b2_ops, in_bytes=b2_in,
-            source="pair_conv_pool.cu", replaces="conv_block.py:691",
-            beside=routed2, input_shape=list(y1.shape))),
+            "pair_conv_pool", b2w, y1, ref=f32_2, ops=b2_ops,
+            in_bytes=b2_in, beside=routed2, input_shape=list(y1.shape),
+            with_row3={q: lambda q=q: conv_block_pair.fused_block2_pair(
+                y1, *b2w, quantize=q, tc=tc2 if q else None,
+                prepared=prep["b2", q]) for q in (True, False)}),
     }
+
+
+# row 5's kernels a call: second design (int8: the x window maxes, the
+# quantize pass, conv1, the y1 requantization, conv2; bf16: the pad pass
+# and the two convs; conv2 alone one GEMM), first design (int8: the
+# gather, conv1, the y1 requantization, conv2; bf16: the gather and the
+# two convs; conv2 alone one)
+PAIR_KERNELS = {
+    "pair_conv_pool": {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
+                       ("v1", False): 3},
+    "pair_conv_pool_conv2": {("v2", True): 1, ("v2", False): 1,
+                             ("v1", True): 1, ("v1", False): 1}}
 
 
 def _single_loud_frame(x1, b1w) -> dict:
@@ -2125,22 +2166,29 @@ def _log_mel_f64(wave, cfg):
 def _block_chain(w, pool):
     """A block's bf16 mode as a PyTorch chain on ``[B, T, M, C]``: cuDNN
     bf16 ``F.conv2d``, the BN affine and ReLU, again, then ``avg_pool2d +
-    max_pool2d`` at ``pool``; a yardstick that the port never calls."""
+    max_pool2d`` at ``pool``; a yardstick that the port never calls.
+    With ``w1`` None (``w = (None, None, w2, ab2)``) conv2 alone."""
     import torch
     import torch.nn.functional as F
-    w1, (a1, b1), w2, (a2, b2) = w
-    k1 = w1.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    w1, ab1, w2, ab2 = w
     k2 = w2.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
     aff = [(a.to(torch.bfloat16)[:, None, None], b.to(torch.bfloat16)[
-        :, None, None]) for a, b in ((a1, b1), (a2, b2))]
+        :, None, None]) for a, b in (ab1 or ab2, ab2)]
+    if w1 is not None:
+        k1 = w1.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
 
     def chain(x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), k1, padding=1)
-        y = torch.relu(y * aff[0][0] + aff[0][1])
+        y = x.permute(0, 3, 1, 2)
+        if w1 is not None:
+            y = F.conv2d(y, k1, padding=1)
+            y = torch.relu(y * aff[0][0] + aff[0][1])
         y = F.conv2d(y, k2, padding=1)
         y = torch.relu(y * aff[1][0] + aff[1][1])
         return (F.avg_pool2d(y, pool) + F.max_pool2d(y, pool)).permute(
             0, 2, 3, 1)
+    chain.label = (f"cuDNN bf16 F.conv2d -> affine -> ReLU"
+                   f"{'' if w1 is None else ', twice'} -> avg_pool2d + "
+                   f"max_pool2d")
     return chain
 
 
@@ -2151,24 +2199,25 @@ def _kernel_launches(trace: dict) -> int:
 
 
 def _redesigned(fns: dict, launches: dict, plain16, chain, x,
-                with_direct9=None) -> dict:
+                with_direct9=None, beside: str = "direct9") -> dict:
     """A redesigned row's two designs ``fns`` {(design, int8?): fn}: timed
-    in turns (v1 v2 v2 v1, with ``with_direct9`` {int8?: fn} as v1 v2 d9 d9
-    v2 v1) in int8 and bf16; each traced by launch, its kernels a call
-    counted by the profiler and held to ``launches`` {(design, int8?): n};
-    the first design's bf16 mode held within 1e-2 relative RMS of its
-    plain version ``plain16()``; and the cuDNN bf16 chain on ``x``."""
+    in turns (v1 v2 v2 v1, with ``with_direct9`` {int8?: fn}, the kernel
+    named ``beside``, as v1 v2 d9 d9 v2 v1) in int8 and bf16; each traced
+    by launch, its kernels a call counted by the profiler and held to
+    ``launches`` {(design, int8?): n}; the first design's bf16 mode held
+    within 1e-2 relative RMS of its plain version ``plain16()``; and the
+    cuDNN bf16 chain on ``x``."""
     out, counts = {}, {}
     for q, key in ((True, ""), (False, "bf16_")):
         fq = {d: fns[d, q] for d in ("v1", "v2")}
         order = ("v1", "v2")
         if with_direct9:
-            fq["direct9"], order = with_direct9[q], ("v1", "v2", "direct9")
+            fq[beside], order = with_direct9[q], ("v1", "v2", beside)
         t = _turns(fq, order)
         out.update({f"{key}ms": t["v2"], f"v1_{key}ms": t["v1"],
                     f"{key}turns_ms": t["runs"]})
         if with_direct9:
-            out[f"direct9_{key}turns_mean_ms"] = t["direct9"]
+            out[f"{beside}_{key}turns_mean_ms"] = t[beside]
         for d in ("v2", "v1"):
             tr = _trace(fq[d], t[d], by_launch=True)
             out[f"{d}_{key}trace"] = tr
@@ -2186,8 +2235,7 @@ def _redesigned(fns: dict, launches: dict, plain16, chain, x,
     return {**out, "launches_per_call": counts,
             "v1_bf16_rel_rms_err": v1_16,
             "chain_ms": _cuda_ms(lambda: chain(x), 10),
-            "chain": "cuDNN bf16 F.conv2d -> affine -> ReLU, twice -> "
-                     "avg_pool2d + max_pool2d",
+            "chain": chain.label,
             "chain_rel_rms_vs_bf16_plain": _err(chain(x), plain16())[1]}
 
 
@@ -2314,12 +2362,15 @@ def _wino_designs(enc, y2) -> tuple:
 # row 4's tap modes at the flagship's blocks 3-4, pool (1, 2): (block,
 # Cin, Cout)
 SLAB_BLOCKS = ((3, 128, 256), (4, 256, 512))
-# tri's kernels a call: second design (int8: the clip max, the quantize
-# pass, conv1, the y1 requantization, conv2; bf16: the pad pass and the
-# two convs), first design (int8: the quantize pass, conv1, the y1
-# requantization, conv2; bf16 the two convs)
-TRI_KERNELS = {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
-               ("v1", False): 2}
+# kernels a call: second designs (int8: the x maxes, the quantize pass,
+# conv1, the y1 requantization, conv2; bf16: the pad pass and the two
+# convs), first design (int8: the quantize pass, conv1, the y1
+# requantization, conv2; bf16 the two convs, mel3 after a gather pass)
+SLAB_KERNELS = {
+    "tri": {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
+            ("v1", False): 2},
+    "mel3": {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
+             ("v1", False): 3}}
 
 
 def _slab_designs(enc, y2) -> tuple:
@@ -2328,14 +2379,16 @@ def _slab_designs(enc, y2) -> tuple:
     output (block 3) and on the mode's own block-3 output (block 4); one
     record per mode and block, int8 at the mode's own JAX chunk and its
     bf16 mode at its own, beside direct9 (row 4) on the same input, each
-    with its weights laid out once.  mel3 runs the slab kernel
-    (``conv_block_mel3.cu``); tri its second design, the wgmma GEMM's slab
-    form (``conv_block_tri_v2.cu``), held bit for bit to its plain version,
-    to its first design (the slab kernel, itself held to the plain
-    version) and to direct9 at tri's chunk and at direct9's own (their
-    scales are direct9's), the designs timed in turns beside direct9 and
-    traced by launch, beside the cuDNN bf16 chain.  Bound by the direct
-    conv's operations, all of which both do.  Returns (records, the
+    with its weights laid out once.  Both run their second designs, the
+    wgmma GEMM's slab form (``conv_block_mel3_v2.cu``,
+    ``conv_block_tri_v2.cu``), held bit for bit to the plain version and
+    to the first design (the slab kernel of ``conv_block_mel3.cu``, itself
+    held to the plain version); tri also to direct9 at tri's chunk and at
+    direct9's own (its scales are direct9's); mel3 also in its (True,
+    False) mode, and in bf16 bit for bit to tri (the same function at the
+    same chunk); the designs timed in turns beside direct9 at the mode's
+    chunk and traced by launch, beside the cuDNN bf16 chain.  Bound by the
+    direct conv's operations, all of which both do.  Returns (records, the
     outputs of the counted run)."""
     import torch
 
@@ -2371,12 +2424,15 @@ def _slab_designs(enc, y2) -> tuple:
                 return cb.block_plain(x, *w, (1, 2), quantize=q, tc=tcs[q],
                                       modes=modes[q])
 
-            check, more = _bit_exact, {}
-            if mode == "tri":
-                def first(q, x=x, w=w, pq=pq, p16=p16):
-                    return cb._fused_tri_v1(x, *w, (1, 2), quantize=q,
-                                            prepared=pq if q else p16)
+            first_fn = {"mel3": cb._fused_mel3_v1,
+                        "tri": cb._fused_tri_v1}[mode]
 
+            def first(q, x=x, w=w, pq=pq, p16=p16, first_fn=first_fn,
+                      **over):
+                return first_fn(x, *w, (1, 2), quantize=q,
+                                prepared=pq if q else p16, **over)
+
+            if mode == "tri":
                 def check(out, target, run=run, tc=d9_tc[True],
                           tri_tc=tcs[True], name=name, first=first):
                     errs = _held_to_v1(lambda: first(True), name)(out,
@@ -2391,19 +2447,35 @@ def _slab_designs(enc, y2) -> tuple:
                             f"tc {tc} ({same})")
                     return {**errs, "vs_direct9_at_tri_tc_max_abs": same_tc,
                             "vs_direct9_at_its_tc_max_abs": same}
-                fns = {(d, q): (lambda run=run, q=q: run(q)) if d == "v2"
-                       else (lambda first=first, q=q: first(q))
-                       for d in ("v2", "v1") for q in (True, False)}
-                d9 = {q: (lambda run=run, q=q, tc=tcs[q]: run(
-                    q, tri=None, tc=tc)) for q in (True, False)}
-                more = dict(
-                    designs=lambda fns=fns, plain=plain, x=x, w=w, d9=d9: (
-                        _redesigned(fns, TRI_KERNELS, lambda: plain(False),
-                                    _block_chain(w, (1, 2)), x,
-                                    with_direct9=d9)),
-                    source="conv_block_tri_v2.cu",
-                    v1_source="texttoaudiogrounding_tpu_torch/csrc/"
-                              "conv_block_mel3.cu")
+            else:
+                def check(out, target, run=run, name=name, first=first,
+                          x=x, w=w, cin=cin, cout=cout):
+                    errs = _held_to_v1(lambda: first(True), name)(out,
+                                                                  target)
+                    # (True, False): f32 y1 and direct9's conv2
+                    tf = cb.tap_modes(cin, True, (True, False))
+                    got = run(True, mel3=(True, False))
+                    tf_plain = _err(got, cb.block_plain(
+                        x, *w, (1, 2), quantize=True, modes=tf,
+                        tc=cb.block_tc(x.shape, cout, (1, 2), True, tf)))[0]
+                    tf_v1 = _err(got, first(True, mel3=(True, False)))[0]
+                    # bf16: tri's function at tri's chunk, tri's launches
+                    vs_tri = _err(run(False), run(False, mel3=None,
+                                                  tri=(True, True)))[0]
+                    if tf_plain or tf_v1 or vs_tri:
+                        raise AssertionError(
+                            f"{name}: mel3 (True, False) differs from its "
+                            f"plain version ({tf_plain}) or first design "
+                            f"({tf_v1}), or bf16 mel3 from bf16 tri "
+                            f"({vs_tri})")
+                    return {**errs, "tf_max_abs_err": tf_plain,
+                            "tf_v1_max_abs_err": tf_v1,
+                            "bf16_vs_tri_max_abs": vs_tri}
+            fns = {(d, q): (lambda run=run, q=q: run(q)) if d == "v2"
+                   else (lambda first=first, q=q: first(q))
+                   for d in ("v2", "v1") for q in (True, False)}
+            d9 = {q: (lambda run=run, q=q, tc=tcs[q]: run(
+                q, mel3=None, tri=None, tc=tc)) for q in (True, False)}
             records[name] = _design(
                 kernel=lambda run=run: run(True),
                 plain=lambda plain=plain: plain(True),
@@ -2411,7 +2483,7 @@ def _slab_designs(enc, y2) -> tuple:
                       lambda plain=plain: plain(False)),
                 ref=("f32_block", f32), ops={"int8": ops},
                 in_bytes=x.numel() * 2 + _wbytes(w),
-                source=more.pop("source", "conv_block_mel3.cu"),
+                source=f"conv_block_{mode}_v2.cu",
                 replaces="conv_block.py:370",
                 counter=f"conv_block_{mode}", check=check,
                 beside={"direct9": lambda run=run: run(True, mel3=None,
@@ -2421,7 +2493,13 @@ def _slab_designs(enc, y2) -> tuple:
                 trace=True, input_shape=list(x.shape), cin=cin, cout=cout,
                 mode=f"{mode}=(True, True)", tc=tcs[True],
                 bf16_tc=tcs[False], direct9_tc=d9_tc[True],
-                direct9_bf16_tc=d9_tc[False], **more)
+                direct9_bf16_tc=d9_tc[False],
+                designs=lambda fns=fns, plain=plain, x=x, w=w, d9=d9,
+                kernels=SLAB_KERNELS[mode]: _redesigned(
+                    fns, kernels, lambda: plain(False),
+                    _block_chain(w, (1, 2)), x, with_direct9=d9),
+                v1_source="texttoaudiogrounding_tpu_torch/csrc/"
+                          "conv_block_mel3.cu")
             x = outs[name]
     return records, outs
 
@@ -3275,7 +3353,9 @@ def main() -> int:
                                           "logmel_v2", "gru_fwd_sm90",
                                           "gru_bwd_sm90", "gru_walk_sm90",
                                           "bn_pool_v2", "conv_block_wino_v2",
-                                          "conv_block_tri_v2")}
+                                          "conv_block_tri_v2",
+                                          "conv_block_mel3_v2",
+                                          "pair_conv_pool_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

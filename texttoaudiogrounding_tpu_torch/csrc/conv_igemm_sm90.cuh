@@ -2,8 +2,11 @@
 // PANNs block (conv3x3 -> BN -> ReLU) x 2 -> avg+max pool as a wgmma
 // implicit GEMM fed by an asynchronous shared-memory ring.  Row 2's second
 // design (conv_block1_v2.cu) runs block 1's conv2 on the same GEMM (MODE
-// 3, block 1's bf16 pool) and builds its fused form from its pieces, and
-// row 1's (logmel_v2.cu) reuses the ring and the wgmma wrappers.
+// 3, block 1's bf16 pool) and builds its fused form from its pieces;
+// row 4's tri and mel3 (conv_block_tri_v2.cu, conv_block_mel3_v2.cu) run
+// it in a slab form, row 5's (pair_conv_pool_v2.cu) as it is and from an
+// unpadded source; row 1's (logmel_v2.cu) reuses the ring and the wgmma
+// wrappers.
 //
 // The function and its int8 contract are the first design's (common.cuh
 // double_conv): the same chunks tc, the same scale windows, int8 weights
@@ -26,7 +29,10 @@
 //    atomicMaxes each warp's max into its group's slot (the rows are >= 0
 //    after the ReLU, out-of-clip rows 0).  requant_kernel is then one wide
 //    elementwise pass, f32 y1 -> mel-padded int8 y1q, with no max pass.
-//    In bf16 conv1 writes the mel-padded bf16 y1 that conv2 reads.
+//    In bf16 conv1 writes the mel-padded bf16 y1 that conv2 reads.  Where
+//    the contract stores y1 in bf16 before its int8 scale (row 4's mel3,
+//    row 5), MODE 4 rounds it in the epilogue, takes the maxes over the
+//    rounded values and writes bf16 (half the round trip's bytes).
 // 4. igemm_kernel: a 128-row x BN-column output tile per block of two
 //    consumer warpgroups (64 rows each), BN the whole Cout up to 256 so
 //    that A is staged once for all output channels (two blocks an SM when
@@ -119,6 +125,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(smem)),
                "l"(gmem)
+               : "memory");
+}
+// 16 bytes, or 16 zero bytes when !full (a source size of 0: nothing is
+// read, gmem must still be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem), "r"(full ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -401,6 +416,11 @@ struct IgemmArgs {
 };
 
 // MODE 0: conv1, f32 y1 [G, R_out, M, Cout] and its group maxes (int8);
+// 4: conv1, y1 rounded to bf16 [G, R_out, M, Cout] and the group maxes of
+//    the rounded values (int8 with a bf16-stored y1: row 4's mel3 conv2
+//    after a mel3 conv1, row 5); rounding to nearest is monotone, so the
+//    max of the rounded values is the rounded max and atomicMax on the
+//    float bits stays exact;
 // 1: conv1, bf16 y1 [G, R_out, M + 2, Cout], mel padded (bf16);
 // 2: conv2 -> f32 avg+max pool (mel pairs, then time pairs) -> bf16 out
 //    [B, T_out, M / pm, Cout];
@@ -422,6 +442,12 @@ struct IgemmArgs {
 // B slices (dt, dm); three wgmma sets read the slab at row offsets dt M,
 // a whole number of 8-row swizzle atoms.  Slab rows past either end of
 // the source feed only junk rows and are clamped to a valid row.
+//
+// ZFILL (per-tap form only; row 5's conv2 without conv1): the source is
+// unpadded, [G, R_out, M, Cin], and output row r of a group reads time r
+// + dt - 1, mel m + dm - 1 of its own group; a tap cell outside the
+// group's rows or the mel range is a cp.async of source size 0, which
+// fills its 16 bytes with zeros, so no padded copy is written.
 constexpr int SLAB_MMAX = 64;  // largest M of the slab form
 
 template <int BN>
@@ -434,9 +460,10 @@ __host__ __device__ constexpr int slab_smem() {
          1024;
 }
 
-template <typename T, int BN, int MODE, bool SLAB = false>
+template <typename T, int BN, int MODE, bool SLAB = false, bool ZFILL = false>
 __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     igemm_kernel(IgemmArgs a) {
+  static_assert(!(SLAB && ZFILL), "the slab form reads a padded source");
   using AT = typename Acc<T, BN>::type;
   constexpr int ES = sizeof(T);
   constexpr int NS = SLAB ? slab_stages<BN>() : STAGES;  // ring slots
@@ -480,6 +507,7 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
   const unsigned char* wtb = static_cast<const unsigned char*>(a.wt);
   long long a_off[A_PER_THREAD];
   int a_dst[A_PER_THREAD];
+  int a_r[ZFILL ? A_PER_THREAD : 1], a_m[ZFILL ? A_PER_THREAD : 1];
   const int a_pieces = SLAB ? (BM + 2 * a.M) * CPR : BM * CPR;
 #pragma unroll
   for (int i = 0; i < A_PER_THREAD; ++i) {
@@ -497,7 +525,13 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
       const long long g = p / ((long long)a.R_out * a.M);
       const int rem = (int)(p - g * a.R_out * a.M);
       const int r = rem / a.M, m = rem - (rem / a.M) * a.M;
-      a_off[i] = ((g * a.R_in + r) * Mp + m) * row_bytes + c * 16;
+      if constexpr (ZFILL) {
+        a_off[i] = p * row_bytes + c * 16;  // the position's own cell
+        a_r[i] = r;
+        a_m[i] = m;
+      } else {
+        a_off[i] = ((g * a.R_in + r) * Mp + m) * row_bytes + c * 16;
+      }
     }
     a_dst[i] = piece_offset(row, c);
   }
@@ -531,11 +565,23 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     } else {
       const int tap = s / kch, kc = s - (s / kch) * kch;
       const int dt = tap / 3, dm = tap - (tap / 3) * 3;
-      const long long tap_a = (dt * Mp + dm) * row_bytes + kc * KB;
       const long long tap_b = tap * row_bytes + kc * KB;
+      if constexpr (ZFILL) {
+        const long long tap_a =
+            ((long long)(dt - 1) * a.M + dm - 1) * row_bytes + kc * KB;
 #pragma unroll
-      for (int i = 0; i < A_PER_THREAD; ++i)
-        cp_async16(as + a_dst[i], srcb + a_off[i] + tap_a);
+        for (int i = 0; i < A_PER_THREAD; ++i) {
+          const int r = a_r[i] + dt - 1, m = a_m[i] + dm - 1;
+          const bool in = r >= 0 && r < a.R_out && m >= 0 && m < a.M;
+          cp_async16_zfill(as + a_dst[i], srcb + (in ? a_off[i] + tap_a : 0),
+                           in);
+        }
+      } else {
+        const long long tap_a = (dt * Mp + dm) * row_bytes + kc * KB;
+#pragma unroll
+        for (int i = 0; i < A_PER_THREAD; ++i)
+          cp_async16(as + a_dst[i], srcb + a_off[i] + tap_a);
+      }
 #pragma unroll
       for (int i = 0; i < B_PER_THREAD; ++i)
         cp_async16(bs + b_dst[i], wtb + b_off[i] + tap_b);
@@ -615,14 +661,14 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
     return __fadd_rn(__fmul_rn((float)acc[i], mul), a.beta[n]);
   };
 
-  if constexpr (MODE == 0 || MODE == 1) {
+  if constexpr (MODE == 0 || MODE == 1 || MODE == 4) {
     float rowmax[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = (int)(gr[h] % a.nch) * a.tc + rr[h] + a.time_off;
       const bool in_clip = t >= 0 && t < a.T;
       const long long cell =
-          MODE == 0 ? pr[h] : (gr[h] * a.R_out + rr[h]) * Mp + mr[h] + 1;
+          MODE == 1 ? (gr[h] * a.R_out + rr[h]) * Mp + mr[h] + 1 : pr[h];
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + col0;
@@ -635,6 +681,12 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
           rowmax[h] = fmaxf(rowmax[h], fmaxf(y0, y1));
           *reinterpret_cast<float2*>(static_cast<float*>(a.dst) +
                                      cell * a.Cout + n) = make_float2(y0, y1);
+        } else if constexpr (MODE == 4) {
+          const __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);
+          const float2 f = __bfloat1622float2(v);
+          rowmax[h] = fmaxf(rowmax[h], fmaxf(f.x, f.y));
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dst) +
+                                             cell * a.Cout + n) = v;
         } else {
           bf16* d = static_cast<bf16*>(a.dst);
           *reinterpret_cast<__nv_bfloat162*>(d + cell * a.Cout + n) =
@@ -647,7 +699,7 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
         }
       }
     }
-    if constexpr (MODE == 0) {
+    if constexpr (MODE == 0 || MODE == 4) {
       // the warp's maxes into their groups: one atomic when the warp's 16
       // rows lie in one group, else one a row (rows past P add 0)
       const unsigned g_lo = (unsigned)gr[0], g_hi = (unsigned)gr[1];
@@ -754,29 +806,36 @@ __global__ void __launch_bounds__(NT, BN <= 128 ? 2 : 1)
 template <int BN>
 constexpr int igemm_smem() { return STAGES * (BM + BN) * KB + 1024; }
 
-template <typename T, int BN, int MODE, bool SLAB = false>
-inline cudaError_t launch_igemm_bn(const IgemmArgs& a, cudaStream_t st) {
+// static: internal linkage, so that each library built from a source that
+// includes this header keeps its own flag.  The local static of an inline
+// function is one object (a GNU unique symbol) across all the libraries a
+// process loads, and a kernel of the second library to launch the same
+// instantiation would be launched without its shared-memory attribute.
+template <typename T, int BN, int MODE, bool SLAB = false, bool ZFILL = false>
+static cudaError_t launch_igemm_bn(const IgemmArgs& a, cudaStream_t st) {
   constexpr int smem = SLAB ? slab_smem<BN>() : igemm_smem<BN>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        igemm_kernel<T, BN, MODE, SLAB>,
+        igemm_kernel<T, BN, MODE, SLAB, ZFILL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const long long P = (long long)a.G * (SLAB ? a.R_out + 2 : a.R_out) * a.M;
   dim3 grid((unsigned)((P + BM - 1) / BM), (unsigned)(a.Cout / BN));
-  igemm_kernel<T, BN, MODE, SLAB><<<grid, NT, smem, st>>>(a);
+  igemm_kernel<T, BN, MODE, SLAB, ZFILL><<<grid, NT, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // BN: the whole Cout up to 256 (Cout is a multiple of 64)
-template <typename T, int MODE, bool SLAB = false>
+template <typename T, int MODE, bool SLAB = false, bool ZFILL = false>
 inline cudaError_t launch_igemm(const IgemmArgs& a, cudaStream_t st) {
-  if (a.Cout % 256 == 0) return launch_igemm_bn<T, 256, MODE, SLAB>(a, st);
-  if (a.Cout % 128 == 0) return launch_igemm_bn<T, 128, MODE, SLAB>(a, st);
-  return launch_igemm_bn<T, 64, MODE, SLAB>(a, st);
+  if (a.Cout % 256 == 0)
+    return launch_igemm_bn<T, 256, MODE, SLAB, ZFILL>(a, st);
+  if (a.Cout % 128 == 0)
+    return launch_igemm_bn<T, 128, MODE, SLAB, ZFILL>(a, st);
+  return launch_igemm_bn<T, 64, MODE, SLAB, ZFILL>(a, st);
 }
 
 // the per-tap GEMM, or the slab form where it takes the conv: M a multiple
@@ -873,9 +932,36 @@ __global__ void pad_quant_kernel(const bf16* __restrict__ x,
   reinterpret_cast<uint4*>(xs)[v] = out;
 }
 
-// y1q [G, R, M + 2, C] int8 from conv1's f32 y1 [G, R, M, C] with the
-// group's scale from ymax[g]; zero pad columns.  One thread per 16 bytes.
-__global__ void requant_kernel(const float* __restrict__ y1,
+// 16 consecutive values as f32
+__device__ __forceinline__ void load16(const float* s, float (&f)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v = reinterpret_cast<const float4*>(s)[k];
+    f[4 * k] = v.x;
+    f[4 * k + 1] = v.y;
+    f[4 * k + 2] = v.z;
+    f[4 * k + 3] = v.w;
+  }
+}
+__device__ __forceinline__ void load16(const bf16* s, float (&f)[16]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint4 u = reinterpret_cast<const uint4*>(s)[k];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[8 * k + 2 * i] = v.x;
+      f[8 * k + 2 * i + 1] = v.y;
+    }
+  }
+}
+
+// y1q [G, R, M + 2, C] int8 from conv1's y1 [G, R, M, C] (f32, or bf16
+// from MODE 4) with the group's scale from ymax[g]; zero pad columns.  One
+// thread per 16 bytes.
+template <typename Ts>
+__global__ void requant_kernel(const Ts* __restrict__ y1,
                                int8_t* __restrict__ y1q,
                                const unsigned* __restrict__ ymax, int R,
                                int M, int C, long long nvec) {
@@ -891,17 +977,11 @@ __global__ void requant_kernel(const float* __restrict__ y1,
   if (mp >= 1 && mp <= M) {
     const long long g = gr / R;
     const float inv = 1.0f / scale_of(ymax[g]);
-    const float4* s = reinterpret_cast<const float4*>(
-        y1 + (gr * M + mp - 1) * (long long)C + c);
+    float f[16];
+    load16(y1 + (gr * M + mp - 1) * (long long)C + c, f);
     int8_t* q = reinterpret_cast<int8_t*>(&out);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 f = s[k];
-      q[4 * k] = quant_i8(f.x, inv);
-      q[4 * k + 1] = quant_i8(f.y, inv);
-      q[4 * k + 2] = quant_i8(f.z, inv);
-      q[4 * k + 3] = quant_i8(f.w, inv);
-    }
+    for (int k = 0; k < 16; ++k) q[k] = quant_i8(f[k], inv);
   }
   reinterpret_cast<uint4*>(y1q)[v] = out;
 }
@@ -915,8 +995,8 @@ inline unsigned blocks_for(long long n, int per) {
 //   w1   [Cout, 9 Cin], w2 [Cout, 9 Cout]: int8 (quant) or bf16
 //   a*, b*: [Cout] f32 (int8: BN scale x per-channel weight scale)
 //   xs   [G, tc + 4, M + 2, Cin] scratch, int8 or bf16 (G = B ceil(T / tc))
-//   y1   scratch: f32 [G, tc + 2, M, Cout] (quant) or bf16
-//        [G, tc + 2, M + 2, Cout]
+//   y1   scratch: f32 [G, tc + 2, M, Cout] (quant), bf16 [G, tc + 2, M,
+//        Cout] (quant with y1_half) or bf16 [G, tc + 2, M + 2, Cout]
 //   y1q  [G, tc + 2, M + 2, Cout] int8 scratch (quant only)
 //   smax [nsx + G] unsigned scratch (quant only): the x maxes (nsx = B per
 //        clip, or G), then the y1 maxes
@@ -924,8 +1004,10 @@ inline unsigned blocks_for(long long n, int per) {
 // The x scale of group (b, j) is over the flat element window
 // [j * win_step + win_lo, j * win_step + win_hi) of clip b; per_clip: one
 // window a clip, [0, T M Cin), shared by its chunks.  slab1 / slab2 run
-// conv1 / conv2 in the slab form (SLABS builds it).
-template <bool SLABS = false>
+// conv1 / conv2 in the slab form (SLABS builds it); y1_half (int8) stores
+// y1 rounded to bf16 and takes its scale over the rounded values (MODE 4,
+// which HALFS builds).
+template <bool SLABS = false, bool HALFS = false>
 inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
                                int Cin, int Cout, int tc, int pt, int pm,
                                bool per_clip, long long win_step,
@@ -935,7 +1017,9 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
                                const float* a2, const float* b2, void* xs,
                                void* y1, int8_t* y1q, unsigned* smax,
                                bf16* out, cudaStream_t st,
-                               bool slab1 = false, bool slab2 = false) {
+                               bool slab1 = false, bool slab2 = false,
+                               bool y1_half = false) {
+  if (y1_half && !(HALFS && quant)) return cudaErrorInvalidValue;
   const int nch = (T + tc - 1) / tc, G = B * nch;
   const long long clip_len = (long long)T * M * Cin;
   const int nsx = per_clip ? B : G;
@@ -992,12 +1076,19 @@ inline cudaError_t double_conv(bool quant, const bf16* x, int B, int T, int M,
   c1.Cout = Cout;
   c1.time_off = -1;
   c1.pt = c1.pm = 1;
-  TTG_CHECK(quant ? launch_conv<int8_t, 0, SLABS>(c1, slab1, st)
-                  : launch_conv<bf16, 1, SLABS>(c1, slab1, st));
+  TTG_CHECK(!quant    ? launch_conv<bf16, 1, SLABS>(c1, slab1, st)
+            : y1_half ? launch_conv<int8_t, HALFS ? 4 : 0, SLABS>(c1, slab1,
+                                                                 st)
+                      : launch_conv<int8_t, 0, SLABS>(c1, slab1, st));
   if (quant) {
     const long long nvec = (long long)G * R2 * (M + 2) * Cout / 16;
-    requant_kernel<<<blocks_for(nvec, 256), 256, 0, st>>>(
-        static_cast<const float*>(y1), y1q, ymax, R2, M, Cout, nvec);
+    const unsigned nb = blocks_for(nvec, 256);
+    if (y1_half)
+      requant_kernel<<<nb, 256, 0, st>>>(static_cast<const bf16*>(y1), y1q,
+                                         ymax, R2, M, Cout, nvec);
+    else
+      requant_kernel<<<nb, 256, 0, st>>>(static_cast<const float*>(y1), y1q,
+                                         ymax, R2, M, Cout, nvec);
     TTG_CHECK(cudaGetLastError());
   }
   IgemmArgs c2 = c1;

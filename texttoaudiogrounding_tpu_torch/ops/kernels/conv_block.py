@@ -1,5 +1,5 @@
-"""Fused PANNs conv block (serving path): ``csrc/conv_block_v2.cu`` and
-``csrc/conv_block_mel3.cu``.
+"""Fused PANNs conv block (serving path): ``csrc/conv_block_v2.cu``,
+``csrc/conv_block_tri_v2.cu`` and ``csrc/conv_block_mel3_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370``:
 (conv3x3 → BN → ReLU) × 2 → avg+max pool for one block, over chunks of
@@ -7,9 +7,9 @@ Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:370``:
 serving path run through it in direct 3x3 taps (direct9).  Each conv can
 instead run in the TPU kernel's ``mel3`` or ``tri`` tap mode (a mel-im2col
 of K = 3 Cin and three time-tap products), which no shipped model routes;
-on the card ``mel3`` is the slab GEMM of ``csrc/conv_block_mel3.cu`` and
-``tri`` the slab form of the wgmma implicit GEMM
-(``csrc/conv_block_tri_v2.cu``, :func:`tri_route` says which shapes go
+on the card both run the slab form of the wgmma implicit GEMM
+(``csrc/conv_block_tri_v2.cu``, and for ``mel3``'s int8 scales
+``csrc/conv_block_mel3_v2.cu``; :func:`slab_plan` says which shapes go
 where).
 
 int8 contract (``conv_block.py:435-461``, ``:312-328``):
@@ -44,7 +44,8 @@ second design, the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``;
 the first design (``csrc/conv_block.cu``, WMMA tiles on one-block-per-group
 gathers) gives the same int8 result bit for bit and is reachable only
 through :func:`_fused_double_conv_pool_v1`, which ``chip_smoke.py`` times
-beside it.
+beside it; so are the tap modes' first design (``csrc/conv_block_mel3.cu``,
+a WMMA slab GEMM) through :func:`_fused_mel3_v1` and :func:`_fused_tri_v1`.
 """
 
 from __future__ import annotations
@@ -55,13 +56,15 @@ import torch.nn.functional as F
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 
 # kernel launches through fused_double_conv_pool: direct9 (the serving
-# path, second design); the slab kernel with a mel3 conv; tri on the wgmma
-# slab form, or on direct9's per-tap GEMM at tri's chunk where the slab
-# form takes neither conv (tri_route); the first designs of direct9
-# (_fused_double_conv_pool_v1) and tri (_fused_tri_v1)
-launches = {"conv_block": 0, "conv_block_mel3": 0, "conv_block_tri": 0,
-            "conv_block_tri_per_tap": 0, "conv_block_tri_v1": 0,
-            "conv_block_v1": 0}
+# path, second design); mel3 and tri on the wgmma slab form, or on
+# direct9's per-tap GEMM at the mode's chunk where the slab form takes
+# neither conv (tri_route); the first designs of direct9
+# (_fused_double_conv_pool_v1), mel3 (_fused_mel3_v1) and tri
+# (_fused_tri_v1), which M 2 / 4 with time pairs also run
+launches = {"conv_block": 0, "conv_block_mel3": 0,
+            "conv_block_mel3_per_tap": 0, "conv_block_mel3_v1": 0,
+            "conv_block_tri": 0, "conv_block_tri_per_tap": 0,
+            "conv_block_tri_v1": 0, "conv_block_v1": 0}
 SLAB_M = (8, 16, 32, 64)   # M of the tri slab form: whole swizzle atoms
 SLAB_BM = 128              # output rows of its GEMM tile
 
@@ -416,17 +419,19 @@ def scratch(b, t, m, cin, cout, tc, quantize, device,
 
 
 def scratch_v2(b, t, m, cin, cout, tc, quantize, device,
-               per_clip: bool) -> tuple:
+               per_clip: bool, y1_half: bool = False) -> tuple:
     """(xs, y1, y1q, smax) device buffers of the second design: xs and y1q
-    with one zero mel column on each side (``[G, rows, M + 2, C]``); y1 f32
-    ``[G, tc + 2, M, Cout]`` for int8, else the mel-padded bf16 conv2
-    input; smax the x scale maxes (one a clip with ``per_clip``, else one a
-    group), then the y1 maxes, as float bits."""
+    with one zero mel column on each side (``[G, rows, M + 2, C]``); y1
+    ``[G, tc + 2, M, Cout]`` for int8, f32 or with ``y1_half`` bf16, else
+    the mel-padded bf16 conv2 input; smax the x scale maxes (one a clip
+    with ``per_clip``, else one a group), then the y1 maxes, as float
+    bits."""
     g = b * -(-t // tc)
     act = torch.int8 if quantize else torch.bfloat16
     xs = torch.empty(g, tc + 4, m + 2, cin, dtype=act, device=device)
     if quantize:
-        y1 = torch.empty(g, tc + 2, m, cout, device=device)
+        y1 = torch.empty(g, tc + 2, m, cout, device=device,
+                         dtype=torch.bfloat16 if y1_half else torch.float32)
         y1q = torch.empty(g, tc + 2, m + 2, cout, dtype=torch.int8,
                           device=device)
         smax = torch.empty((b if per_clip else g) + g, dtype=torch.int32,
@@ -446,23 +451,46 @@ def check_v2_pool(m: int, pool) -> None:
                          f"(8, 16, 32, 64); got M={m}")
 
 
-def tri_route(m: int, pool, tri_1: bool, tri_2: bool) -> tuple:
-    """``(slab1, slab2, key)`` of a tri block on the card: which convs run
-    the wgmma GEMM's slab form (``csrc/conv_block_tri_v2.cu``) and the
-    launch counter.  The slab form takes M in :data:`SLAB_M` (its time
-    taps are row offsets of whole swizzle atoms) and, for conv2, pool (1,
-    .) (its rows are not permuted for time pairs).  Where it takes neither
-    conv, the block runs direct9's per-tap GEMM at tri's chunk
-    (``"conv_block_tri_per_tap"``), the same int8 bits; at M 2 or 4 with
-    time pairs, which neither GEMM takes, it runs the first tri design
-    (``csrc/conv_block_mel3.cu``, ``"conv_block_tri_v1"``)."""
+def tri_route(m: int, pool, tri_1: bool, tri_2: bool,
+              mode: str = "tri") -> tuple:
+    """``(slab1, slab2, key)`` of a tri (or mel3: ``mode``) block on the
+    card, ``tri_1`` / ``tri_2`` marking the convs of either tap mode: which
+    convs run the wgmma GEMM's slab form and the launch counter.  The slab
+    form takes M in :data:`SLAB_M` (its time taps are row offsets of whole
+    swizzle atoms) and, for conv2, pool (1, .) (its rows are not permuted
+    for time pairs).  Where it takes neither conv, the block runs direct9's
+    per-tap GEMM at the mode's chunk with the mode's scales
+    (``"conv_block_<mode>_per_tap"``); at M 2 or 4 with time pairs, which
+    neither GEMM takes, it runs the first slab design
+    (``csrc/conv_block_mel3.cu``, ``"conv_block_<mode>_v1"``)."""
     ok = m in SLAB_M
     slab1, slab2 = bool(tri_1 and ok), bool(tri_2 and ok and pool[0] == 1)
     if slab1 or slab2:
-        return slab1, slab2, "conv_block_tri"
+        return slab1, slab2, f"conv_block_{mode}"
     if pool[0] == 1 or ok:
-        return False, False, "conv_block_tri_per_tap"
-    return False, False, "conv_block_tri_v1"
+        return False, False, f"conv_block_{mode}_per_tap"
+    return False, False, f"conv_block_{mode}_v1"
+
+
+def slab_plan(modes: tuple, quantize: bool, m: int, pool) -> tuple:
+    """``(design, slab1, slab2, key)`` of a block with a mel3 or tri conv
+    (``modes`` from :func:`tap_modes`) on the card: :func:`tri_route` by
+    shape, and the design that runs it: ``"v1"`` the first slab design,
+    ``"mel3_v2"`` mel3's int8 second design (its own x window and
+    bf16-stored y1, ``csrc/conv_block_mel3_v2.cu``), else ``"tri_v2"``
+    (``csrc/conv_block_tri_v2.cu``), which also runs mel3's bf16 mode:
+    there the two modes are one function at one chunk."""
+    mel3_1, mel3_2, tri_1, tri_2 = modes
+    mode = "mel3" if mel3_1 or mel3_2 else "tri"
+    slab1, slab2, key = tri_route(m, pool, mel3_1 or tri_1, mel3_2 or tri_2,
+                                  mode)
+    if key.endswith("_v1"):
+        design = "v1"
+    elif mode == "mel3" and quantize:
+        design = "mel3_v2"
+    else:
+        design = "tri_v2"
+    return design, slab1, slab2, key
 
 
 def check_tri_slab(m: int, pool, slab1: bool, slab2: bool) -> None:
@@ -522,7 +550,7 @@ _ARGS = [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SLAB_ARGS = [_I] * 5 + _ARGS[1:]
 _V2_ARGS = _ARGS[:16] + [_P] * 6
-_TRI_ARGS = [_I] * 3 + _V2_ARGS[1:]
+_TRI_ARGS = [_I] * 3 + _V2_ARGS[1:]    # also mel3's (y1_half for quant)
 
 
 def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
@@ -542,16 +570,17 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     the same weights, kept by the caller so that a forward does not lay
     them out again.  Returns ``[B, T // pt, M // pm, Cout]``, bf16 for
     int8, else in ``compute_dtype``.  On the card ``compute_dtype`` is
-    bf16; a mel3 block runs the slab kernel, a tri block (without mel3)
-    the wgmma slab form where :func:`tri_route` says it takes the conv,
-    else direct9's per-tap GEMM at tri's chunk (at M 2 or 4 with time
-    pairs the first tri design).  Serving only (running BN statistics).
+    bf16; a mel3 or tri block runs the wgmma slab form where
+    :func:`tri_route` says it takes the conv, else direct9's per-tap GEMM
+    at the mode's chunk (at M 2 or 4 with time pairs the first slab
+    design), as :func:`slab_plan` says.  Serving only (running BN
+    statistics).
     """
     b, t, m, cin = x.shape
     cout = w1.shape[-1]
     pt, pm = pool
     modes = tap_modes(cin, quantize, mel3, tri)
-    mel3_1, mel3_2, tri_1, tri_2 = modes
+    mel3_2 = modes[1]
     tc = tc or block_tc(x.shape, cout, pool, quantize, modes, compute_dtype)
     check_block_args(x, w1, ab1, w2, ab2, pool, tc, compute_dtype)
     if not x.is_cuda:
@@ -559,22 +588,19 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                            tc=tc, modes=modes, compute_dtype=compute_dtype)
     if compute_dtype != torch.bfloat16:
         raise ValueError("the kernel computes in bf16 (or int8)")
-    slab = (mel3_1 or tri_1, mel3_2 or tri_2)
-    if any(slab) and (m % 2 or 64 % m):
+    if any(modes) and (m % 2 or 64 % m):
         raise ValueError(f"the mel3 / tri kernel takes M dividing 64, "
                          f"even; got M={m}")
     wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
     check_device(x, *wk)
     out = torch.empty(b, t // pt, m // pm, cout, dtype=torch.bfloat16,
                       device=x.device)
-    if mel3_1 or mel3_2:
-        _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
-        launches["conv_block_mel3"] += 1
-        return out
-    if tri_1 or tri_2:
-        slab1, slab2, key = tri_route(m, pool, tri_1, tri_2)
-        if key == "conv_block_tri_v1":
+    if any(modes):
+        design, slab1, slab2, key = slab_plan(modes, quantize, m, pool)
+        if design == "v1":
             _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
+        elif design == "mel3_v2":
+            _launch_mel3_v2(x, wk, mel3_2, tc, pool, slab1, slab2, out)
         else:
             _launch_tri_v2(x, wk, quantize, tc, pool, slab1, slab2, out)
         launches[key] += 1
@@ -595,8 +621,8 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
 
 def _launch_slab_v1(x, wk, modes, quantize: bool, tc: int, pool,
                     out) -> None:
-    """The mel3 / tri slab kernel (``csrc/conv_block_mel3.cu``): mel3's
-    design, and tri's first."""
+    """The mel3 / tri slab kernel (``csrc/conv_block_mel3.cu``): the first
+    design of both."""
     b, t, m, cin = x.shape
     cout = out.shape[-1]
     mel3_1, mel3_2, tri_1, tri_2 = modes
@@ -632,6 +658,41 @@ def _launch_tri_v2(x, wk, quantize: bool, tc: int, pool, slab1: bool,
     _build.check(err, "ttg_conv_block_tri_v2")
 
 
+def _launch_mel3_v2(x, wk, y1_half: bool, tc: int, pool, slab1: bool,
+                    slab2: bool, out) -> None:
+    """mel3's int8 second design: direct9's pipeline at mel3's chunk with
+    mel3's x window and, with ``y1_half``, conv1 rows stored in bf16
+    before their scale, conv1 / conv2 in the wgmma GEMM's slab form
+    (``csrc/conv_block_mel3_v2.cu``)."""
+    b, t, m, cin = x.shape
+    cout = out.shape[-1]
+    check_tri_slab(m, pool, slab1, slab2)
+    check_v2_pool(m, pool)
+    xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, True, x.device,
+                                   per_clip=False, y1_half=y1_half)
+    fn = _build.function("conv_block_mel3_v2", "ttg_conv_block_mel3_v2",
+                         _TRI_ARGS)
+    err = fn(int(slab1), int(slab2), int(y1_half), x.data_ptr(), b, t, m,
+             cin, cout, tc, *pool, *(v.data_ptr() for v in wk),
+             xs.data_ptr(), y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(),
+             out.data_ptr(), _build.stream())
+    _build.check(err, "ttg_conv_block_mel3_v2")
+
+
+def _fused_mel3_v1(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                   w2: torch.Tensor, ab2: tuple, pool: tuple = (1, 2), *,
+                   quantize: bool = False, mel3: tuple = (True, True),
+                   tc: int | None = None,
+                   prepared: tuple | None = None) -> torch.Tensor:
+    """mel3's first design (the slab kernel of ``csrc/conv_block_mel3.cu``)
+    on a CUDA tensor, arguments as :func:`fused_double_conv_pool`;
+    nothing served calls it.  ``chip_smoke.py`` holds the second design
+    to it."""
+    return _fused_slab_v1(x, w1, ab1, w2, ab2, pool, quantize, tc, prepared,
+                          tap_modes(x.shape[3], quantize, mel3, None),
+                          "conv_block_mel3_v1")
+
+
 def _fused_tri_v1(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                   w2: torch.Tensor, ab2: tuple, pool: tuple = (1, 2), *,
                   quantize: bool = False, tri: tuple = (True, True),
@@ -641,22 +702,30 @@ def _fused_tri_v1(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     on a CUDA tensor, arguments as :func:`fused_double_conv_pool`;
     nothing served calls it.  ``chip_smoke.py`` holds the second design
     to it."""
-    b, t, m, cin = x.shape
+    return _fused_slab_v1(x, w1, ab1, w2, ab2, pool, quantize, tc, prepared,
+                          tap_modes(x.shape[3], quantize, None, tri),
+                          "conv_block_tri_v1")
+
+
+def _fused_slab_v1(x, w1, ab1, w2, ab2, pool, quantize: bool, tc, prepared,
+                   modes: tuple, key: str) -> torch.Tensor:
+    """The first slab design on a CUDA tensor for tap ``modes`` with a mel3
+    or tri conv, counted in ``launches[key]``."""
+    b, t, m, _ = x.shape
     cout = w1.shape[-1]
-    modes = tap_modes(cin, quantize, None, tri)
     tc = tc or block_tc(x.shape, cout, pool, quantize, modes)
     check_block_args(x, w1, ab1, w2, ab2, pool, tc)
     if not x.is_cuda:
         raise ValueError("the first design runs on a CUDA tensor only")
-    if not (modes[2] or modes[3]) or m % 2 or 64 % m:
-        raise ValueError("the first tri design takes a tri conv and M "
-                         "dividing 64, even")
+    if not any(modes) or m % 2 or 64 % m:
+        raise ValueError("the first slab design takes a mel3 or tri conv "
+                         "and M dividing 64, even")
     wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
     check_device(x, *wk)
     out = torch.empty(b, t // pool[0], m // pool[1], cout,
                       dtype=torch.bfloat16, device=x.device)
     _launch_slab_v1(x, wk, modes, quantize, tc, pool, out)
-    launches["conv_block_tri_v1"] += 1
+    launches[key] += 1
     return out
 
 

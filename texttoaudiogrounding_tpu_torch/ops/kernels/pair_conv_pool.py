@@ -1,4 +1,4 @@
-"""Pair-packed PANNs block for Cout < 256: ``csrc/pair_conv_pool.cu``.
+"""Pair-packed PANNs block for Cout < 256: ``csrc/pair_conv_pool_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block.py:691
 fused_pair_conv_pool`` (kernel ``_pair_kernel :619``, staging
@@ -30,7 +30,14 @@ int8 contract (``:578-616``, ``:658-676``):
 T must divide into chunks (``:741-749``); the caller pads.
 
 :func:`fused_pair_conv_pool` launches the kernel for a CUDA tensor and
-runs :func:`pair_conv_pool_plain` for a CPU tensor.
+runs :func:`pair_conv_pool_plain` for a CPU tensor.  The kernel is the
+second design, on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``
+(the full block as row 3's pipeline with conv1 rows stored in bf16; conv2
+alone reading the caller's unpadded clip through zero-filling copies).
+The first design (``csrc/pair_conv_pool.cu``, WMMA tiles on
+one-block-per-group gathers) gives the same int8 result bit for bit and
+is reachable only through :func:`_fused_pair_conv_pool_v1`, which
+``chip_smoke.py`` times beside it.
 """
 
 from __future__ import annotations
@@ -42,12 +49,14 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     _conv_valid_time,
     _windows,
     check_device,
+    check_v2_pool,
     conv_weights,
     double_conv_plain,
     dual_pool,
     kernel_weights,
     quant_weight,
     scratch,
+    scratch_v2,
 )
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block_pair import (
     pair_window_scale,
@@ -55,9 +64,11 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block_pair import (
 
 __all__ = ["fused_pair_conv_pool", "pair_conv_pool_plain", "pick_tc"]
 
-# kernel launches through fused_pair_conv_pool: the full block, and conv2
-# alone (w1=None)
-launches = {"pair_conv_pool": 0, "pair_conv_pool_conv2": 0}
+# kernel launches through fused_pair_conv_pool (second design): the full
+# block, and conv2 alone (w1=None); through _fused_pair_conv_pool_v1 (the
+# first design)
+launches = {"pair_conv_pool": 0, "pair_conv_pool_conv2": 0,
+            "pair_conv_pool_v1": 0, "pair_conv_pool_conv2_v1": 0}
 
 
 def pick_tc(t: int, mp: int, pt: int) -> int:
@@ -137,6 +148,7 @@ def check_args(x, w1, w2, pool, tc, quantize, compute_dtype) -> None:
 _P, _I = _build.P, _build.I
 _ARGS = [_I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_V2_ARGS = _ARGS[:-3] + [_P, _P]
 
 
 def prepare(w1, ab1, w2, ab2, quantize: bool, x_scale=None) -> tuple:
@@ -163,8 +175,9 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
     with the one scale ``x_scale`` under ``quantize``).  T must divide
     into chunks of ``tc`` (by default the JAX package's choice); pad it
     with zero rows beforehand.  ``prepared`` is :func:`prepare` of the
-    same weights.  Returns ``[B, T // pt, M // 2, Cout]``.  Serving only
-    (running BN statistics).
+    same weights.  Returns ``[B, T // pt, M // 2, Cout]``.  On the card M
+    is 8, 16, 32 or 64 with time pairs (the GEMM pools them in-thread).
+    Serving only (running BN statistics).
     """
     b, t, m, cin = x.shape
     cout = w2.shape[-1]
@@ -176,6 +189,44 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
                                     quantize=quantize, tc=tc,
                                     x_scale=x_scale,
                                     compute_dtype=compute_dtype)
+    check_v2_pool(m, pool)
+    wk = prepared or prepare(w1, ab1, w2, ab2, quantize, x_scale)
+    check_device(x, *wk)
+    skip = w1 is None
+    if skip:                                   # no scratch
+        xs = y1 = y1q = smax = x
+    else:
+        xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
+                                       x.device, per_clip=False,
+                                       y1_half=quantize)
+    out = torch.empty(b, t // pool[0], m // 2, cout, dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.function("pair_conv_pool_v2", "ttg_pair_conv_pool_v2",
+                         _V2_ARGS)
+    err = fn(int(quantize), int(skip), x.data_ptr(), b, t, m, cin, cout, tc,
+             pool[0], *(v.data_ptr() for v in wk), xs.data_ptr(),
+             y1.data_ptr(), y1q.data_ptr(), smax.data_ptr(), out.data_ptr(),
+             _build.stream())
+    launches["pair_conv_pool_conv2" if skip else "pair_conv_pool"] += 1
+    _build.check(err, "ttg_pair_conv_pool_v2")
+    return out
+
+
+def _fused_pair_conv_pool_v1(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
+                             ab2: tuple, pool: tuple = (2, 2), *,
+                             quantize: bool = False, tc: int | None = None,
+                             x_scale=None,
+                             prepared: tuple | None = None) -> torch.Tensor:
+    """The first design (``csrc/pair_conv_pool.cu``) on a CUDA tensor,
+    arguments as :func:`fused_pair_conv_pool`; nothing served calls it.
+    ``chip_smoke.py`` holds the second design to it."""
+    b, t, m, cin = x.shape
+    cout = w2.shape[-1]
+    tc = tc or pick_tc(t, m // 2, pool[0])
+    check_args(x, w1, w2, pool, tc, quantize, torch.bfloat16)
+    if not x.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
+    check_device(x, w2, *ab2, *(() if w1 is None else (w1, *ab1)))
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize, x_scale)
     check_device(x, *wk)
     skip = w1 is None
@@ -183,9 +234,7 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
         xs = y1 = y1q = sx = sy = x
     else:
         xs, y1, y1q, sx, sy = scratch(b, t, m, cin, cout, tc, quantize,
-                                      x.device)
-        if quantize:        # conv1 rows stored in bf16 before requantizing
-            y1 = torch.empty_like(y1, dtype=torch.bfloat16)
+                                      x.device, y1_half=quantize)
     out = torch.empty(b, t // pool[0], m // 2, cout, dtype=torch.bfloat16,
                       device=x.device)
     fn = _build.function("pair_conv_pool", "ttg_pair_conv_pool", _ARGS)
@@ -193,6 +242,6 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
              pool[0], *(v.data_ptr() for v in wk), xs.data_ptr(),
              y1.data_ptr(), y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(),
              out.data_ptr(), _build.stream())
-    launches["pair_conv_pool_conv2" if skip else "pair_conv_pool"] += 1
+    launches["pair_conv_pool_conv2_v1" if skip else "pair_conv_pool_v1"] += 1
     _build.check(err, "ttg_pair_conv_pool")
     return out
