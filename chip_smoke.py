@@ -13,7 +13,8 @@ Phases, each printing one line:
    ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``,
    ``bn_pool_v2.cu``, ``conv_block_wino_v2.cu``, ``conv_block_tri_v2.cu``,
    ``conv_block_mel3_v2.cu``, ``pair_conv_pool_v2.cu``) from their
-   ``-Xptxas -v`` logs;
+   ``-Xptxas -v`` logs (also ``block1_small_v2.cu`` and
+   ``logmel_v3_v2.cu``);
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -81,9 +82,12 @@ Phases, each printing one line:
 4. designs: the JAX package's designs that no shipped model routes, one
    record each in one table: block 1's all-int8 mode in both stagings and
    ``fused_pair_conv_pool`` (with and without conv1, second design
-   ``pair_conv_pool_v2.cu``), ``fused_block2`` and ``fused_block1`` on the
-   batch-32 request's block-1 input (the bn0 output) and output with the
-   served model's weights, beside the routed rows 2 / 3; the Winograd
+   ``pair_conv_pool_v2.cu``), ``fused_block2`` (row 6, on row 3's second
+   design ``conv_block_v2.cu`` at its own chunk, also at odd T: 4 clips x
+   499 frames, tc 2) and ``fused_block1`` (row 7, second design
+   ``block1_small_v2.cu``) on the batch-32 request's block-1 input (the
+   bn0 output) and output with the served model's weights, beside the
+   routed rows 2 / 3; the Winograd
    block (``fused_block_wino``, int8 and bf16, second design
    ``conv_block_wino_v2.cu``) at the pool-(2, 2) analog of
    blocks 3 and 4 (a record each) on that request's block-2 output with
@@ -98,16 +102,23 @@ Phases, each printing one line:
    the mode's own block-3 output, with the served weights, beside direct9
    on the same input, tri also at its own and direct9's chunk bit for bit
    against the row-4 kernel, mel3 also in its (True, False) mode and in
-   bf16 bit for bit against tri, each traced by launch; rows 5 and 8 and
+   bf16 bit for bit against tri, each traced by launch; rows 5-8 and
    both tap modes also against their first designs (int8 bit for bit, the
    first design also against its plain version, bf16 within 1e-2), timed
    in turns with them (v1 v2 v2 v1; mel3 and tri with direct9 between,
-   row 5's full block with row 3), each design's kernels a call counted
+   row 5's full block with row 3, row 7 with row 2's all-int8 / bf16
+   mode), each design's kernels a call counted
    by the profiler and held to the design's count, beside the cuDNN bf16
    chain (two ``F.conv2d``, or one for row 5 without conv1, affine, ReLU,
    pools) as a yardstick; and the
-   log-mel variants v3 and v4 on that request's waveform beside row 1's
-   two designs (v4 held to the first, whose tile code it shares).  Each
+   log-mel variants v3 (second design ``logmel_v3_v2.cu``, its edge
+   frames within 2e-3 dB of the plain frontend's, timed in turns with its
+   first design beside row 1, 2 kernels a call by the profiler) and v4 on
+   that request's waveform beside row 1's two designs (v4 held to the
+   first, whose tile code it shares); then rows 3, 4 direct9, 5 and 6 at
+   M = 4, pool (2, 2), which the second design's GEMM does not take: each
+   through its public function bit for bit to its plain version in int8,
+   raising its first design's counter once.  Each
    design runs once (its launches counted, exactly), then each int8
    kernel is held bit for bit against its plain version and its
    bf16 mode within
@@ -1920,7 +1931,8 @@ def designs_phase(x1, y1, enc, y2, wave) -> tuple:
     block-2 output, and row 8's own block-3 output; rows 9-10 on its
     waveform.  Each design runs once as the JAX package drives it (its
     launches counted, exactly one per design), then each record of the one
-    table is checked, timed and reported by :func:`_design_row`."""
+    table is checked, timed and reported by :func:`_design_row`.  Returns
+    (records, launches, :func:`_v1_route`'s report)."""
     import collections
 
     import torch
@@ -1945,7 +1957,75 @@ def designs_phase(x1, y1, enc, y2, wave) -> tuple:
     for name, d in designs.items():
         rows.append(_design_row(name, d, outs.pop(name)))
         torch.cuda.empty_cache()
-    return rows, launches
+    return rows, launches, _v1_route(y1, enc)
+
+
+# the public function of each row whose second design takes no time pairs
+# at M = 4, and the first design's counter its call must raise
+V1_ROUTE = {"conv_block_pair": "conv_block_pair_v1",
+            "conv_block": "conv_block_v1",
+            "pair_conv_pool": "pair_conv_pool_v1",
+            "block2_small": "block2_small_v1"}
+
+
+def _v1_route(y1, enc) -> dict:
+    """Rows 3, 4 direct9, 5 and 6 at M = 4, pool (2, 2), on 3 clips x 16
+    frames x the first 4 mels of the served block-1 output, with the served
+    block-2 weights: each through its public function must equal its plain
+    version bit for bit in int8, by way of its first design
+    (``conv_block.v2_takes``), raising that design's counter by one and no
+    other."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        block2_small, conv_block, conv_block_pair, pair_conv_pool)
+
+    w = _block_weights(enc.conv_block2)
+    x = y1[:3, :16, :4].contiguous()
+    t, m = x.shape[1:3]
+    if conv_block.v2_takes(m, (2, 2)):
+        raise AssertionError(f"the second design takes M = {m}")
+    tc3 = conv_block_pair.pick_tc_pair(t, m // 2, 128, True)
+    tc4 = conv_block.block_tc(x.shape, 128, (2, 2), True, (False,) * 4)
+    tc5 = pair_conv_pool.pick_tc(t, m // 2, 2)
+    tc6 = block2_small.default_tc(t)
+    runs = {
+        "conv_block_pair": (
+            lambda: conv_block_pair.fused_block2_pair(x, *w, quantize=True),
+            lambda: conv_block_pair.block2_plain(x, *w, quantize=True,
+                                                 tc=tc3), tc3),
+        "conv_block": (
+            lambda: conv_block.fused_double_conv_pool(x, *w, (2, 2),
+                                                      quantize=True),
+            lambda: conv_block.block_plain(x, *w, (2, 2), quantize=True,
+                                           tc=tc4), tc4),
+        "pair_conv_pool": (
+            lambda: pair_conv_pool.fused_pair_conv_pool(x, *w,
+                                                        quantize=True),
+            lambda: pair_conv_pool.pair_conv_pool_plain(x, *w, quantize=True,
+                                                        tc=tc5), tc5),
+        "block2_small": (
+            lambda: block2_small.fused_block2(x, *w),
+            lambda: conv_block_pair.block2_plain(x, *w, quantize=True,
+                                                 tc=tc6, divide=True), tc6)}
+    out = {}
+    for name, (run, plain, tc) in runs.items():
+        _reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = _want(**{V1_ROUTE[name]: 1})
+        if counts != want:
+            raise AssertionError(f"{name} at M = {m}: launches "
+                                 f"{ {k: v for k, v in counts.items() if v} }"
+                                 f", expected {V1_ROUTE[name]} once")
+        max_abs = _err(got, plain())[0]
+        if max_abs != 0.0:
+            raise AssertionError(f"{name} at M = {m}: max_abs {max_abs} to "
+                                 f"its plain version")
+        out[name] = {"counter": V1_ROUTE[name], "max_abs_err": max_abs,
+                     "tc": tc, "shape": list(x.shape)}
+    return out
 
 
 def _block12_designs(x1, y1, enc) -> dict:
@@ -2034,6 +2114,53 @@ def _block12_designs(x1, y1, enc) -> dict:
             v1_source="texttoaudiogrounding_tpu_torch/csrc/"
                       "pair_conv_pool.cu", **kw)
 
+    # row 7: the second design (the route) held to its plain version and
+    # the first; both timed in turns beside row 2's all-int8 / bf16 modes
+    tc7 = block1_small.default_tc(t1)
+    b1s = {(d, q): functools.partial(fn, x1, *b1w, quantize=q,
+                                     prepared=prep["b1s", q])
+           for q in (True, False)
+           for d, fn in (("v2", block1_small.fused_block1),
+                         ("v1", block1_small._fused_block1_v1))}
+
+    def b1s_plain(q):
+        return block1_small.block1_small_plain(x1, *b1w, quantize=q, tc=tc7)
+
+    row2_modes = {q: functools.partial(
+        conv_block1_pair.fused_block1_pair, x1, *b1w, quantize=q, tc=48,
+        prepared=prep["b1", q]) for q in (True, False)}
+
+    # row 6: row 3's second design at row 6's chunk and divided weights,
+    # held to the plain version and to row 3's first design there, also at
+    # odd T (a ragged last chunk at tc 2)
+    tc6 = block2_small.default_tc(t2)
+    b2s = {("v2", q): functools.partial(block2_small.fused_block2, y1, *b2w,
+                                        quantize=q, prepared=prep["b2s", q])
+           for q in (True, False)}
+    b2s.update({("v1", q): functools.partial(
+        conv_block_pair._launch_v1, y1, prep["b2s", q], q, tc6)
+        for q in (True, False)})
+
+    def b2s_plain(x, q, tc):
+        return conv_block_pair.block2_plain(x, *b2w, quantize=q, tc=tc,
+                                            divide=True)
+
+    def row6_check(out, target):
+        errs = _held_to_v1(b2s["v1", True], "block2_small")(out, target)
+        odd = y1[:4, :499].contiguous()
+        tco = block2_small.default_tc(odd.shape[1])
+        got = block2_small.fused_block2(odd, *b2w, prepared=prep["b2s", True])
+        vs_plain = _err(got, b2s_plain(odd, True, tco))[0]
+        vs_v1 = _err(got, conv_block_pair._launch_v1(
+            odd, prep["b2s", True], True, tco))[0]
+        if tco != 2 or vs_plain or vs_v1:
+            raise AssertionError(f"block2_small at T = 499 (tc {tco}): "
+                                 f"max_abs {vs_plain} to its plain version, "
+                                 f"{vs_v1} to the first design")
+        return {**errs, "odd_t": {"shape": list(odd.shape), "tc": tco,
+                                  "max_abs_err": vs_plain,
+                                  "v1_max_abs_err": vs_v1}}
+
     def row2(mode, line):
         def first():
             return conv_block1_pair._fused_block1_pair_v1(
@@ -2065,16 +2192,22 @@ def _block12_designs(x1, y1, enc) -> dict:
     return {
         "conv_block1_pair_int8": row2("triple", 346),
         "conv_block1_pair_single": row2("single", 239),
-        "block1_small": _design(**both(
-            lambda q: block1_small.fused_block1(x1, *b1w, quantize=q,
-                                                prepared=prep["b1s", q]),
-            lambda q: block1_small.block1_small_plain(
-                x1, *b1w, quantize=q, tc=block1_small.default_tc(t1)),
+        "block1_small": _design(
+            kernel=b1s["v2", True], plain=lambda: b1s_plain(True),
+            bf16=(b1s["v2", False], lambda: b1s_plain(False)),
+            check=_held_to_v1(b1s["v1", True], "block1_small"),
             ref=f32_1, ops={"bf16": 2.0 * clips * t1 * 64 * 9 * 64,
                             "int8": mk * (t1 // 2 * 2)},
-            in_bytes=b1_in, source="block1_small.cu",
+            in_bytes=b1_in, source="block1_small_v2.cu",
             replaces="conv_block_small.py:471", beside=routed1,
-            input_shape=list(x1.shape))),
+            tolerance=_DESIGN_TOL + "; int8 max_abs == 0 to the first "
+                      "design (block1_small.cu)",
+            trace=True, designs=lambda: _redesigned(
+                b1s, BLOCK1_KERNELS, lambda: b1s_plain(False),
+                _block_chain(b1w, (2, 2)), x1[..., None],
+                with_direct9=row2_modes, beside="row2"),
+            input_shape=list(x1.shape), tc=block1_small.default_tc(t1),
+            v1_source="texttoaudiogrounding_tpu_torch/csrc/block1_small.cu"),
         "pair_conv_pool_conv2": pair(
             lambda design, q: design(
                 aq if q else a16, None, None, w2, ab2, quantize=q,
@@ -2087,15 +2220,20 @@ def _block12_designs(x1, y1, enc) -> dict:
             ref=f32_1, ops={"int8": mk * tp},
             in_bytes=aq.numel() + 4 * (w2.numel() + 2 * 64),
             beside=routed1, input_shape=list(aq.shape)),
-        "block2_small": _design(**both(
-            lambda q: block2_small.fused_block2(y1, *b2w, quantize=q,
-                                                prepared=prep["b2s", q]),
-            lambda q: conv_block_pair.block2_plain(
-                y1, *b2w, quantize=q, tc=block2_small.default_tc(t2),
-                divide=True),
-            ref=f32_2, ops=b2_ops, in_bytes=b2_in,
-            source="conv_block_pair.cu", replaces="conv_block_small.py:291",
-            beside=routed2, input_shape=list(y1.shape))),
+        "block2_small": _design(
+            kernel=b2s["v2", True], plain=lambda: b2s_plain(y1, True, tc6),
+            bf16=(b2s["v2", False], lambda: b2s_plain(y1, False, tc6)),
+            check=row6_check, ref=f32_2, ops=b2_ops, in_bytes=b2_in,
+            source="conv_block_v2.cu", replaces="conv_block_small.py:291",
+            tolerance=_DESIGN_TOL + "; int8 max_abs == 0 to the first "
+                      "design (conv_block_pair.cu at row 6's chunk and "
+                      "weights), also at odd T (4 clips x 499 frames, tc 2)",
+            trace=True, designs=lambda: _redesigned(
+                b2s, ROW6_KERNELS, lambda: b2s_plain(y1, False, tc6),
+                _block_chain(b2w, (2, 2)), y1),
+            beside=routed2, input_shape=list(y1.shape), tc=tc6,
+            v1_source="texttoaudiogrounding_tpu_torch/csrc/"
+                      "conv_block_pair.cu"),
         "pair_conv_pool": pair(
             lambda design, q: design(y1, *b2w, quantize=q,
                                      prepared=prep["b2", q]),
@@ -2109,6 +2247,18 @@ def _block12_designs(x1, y1, enc) -> dict:
     }
 
 
+# row 7's kernels a call: second design (int8: the max pass, the quantize
+# pass, conv2; bf16: conv1 and conv2), first design (int8: the im2col's five
+# PyTorch kernels, conv1, the requantize pass, conv2; bf16 without the
+# requantize pass)
+BLOCK1_KERNELS = {("v2", True): 3, ("v2", False): 2, ("v1", True): 8,
+                  ("v1", False): 7}
+# row 6's: row 3's designs (second: the x window maxes, the quantize pass,
+# conv1, the y1 requantization, conv2; bf16 the pad pass and the two
+# convs; first: the gather, conv1, the requantization, conv2; bf16 the
+# gather and the two convs)
+ROW6_KERNELS = {("v2", True): 5, ("v2", False): 3, ("v1", True): 4,
+                ("v1", False): 3}
 # row 5's kernels a call: second design (int8: the x window maxes, the
 # quantize pass, conv1, the y1 requantization, conv2; bf16: the pad pass
 # and the two convs; conv2 alone one GEMM), first design (int8: the
@@ -2529,11 +2679,53 @@ def _v3_check(wave, cfg, t_lo: int, t_hi: int):
     return check
 
 
+# row 9's kernels a call: the second design's cast pass and its one launch
+# of tiles and edge blocks
+V3_KERNELS = 2
+V3_EDGE_DB = 2e-3     # the edge frames against _edge_frames (f32 sums)
+
+
+def _v3_designs(wave, cfg, t_lo: int, t_hi: int, row1: dict) -> dict:
+    """Row 9's two designs timed in turns beside row 1 (v1 v2 row1 row1 v2
+    v1), each traced by launch (the second must make V3_KERNELS kernels a
+    call), the first design held by :func:`_v3_check` too, and the
+    ``torch.stft`` chain beside."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import logmel_v3
+
+    fns = {"v1": lambda: logmel_v3._fused_log_mel_spectrogram_v3_v1(wave,
+                                                                   cfg),
+           "v2": lambda: logmel_v3.fused_log_mel_spectrogram_v3(wave, cfg),
+           "row1": row1["row1"]}
+    t = _turns(fns, ("v1", "v2", "row1"))
+    traces = {f"{d}_trace": _trace(fns[d], t[d], by_launch=True)
+              for d in ("v2", "v1")}
+    kernels = {d: _kernel_launches(traces[f"{d}_trace"]) for d in ("v2", "v1")}
+    if kernels["v2"] != V3_KERNELS:
+        raise AssertionError(f"logmel_v3: {kernels['v2']} kernels a call, "
+                             f"expected {V3_KERNELS}")
+    first = fns["v1"]()
+    v1_errs = _v3_check(wave, cfg, t_lo, t_hi)(
+        first, logmel_v3.log_mel_v3_plain(wave, cfg))
+    chain = _logmel_chain(cfg, wave.device)
+    return {"ms": t["v2"], "v1_ms": t["v1"], "row1_turns_mean_ms": t["row1"],
+            "turns_ms": t["runs"], "kernels_per_call": kernels,
+            "v1_max_abs_err": v1_errs["max_abs_err"],
+            "v1_mean_abs_err": v1_errs["mean_abs_err"],
+            "v2_vs_v1_max_abs": _err(fns["v2"](), first)[0],
+            "chain_ms": _cuda_ms(lambda: chain(wave), 10),
+            "chain": "torch.stft (cuFFT) -> power -> @ fb -> dB, f32",
+            "v1_source": "texttoaudiogrounding_tpu_torch/csrc/logmel_v3.cu",
+            **traces}
+
+
 def _logmel_designs(wave) -> tuple:
     """Rows 9 and 10 once on the served waveform, beside row 1's two
-    designs: v3 held by :func:`_v3_check`, v4 bit for bit to row 1's first
-    design (``csrc/logmel.cu``, whose tile code rows 9 and 10 share); each
-    compared with the f64 log-mel.  Returns (records, outputs)."""
+    designs: v3 on its second design (``logmel_v3_v2.cu``) held by
+    :func:`_v3_check`, its edge frames within V3_EDGE_DB of the plain
+    frontend's (``_edge_frames``), timed in turns with its first design
+    (``logmel_v3.cu``) beside row 1; v4 bit for bit to row 1's first
+    design (``csrc/logmel.cu``, whose tile code v4 shares); each compared
+    with the f64 log-mel.  Returns (records, outputs)."""
     from texttoaudiogrounding_tpu_torch.ops import frontend
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
         logmel, logmel_v3, logmel_v4)
@@ -2550,18 +2742,31 @@ def _logmel_designs(wave) -> tuple:
                                                                      cfg),
             "row1": lambda: logmel.fused_log_mel_spectrogram(wave, cfg)}
     dft, _, mel = _logmel_ops(cfg, frames)        # v3: interior frames
+    edge = _logmel_ops(cfg, b * (t - t_hi + t_lo))  # its f32 edge frames
     dft4, power4, mel4 = _logmel_ops(cfg, b * t)
+
+    def v3_check(out, plain):
+        errs = _v3_check(wave, cfg, t_lo, t_hi)(out, plain)
+        left, right = logmel_v3._edge_frames(wave, cfg, t_lo, t_hi)
+        got = max(float((out[:, :t_lo] - left).abs().max()),
+                  float((out[:, t_hi:] - right).abs().max()))
+        if got > V3_EDGE_DB:
+            raise AssertionError(f"edge frames {got} dB off _edge_frames")
+        return {**errs, "edge_max_abs_err": got}
+
     return {
         "logmel_v3": _design(
             kernel=lambda: logmel_v3.fused_log_mel_spectrogram_v3(wave, cfg),
             plain=lambda: logmel_v3.log_mel_v3_plain(wave, cfg), ref=ref,
-            ops={"bf16": dft + mel},
-            in_bytes=wave.numel() * 4, source="logmel_v3.cu",
-            replaces="logmel.py:350", check=_v3_check(wave, cfg, t_lo, t_hi),
+            ops={"bf16": dft + mel, "f32": sum(edge)},
+            in_bytes=wave.numel() * 4, source="logmel_v3_v2.cu",
+            replaces="logmel.py:350", check=v3_check,
             tolerance=f"max_abs_db <= {V3_MAX_DB}, mean_abs_db <= "
-                      f"{V3_MEAN_DB}; row 1's kernel must miss them",
-            beside=row1, timed={"edge_frames": lambda: (
-                logmel_v3._edge_frames(wave, cfg, t_lo, t_hi))}),
+                      f"{V3_MEAN_DB}; row 1's kernel must miss them; edge "
+                      f"frames max_abs_db <= {V3_EDGE_DB} to _edge_frames",
+            beside=row1, timed={"v1_edge_frames": lambda: (
+                logmel_v3._edge_frames(wave, cfg, t_lo, t_hi))},
+            designs=lambda: _v3_designs(wave, cfg, t_lo, t_hi, row1)),
         "logmel_v4": _design(
             kernel=lambda: logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg),
             plain=lambda: logmel.log_mel_plain(wave, cfg), ref=ref,
@@ -2676,11 +2881,13 @@ def _counter_modules() -> tuple:
 
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name (the first
-    designs of rows 1, 3 and 8 count in ``logmel.launches_v1``,
-    ``conv_block_pair.launches_v1`` and ``conv_block_wino.launches_v1``)."""
+    designs of rows 1, 9, 3 and 8 count in ``logmel.launches_v1``,
+    ``logmel_v3.launches_v1``, ``conv_block_pair.launches_v1`` and
+    ``conv_block_wino.launches_v1``)."""
     ints, dicts = _counter_modules()
     out = {name: mod.launches for name, mod in ints.items()}
     out["logmel_v1"] = ints["logmel"].launches_v1
+    out["logmel_v3_v1"] = ints["logmel_v3"].launches_v1
     out["conv_block_pair_v1"] = ints["conv_block_pair"].launches_v1
     out["conv_block_wino_v1"] = ints["conv_block_wino"].launches_v1
     for mod in dicts:
@@ -2693,6 +2900,7 @@ def _reset_counts() -> None:
     for mod in ints.values():
         mod.launches = 0
     ints["logmel"].launches_v1 = 0
+    ints["logmel_v3"].launches_v1 = 0
     ints["conv_block_pair"].launches_v1 = 0
     ints["conv_block_wino"].launches_v1 = 0
     for mod in dicts:
@@ -3355,7 +3563,8 @@ def main() -> int:
                                           "bn_pool_v2", "conv_block_wino_v2",
                                           "conv_block_tri_v2",
                                           "conv_block_mel3_v2",
-                                          "pair_conv_pool_v2")}
+                                          "pair_conv_pool_v2",
+                                          "block1_small_v2", "logmel_v3_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)
@@ -3383,8 +3592,11 @@ def main() -> int:
                                         v["trace"]["device_idle_share"]}
                                 for k, v in serving["paths"].items()}}),
           flush=True)
-    designs, design_launches = designs_phase(*handoff)
+    designs, design_launches, v1_route = designs_phase(*handoff)
     del handoff
+    report["v1_route"] = v1_route
+    print(json.dumps({"phase": "v1_route", "card": smi, "rows": v1_route}),
+          flush=True)
     kernels += designs
     print(json.dumps({"phase": "designs", "card": smi, "kernels": [
         {k: v for k, v in row.items() if k not in (

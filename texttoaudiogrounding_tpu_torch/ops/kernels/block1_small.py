@@ -1,4 +1,4 @@
-"""PANNs block 1 from a K = 16 conv1 im2col: ``csrc/block1_small.cu``.
+"""PANNs block 1 from the log-mel: ``csrc/block1_small_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block_small.py:471
 fused_block1`` (kernel ``_block1_kernel :420``): Cin = 1 → 64 → 64, pool
@@ -6,8 +6,7 @@ fused_block1`` (kernel ``_block1_kernel :420``): Cin = 1 → 64 → 64, pool
 bf16 dot over an im2col staged outside it (``:401 conv1_im2col``: row
 (t, mel pair j) holds the 12 taps feeding both parities, mels 2j - 1 ..
 2j + 2 at times t - 1 .. t + 1, and 4 zero lanes), and runs conv2 as
-banded K = 384 int8 dots; the port keeps the im2col (plain PyTorch, as it
-is XLA in the JAX package) and the arithmetic, not the layout:
+banded K = 384 int8 dots; the port keeps the arithmetic, not the layout:
 
 * conv1: bf16 operands, f32 sums (the products are exact in f32; the
   port adds them in tap order), BN, ReLU, rows outside the clip zeroed;
@@ -21,8 +20,15 @@ is XLA in the JAX package) and the arithmetic, not the layout:
 * ``tc`` defaults to 48 when padding T to a multiple of 48 adds at most
   96 frames (``:488-489``), else 2; T is padded to the chunk grid.
 
-:func:`fused_block1` launches the kernel for a CUDA tensor and runs
-:func:`block1_small_plain` for a CPU tensor.
+:func:`fused_block1` launches the second design for a CUDA tensor and runs
+:func:`block1_small_plain` for a CPU tensor.  The second design computes
+conv1 from the log-mel itself, without the im2col (in int8 twice: a max
+pass, then the rows quantized into conv2's mel-padded input), and conv2
+on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``.  The first
+design (``csrc/block1_small.cu``: conv1 from the im2col built in PyTorch,
+f32 y1, a requantize pass and WMMA tiles) gives the same int8 result bit
+for bit and is reachable only through :func:`_fused_block1_v1`, which
+``chip_smoke.py`` times beside it.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
 __all__ = ["fused_block1", "block1_small_plain", "conv1_im2col",
            "default_tc"]
 
-launches = {"block1_small": 0}     # kernel launches through fused_block1
+# kernel launches through fused_block1 (second design) and
+# _fused_block1_v1 (the first)
+launches = {"block1_small": 0, "block1_small_v1": 0}
 
 _M = 64
 
@@ -111,6 +119,21 @@ def prepare(w1, ab1, w2, ab2, quantize: bool) -> tuple:
     return (w1k, a1, b1) + conv_weights(w2, ab2, quantize, divide=True)
 
 
+def _check_args(x_mel, w1, w2, tc: int | None) -> int:
+    """The block's shapes; returns the chunk."""
+    if x_mel.dim() != 3 or x_mel.shape[2] != _M:
+        raise ValueError("x_mel must be [B, T, 64]")
+    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
+        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
+    tc = tc or default_tc(x_mel.shape[1])
+    if tc % 2:
+        raise ValueError(f"tc={tc} must be even")
+    return tc
+
+
+_V2_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+
+
 def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                  w2: torch.Tensor, ab2: tuple, *, quantize: bool = True,
                  tc: int | None = None, compute_dtype=torch.bfloat16,
@@ -123,14 +146,8 @@ def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     64]``, bf16 for int8, else ``compute_dtype``.  Serving only (running
     BN statistics).
     """
-    if x_mel.dim() != 3 or x_mel.shape[2] != _M:
-        raise ValueError("x_mel must be [B, T, 64]")
-    if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
-        raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
     b, t, _ = x_mel.shape
-    tc = tc or default_tc(t)
-    if tc % 2:
-        raise ValueError(f"tc={tc} must be even")
+    tc = _check_args(x_mel, w1, w2, tc)
     check_device(x_mel, w1, w2, *ab1, *ab2)
     if not x_mel.is_cuda:
         return block1_small_plain(x_mel, w1, ab1, w2, ab2,
@@ -138,6 +155,37 @@ def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                                   compute_dtype=compute_dtype)
     if compute_dtype != torch.bfloat16:
         raise ValueError("the kernel computes in bf16 (or int8)")
+    x = x_mel.to(torch.bfloat16).contiguous()
+    wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
+    check_device(x_mel, *wk)
+    g = b * -(-t // tc)
+    y1 = torch.empty(g, tc + 2, _M + 2, 64, device=x.device,
+                     dtype=torch.int8 if quantize else torch.bfloat16)
+    ymax = torch.empty(g if quantize else 1, dtype=torch.int32,
+                       device=x.device)
+    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _build.function("block1_small_v2", "ttg_block1_small_v2", _V2_ARGS)
+    err = fn(int(quantize), x.data_ptr(), b, t, tc,
+             *(v.data_ptr() for v in wk), ymax.data_ptr(), y1.data_ptr(),
+             out.data_ptr(), _build.stream())
+    launches["block1_small"] += 1
+    _build.check(err, "ttg_block1_small_v2")
+    return out
+
+
+def _fused_block1_v1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
+                     w2: torch.Tensor, ab2: tuple, *, quantize: bool = True,
+                     tc: int | None = None,
+                     prepared: tuple | None = None) -> torch.Tensor:
+    """The first design (``csrc/block1_small.cu``, from the im2col) on a
+    CUDA tensor, arguments as :func:`fused_block1`; nothing served calls
+    it.  ``chip_smoke.py`` holds the second design to it."""
+    b, t, _ = x_mel.shape
+    tc = _check_args(x_mel, w1, w2, tc)
+    if not x_mel.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
+    check_device(x_mel, w1, w2, *ab1, *ab2)
     nch = -(-t // tc)
     xim = conv1_im2col(x_mel.to(torch.bfloat16), nch * tc).contiguous()
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
@@ -153,6 +201,6 @@ def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     err = fn(int(quantize), xim.data_ptr(), b, t, tc,
              *(v.data_ptr() for v in wk), y1.data_ptr(), y1q.data_ptr(),
              sy.data_ptr(), out.data_ptr(), _build.stream())
-    launches["block1_small"] += 1
+    launches["block1_small_v1"] += 1
     _build.check(err, "ttg_block1_small")
     return out

@@ -1,5 +1,5 @@
-"""Pair-dense PANNs block 2 (64 → 128, 2×2 pool) on row 3's kernel,
-``csrc/conv_block_pair.cu``.
+"""Pair-dense PANNs block 2 (64 → 128, 2×2 pool) on row 3's second design,
+``csrc/conv_block_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/conv_block_small.py:291
 fused_block2`` (kernel ``_block2_kernel :172``).  The TPU kernel's
@@ -21,8 +21,12 @@ staged window ``[t0 mp - 2 mp - 1, (t0 + tc + 2) mp + 1)`` of flat
 mel-pair rows (``:194-203``), the y1 scale per chunk over the f32 conv1
 rows after the ReLU and the clip mask (``:231-237``).
 
-:func:`fused_block2` launches row 3's kernel for a CUDA tensor and runs
-``block2_plain`` for a CPU tensor.
+:func:`fused_block2` launches row 3's kernel (``conv_block_pair.launch``,
+the wgmma implicit GEMM) for a CUDA tensor and runs ``block2_plain`` for a
+CPU tensor.  At the mel counts the second design does not take
+(``conv_block.v2_takes``) it runs row 3's first design
+(``conv_block_pair.launch_v1``, ``csrc/conv_block_pair.cu``), counted as
+``block2_small_v1``.
 """
 
 from __future__ import annotations
@@ -34,11 +38,14 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     check_block_args,
     check_device,
     kernel_weights,
+    v2_takes,
 )
 
 __all__ = ["fused_block2", "default_tc", "prepare"]
 
-launches = {"block2_small": 0}     # kernel launches through fused_block2
+# kernel launches through fused_block2: row 3's second design, and its
+# first where v2_takes says no
+launches = {"block2_small": 0, "block2_small_v1": 0}
 
 CONV1 = ("banded", "windows")
 
@@ -84,7 +91,9 @@ def fused_block2(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     if compute_dtype != torch.bfloat16:
         raise ValueError("the kernel computes in bf16 (or int8)")
     check_block_args(x, w1, ab1, w2, ab2, (2, 2), tc)
-    out = conv_block_pair.launch(
-        x, prepared or prepare(w1, ab1, w2, ab2, quantize), quantize, tc)
+    wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
+    if not v2_takes(m, (2, 2)):
+        launches["block2_small_v1"] += 1
+        return conv_block_pair.launch_v1(x, wk, quantize, tc)
     launches["block2_small"] += 1
-    return out
+    return conv_block_pair.launch(x, wk, quantize, tc)

@@ -60,7 +60,8 @@ from texttoaudiogrounding_tpu_torch.ops.kernels import _build
 # direct9's per-tap GEMM at the mode's chunk where the slab form takes
 # neither conv (tri_route); the first designs of direct9
 # (_fused_double_conv_pool_v1), mel3 (_fused_mel3_v1) and tri
-# (_fused_tri_v1), which M 2 / 4 with time pairs also run
+# (_fused_tri_v1), which M 2 / 4 with time pairs also run (direct9's first
+# design also where v2_takes says no)
 launches = {"conv_block": 0, "conv_block_mel3": 0,
             "conv_block_mel3_per_tap": 0, "conv_block_mel3_v1": 0,
             "conv_block_tri": 0, "conv_block_tri_per_tap": 0,
@@ -443,10 +444,18 @@ def scratch_v2(b, t, m, cin, cout, tc, quantize, device,
     return xs, y1, y1q, smax
 
 
+def v2_takes(m: int, pool) -> bool:
+    """Whether the second design's GEMM takes pool ``pool`` at M mels: it
+    pools time pairs inside a thread, so a 128-row tile must hold whole
+    windows of 8-mel groups, M 8, 16, 32 or 64.  Rows 3, 4 direct9, 5 and
+    6 run their first designs (counted under their ``_v1`` keys) where it
+    says no."""
+    return pool[0] != 2 or m in (8, 16, 32, 64)
+
+
 def check_v2_pool(m: int, pool) -> None:
-    """The second design pools time pairs inside a thread: a 128-row tile
-    holds whole windows of 8-mel groups, so M is 8, 16, 32 or 64."""
-    if pool[0] == 2 and m not in (8, 16, 32, 64):
+    """Raise where :func:`v2_takes` says no: the v2 launch helpers' guard."""
+    if not v2_takes(m, pool):
         raise ValueError(f"the kernel takes time-pair pooling for M in "
                          f"(8, 16, 32, 64); got M={m}")
 
@@ -605,7 +614,10 @@ def fused_double_conv_pool(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
             _launch_tri_v2(x, wk, quantize, tc, pool, slab1, slab2, out)
         launches[key] += 1
         return out
-    check_v2_pool(m, pool)
+    if not v2_takes(m, pool):
+        _launch_v1(x, wk, quantize, tc, pool, out)
+        launches["conv_block_v1"] += 1
+        return out
     xs, y1, y1q, smax = scratch_v2(b, t, m, cin, cout, tc, quantize,
                                    x.device, per_clip=True)
     name = "ttg_conv_block_v2"
@@ -749,12 +761,20 @@ def _fused_double_conv_pool_v1(x: torch.Tensor, w1: torch.Tensor,
     check_device(x, *wk)
     out = torch.empty(b, t // pool[0], m // pool[1], cout,
                       dtype=torch.bfloat16, device=x.device)
+    _launch_v1(x, wk, quantize, tc, pool, out)
+    launches["conv_block_v1"] += 1
+    return out
+
+
+def _launch_v1(x, wk, quantize: bool, tc: int, pool, out) -> None:
+    """direct9's first design (``csrc/conv_block.cu``) on checked
+    arguments; the caller counts it."""
+    b, t, m, cin = x.shape
+    cout = out.shape[-1]
     fn = _build.function("conv_block", "ttg_conv_block", _ARGS)
-    err = fn(int(quantize), x.data_ptr(), b, t, m, x.shape[3], cout, tc,
-             *pool, *(v.data_ptr() for v in wk),
-             *(v.data_ptr() for v in scratch(b, t, m, x.shape[3], cout, tc,
+    err = fn(int(quantize), x.data_ptr(), b, t, m, cin, cout, tc, *pool,
+             *(v.data_ptr() for v in wk),
+             *(v.data_ptr() for v in scratch(b, t, m, cin, cout, tc,
                                              quantize, x.device)),
              out.data_ptr(), _build.stream())
-    launches["conv_block_v1"] += 1
     _build.check(err, "ttg_conv_block")
-    return out

@@ -16,8 +16,10 @@ times ``[t0 - 1, t0 + tc + 1)``, out-of-clip rows zeroed.
 the plain version (:func:`block2_plain`) for a CPU tensor.  The kernel is
 the second design, the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``
 (``ttg_conv_block_pair_v2``); the first design (``csrc/conv_block_pair.cu``)
-gives the same int8 result bit for bit and is reachable only through
-:func:`_launch_v1`, which ``chip_smoke.py`` times beside it.
+gives the same int8 result bit for bit and runs through :func:`_launch_v1`,
+which ``chip_smoke.py`` times beside it, and at the mel counts the second
+design does not take (``conv_block.v2_takes``: M outside 8 / 16 / 32 / 64),
+counted in ``launches_v1``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     kernel_weights,
     scratch,
     scratch_v2,
+    v2_takes,
     window_scale,
 )
 
@@ -136,8 +139,10 @@ def fused_block2_pair(x: torch.Tensor, w1: torch.Tensor, ab1: tuple,
     check_block_args(x, w1, ab1, w2, ab2, (2, 2), tc)
     if not x.is_cuda:
         return block2_plain(x, w1, ab1, w2, ab2, quantize=quantize, tc=tc)
-    out = launch(x, prepared or kernel_weights(w1, ab1, w2, ab2, quantize),
-                 quantize, tc)
+    wk = prepared or kernel_weights(w1, ab1, w2, ab2, quantize)
+    if not v2_takes(m, (2, 2)):
+        return _launch_v1(x, wk, quantize, tc)
+    out = launch(x, wk, quantize, tc)
     launches += 1
     return out
 
@@ -166,9 +171,17 @@ def launch(x: torch.Tensor, wk: tuple, quantize: bool,
 
 def _launch_v1(x: torch.Tensor, wk: tuple, quantize: bool,
                tc: int) -> torch.Tensor:
-    """:func:`launch` on the first design (``ttg_conv_block_pair``), counted
-    in ``launches_v1``; nothing served calls it."""
+    """:func:`launch_v1`, counted in ``launches_v1``."""
     global launches_v1
+    out = launch_v1(x, wk, quantize, tc)
+    launches_v1 += 1
+    return out
+
+
+def launch_v1(x: torch.Tensor, wk: tuple, quantize: bool,
+              tc: int) -> torch.Tensor:
+    """:func:`launch` on the first design (``ttg_conv_block_pair``), for the
+    shapes the second does not take; the caller counts it."""
     b, t, m, cin = x.shape
     cout = wk[0].shape[0]
     check_device(x, *wk)
@@ -181,6 +194,5 @@ def _launch_v1(x: torch.Tensor, wk: tuple, quantize: bool,
              *(v.data_ptr() for v in wk), xs.data_ptr(), y1.data_ptr(),
              y1q.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
              _build.stream())
-    launches_v1 += 1
     _build.check(err, "ttg_conv_block_pair")
     return out

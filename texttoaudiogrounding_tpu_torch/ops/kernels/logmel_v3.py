@@ -1,4 +1,4 @@
-"""Log-mel frontend without the reflect-pad copy: ``csrc/logmel_v3.cu``.
+"""Log-mel frontend without the reflect-pad copy: ``csrc/logmel_v3_v2.cu``.
 
 Port of ``texttoaudiogrounding_tpu/ops/pallas/logmel.py:350
 fused_log_mel_spectrogram_v3``, whose numerics are its own:
@@ -15,13 +15,24 @@ fused_log_mel_spectrogram_v3``, whose numerics are its own:
   log_mel_spectrogram``, XLA in the JAX package) on the same waveform
   slices as ``:426-436``, the right one with its own reflect padding.
 
-``fused_log_mel_spectrogram_v3`` launches the kernel for the interior
-frames of a CUDA tensor and fills in the edge frames with plain PyTorch on
-the card; for a CPU tensor it runs :func:`log_mel_v3_plain`.
+``fused_log_mel_spectrogram_v3`` launches the second design for a CUDA
+tensor and runs :func:`log_mel_v3_plain` for a CPU tensor.  The second
+design is two kernels: one pass casts the waveform to bf16, then one
+launch runs row 1's wgmma DFT tiles (``csrc/logmel_v2.cu``) over the
+call's interior frames, each read at ``t hop - n_fft / 2`` of that copy,
+with the bf16 mel projection, and, in its first blocks, the edge frames as
+a direct f32 DFT of reflect-indexed samples (:func:`tables`).  No PyTorch
+op computes on its path.  The first design (``csrc/logmel_v3.cu``,
+16-frame WMMA tiles, the edge frames from the plain frontend in PyTorch)
+is reachable only through :func:`_fused_log_mel_spectrogram_v3_v1`, which
+``chip_smoke.py`` times beside it.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +44,7 @@ from texttoaudiogrounding_tpu_torch.ops.frontend import (
 from texttoaudiogrounding_tpu_torch.ops.kernels import _build, logmel
 
 launches = 0          # kernel launches through fused_log_mel_spectrogram_v3
+launches_v1 = 0       # the first design's, through its _v1 function
 
 
 def v3_parts(cfg: LogMelConfig) -> list:
@@ -114,8 +126,51 @@ def log_mel_v3_plain(waveform: torch.Tensor,
     return torch.cat([left, mid, right], dim=1)
 
 
+_device_v3: dict = {}
+
+
+def tables(cfg: LogMelConfig, device: torch.device) -> tuple:
+    """The second design's tables on ``device``: (the interleaved bf16 DFT
+    basis of row 1, the bf16 filterbank's ``mel_bands`` (band, f32
+    weights), the windowed f32 basis ``[n_fft, F, 2]`` (re, im) of the
+    edge frames, the f32 filterbank's ``mel_bands``, and the bins ``(lo,
+    hi)`` that cover every band)."""
+    key = (cfg, str(device))
+    if key not in _device_v3:
+        real, imag, fb = logmel._trimmed_basis(cfg)
+        fb16 = torch.from_numpy(fb).to(torch.bfloat16).float().numpy()
+        band16, w16 = logmel.mel_bands(fb16)
+        band, w = logmel.mel_bands(fb)
+        used = band[band[:, 1] > band[:, 0]]
+        dev = functools.partial(torch.as_tensor, device=device)
+        _device_v3[key] = (
+            logmel._tables_v2(cfg, device)[0], dev(band16), dev(w16),
+            dev(np.ascontiguousarray(np.stack([real, imag], axis=-1))),
+            dev(band), dev(w), (int(used[:, 0].min()), int(used[:, 1].max())))
+    return _device_v3[key]
+
+
+def npad_v3(t_hi: int, cfg: LogMelConfig) -> int:
+    """Samples a clip of the second design's bf16 copy: the last interior
+    frame's window, rounded up to 8 (16-byte pieces).  The tiles run over
+    the call's interior frames clip after clip, and a tile's rows past the
+    last frame read that frame again."""
+    last = (t_hi - 1) * cfg.hop_length + cfg.n_fft // 2
+    return -(-last // 8) * 8
+
+
+def _check_kernel(waveform: torch.Tensor, cfg: LogMelConfig) -> tuple:
+    t_lo, t_hi = _check(waveform, cfg)
+    logmel.check_kernel_config(cfg, waveform.device)
+    if cfg.amin != 1e-10:
+        raise ValueError("the kernel is built for amin 1e-10")
+    return t_lo, t_hi
+
+
 _P, _I, _L = _build.P, _build.I, _build.L
 _ARGS = [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_V2_ARGS = [_P, _I, _L, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+            _P, _P]
 
 
 def fused_log_mel_spectrogram_v3(waveform: torch.Tensor,
@@ -126,9 +181,35 @@ def fused_log_mel_spectrogram_v3(waveform: torch.Tensor,
     t_lo, t_hi = _check(waveform, cfg)
     if not waveform.is_cuda:
         return log_mel_v3_plain(waveform, cfg)
-    logmel.check_kernel_config(cfg, waveform.device)
-    if cfg.amin != 1e-10:
-        raise ValueError("the kernel is built for amin 1e-10")
+    _check_kernel(waveform, cfg)
+    x = waveform.contiguous()
+    b, n = x.shape
+    t = num_frames(n, cfg.hop_length)
+    basis, band16, w16, eb, band, w, (lo, hi) = tables(cfg, x.device)
+    npad = npad_v3(t_hi, cfg)
+    xb = torch.empty(b, npad, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(b, t, cfg.n_mels, dtype=torch.float32, device=x.device)
+    fn = _build.function("logmel_v3_v2", "ttg_logmel_v3_v2", _V2_ARGS)
+    err = fn(x.data_ptr(), b, n, xb.data_ptr(), npad, t, t_lo, t_hi,
+             basis.data_ptr(), band16.data_ptr(), w16.data_ptr(),
+             eb.data_ptr(), band.data_ptr(), w.data_ptr(), lo, hi,
+             out.data_ptr(), _build.stream())
+    launches += 1
+    _build.check(err, "ttg_logmel_v3_v2")
+    return out
+
+
+def _fused_log_mel_spectrogram_v3_v1(waveform: torch.Tensor,
+                                     cfg: LogMelConfig) -> torch.Tensor:
+    """The first design (``csrc/logmel_v3.cu`` for the interior frames,
+    the plain frontend in PyTorch for the edge frames) on a CUDA tensor,
+    counted in ``launches_v1``; nothing served calls it.
+    ``chip_smoke.py`` holds the second design to it."""
+    global launches_v1
+    t_lo, t_hi = _check(waveform, cfg)
+    if not waveform.is_cuda:
+        raise ValueError("the first design runs on a CUDA tensor only")
+    _check_kernel(waveform, cfg)
     x = waveform.contiguous()
     b, n = x.shape
     t = num_frames(n, cfg.hop_length)
@@ -138,7 +219,7 @@ def fused_log_mel_spectrogram_v3(waveform: torch.Tensor,
     fn = _build.function("logmel_v3", "ttg_logmel_v3", _ARGS)
     err = fn(x.data_ptr(), n, b, t, t_lo, t_hi, real.data_ptr(),
              imag.data_ptr(), fb.data_ptr(), out.data_ptr(), _build.stream())
-    launches += 1
+    launches_v1 += 1
     _build.check(err, "ttg_logmel_v3")
     left, right = _edge_frames(x, cfg, t_lo, t_hi)
     out[:, :t_lo] = left

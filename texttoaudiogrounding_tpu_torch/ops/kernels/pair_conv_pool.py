@@ -35,9 +35,11 @@ second design, on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``
 (the full block as row 3's pipeline with conv1 rows stored in bf16; conv2
 alone reading the caller's unpadded clip through zero-filling copies).
 The first design (``csrc/pair_conv_pool.cu``, WMMA tiles on
-one-block-per-group gathers) gives the same int8 result bit for bit and
-is reachable only through :func:`_fused_pair_conv_pool_v1`, which
-``chip_smoke.py`` times beside it.
+one-block-per-group gathers) gives the same int8 result bit for bit; it
+runs through :func:`_fused_pair_conv_pool_v1`, which ``chip_smoke.py``
+times beside it, and at the mel counts the second design does not take
+(``conv_block.v2_takes``: time pairs at M outside 8 / 16 / 32 / 64),
+counted under its ``_v1`` keys.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     _conv_valid_time,
     _windows,
     check_device,
-    check_v2_pool,
     conv_weights,
     double_conv_plain,
     dual_pool,
@@ -57,6 +58,7 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     quant_weight,
     scratch,
     scratch_v2,
+    v2_takes,
 )
 from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block_pair import (
     pair_window_scale,
@@ -65,8 +67,8 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block_pair import (
 __all__ = ["fused_pair_conv_pool", "pair_conv_pool_plain", "pick_tc"]
 
 # kernel launches through fused_pair_conv_pool (second design): the full
-# block, and conv2 alone (w1=None); through _fused_pair_conv_pool_v1 (the
-# first design)
+# block, and conv2 alone (w1=None); of the first design, through
+# _fused_pair_conv_pool_v1 or where v2_takes says no
 launches = {"pair_conv_pool": 0, "pair_conv_pool_conv2": 0,
             "pair_conv_pool_v1": 0, "pair_conv_pool_conv2_v1": 0}
 
@@ -175,9 +177,10 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
     with the one scale ``x_scale`` under ``quantize``).  T must divide
     into chunks of ``tc`` (by default the JAX package's choice); pad it
     with zero rows beforehand.  ``prepared`` is :func:`prepare` of the
-    same weights.  Returns ``[B, T // pt, M // 2, Cout]``.  On the card M
-    is 8, 16, 32 or 64 with time pairs (the GEMM pools them in-thread).
-    Serving only (running BN statistics).
+    same weights.  Returns ``[B, T // pt, M // 2, Cout]``.  On the card,
+    time pairs at M other than 8, 16, 32 or 64 (which the GEMM cannot pool
+    in-thread) run the first design.  Serving only (running BN
+    statistics).
     """
     b, t, m, cin = x.shape
     cout = w2.shape[-1]
@@ -189,9 +192,10 @@ def fused_pair_conv_pool(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
                                     quantize=quantize, tc=tc,
                                     x_scale=x_scale,
                                     compute_dtype=compute_dtype)
-    check_v2_pool(m, pool)
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize, x_scale)
     check_device(x, *wk)
+    if not v2_takes(m, pool):
+        return _launch_v1(x, w1 is None, wk, quantize, tc, pool)
     skip = w1 is None
     if skip:                                   # no scratch
         xs = y1 = y1q = smax = x
@@ -229,7 +233,15 @@ def _fused_pair_conv_pool_v1(x: torch.Tensor, w1, ab1, w2: torch.Tensor,
     check_device(x, w2, *ab2, *(() if w1 is None else (w1, *ab1)))
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize, x_scale)
     check_device(x, *wk)
-    skip = w1 is None
+    return _launch_v1(x, w1 is None, wk, quantize, tc, pool)
+
+
+def _launch_v1(x, skip: bool, wk: tuple, quantize: bool, tc: int,
+               pool) -> torch.Tensor:
+    """The first design on checked arguments, counted under its ``_v1``
+    keys."""
+    b, t, m, cin = x.shape
+    cout = wk[0].shape[0]
     if skip:                                   # no scratch
         xs = y1 = y1q = sx = sy = x
     else:
