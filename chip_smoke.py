@@ -13,8 +13,8 @@ Phases, each printing one line:
    ``gru_fwd_sm90.cu``, ``gru_bwd_sm90.cu``, ``gru_walk_sm90.cu``,
    ``bn_pool_v2.cu``, ``conv_block_wino_v2.cu``, ``conv_block_tri_v2.cu``,
    ``conv_block_mel3_v2.cu``, ``pair_conv_pool_v2.cu``) from their
-   ``-Xptxas -v`` logs (also ``block1_small_v2.cu`` and
-   ``logmel_v3_v2.cu``);
+   ``-Xptxas -v`` logs (also ``block1_small_v2.cu``, ``logmel_v3_v2.cu``
+   and ``logmel_v4_v2.cu``);
 2. kernels: run each kernel at the shapes its main path gives it against
    its plain PyTorch version on the same inputs on the card, with the
    stated tolerance, and time both with CUDA events: the four serving
@@ -113,18 +113,23 @@ Phases, each printing one line:
    pools) as a yardstick; and the
    log-mel variants v3 (second design ``logmel_v3_v2.cu``, its edge
    frames within 2e-3 dB of the plain frontend's, timed in turns with its
-   first design beside row 1, 2 kernels a call by the profiler) and v4 on
-   that request's waveform beside row 1's two designs (v4 held to the
-   first, whose tile code it shares); then rows 3, 4 direct9, 5 and 6 at
-   M = 4, pool (2, 2), which the second design's GEMM does not take: each
-   through its public function bit for bit to its plain version in int8,
-   raising its first design's counter once.  Each
+   first design beside row 1, 2 kernels a call by the profiler) and v4
+   (second design ``logmel_v4_v2.cu``, timed in turns with its first
+   design beside row 1, 2 kernels a call by the profiler) on that
+   request's waveform beside row 1's two designs; then rows 3, 4 direct9,
+   5 and 6 at M = 4, pool (2, 2), which the second design's GEMM does not
+   take: each through its public function bit for bit to its plain version
+   in int8, raising its first design's counter once; and row 7 at M = 32
+   (its second design) and 48 (its first) on 4 clips of the request's
+   block-1 input cut to that many mels, int8 bit for bit and bf16 within
+   1e-2 of its plain version, each call raising one counter once.  Each
    design runs once (its launches counted, exactly), then each int8
    kernel is held bit for bit against its plain version and its
    bf16 mode within
    1e-2 relative RMS (v3 within 0.035 dB max and 1e-4 dB mean of its plain
    version, limits that row 1's first design must miss; v4 bit for bit
-   against row 1's first design; row 2's int8 records also bit for bit
+   against row 1's second design and its first design against row 1's
+   first; row 2's int8 records also bit for bit
    against row 2's first design), is timed with CUDA events with its
    weights laid out
    once, as the routes keep them, and each design's relative RMS to the
@@ -1932,7 +1937,8 @@ def designs_phase(x1, y1, enc, y2, wave) -> tuple:
     waveform.  Each design runs once as the JAX package drives it (its
     launches counted, exactly one per design), then each record of the one
     table is checked, timed and reported by :func:`_design_row`.  Returns
-    (records, launches, :func:`_v1_route`'s report)."""
+    (records, launches, the reports of :func:`_v1_route` and
+    :func:`_row7_mels`)."""
     import collections
 
     import torch
@@ -1957,7 +1963,7 @@ def designs_phase(x1, y1, enc, y2, wave) -> tuple:
     for name, d in designs.items():
         rows.append(_design_row(name, d, outs.pop(name)))
         torch.cuda.empty_cache()
-    return rows, launches, _v1_route(y1, enc)
+    return rows, launches, {**_v1_route(y1, enc), **_row7_mels(x1, enc)}
 
 
 # the public function of each row whose second design takes no time pairs
@@ -2025,6 +2031,60 @@ def _v1_route(y1, enc) -> dict:
                                  f"its plain version")
         out[name] = {"counter": V1_ROUTE[name], "max_abs_err": max_abs,
                      "tc": tc, "shape": list(x.shape)}
+    return out
+
+
+# row 7 at mel counts other than the flagship's 64: the public function's
+# design at each (M 32 takes the second, 48 the first) and its counter
+ROW7_MELS = {32: "block1_small", 48: "block1_small_v1"}
+
+
+def _row7_mels(x1, enc) -> dict:
+    """Row 7 (``block1_small.fused_block1``) at M = 32 and 48 on 4 clips of
+    the served block-1 input cut to its first M mels, with the served
+    block-1 weights: int8 bit for bit and the bf16 mode within 1e-2
+    relative RMS of its plain version, each call raising ROW7_MELS[M] by
+    one and no other counter; at M = 32 the second design also bit for bit
+    to the first (int8)."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import block1_small
+
+    w = _block_weights(enc.conv_block1)
+    out = {}
+    for m, counter in ROW7_MELS.items():
+        x = x1[:4, :, :m].contiguous()
+        tc = block1_small.default_tc(x.shape[1])
+        rec = {"counter": counter, "tc": tc, "shape": list(x.shape)}
+        for q, key in ((True, "int8"), (False, "bf16")):
+            def run(q=q):
+                return block1_small.fused_block1(x, *w, quantize=q)
+            _reset_counts()
+            got = run()
+            torch.cuda.synchronize()
+            counts = _counts()
+            if counts != _want(**{counter: 1}):
+                raise AssertionError(
+                    f"block1_small at M = {m}: launches "
+                    f"{ {k: v for k, v in counts.items() if v} }, expected "
+                    f"{counter} once")
+            plain = block1_small.block1_small_plain(x, *w, quantize=q, tc=tc)
+            max_abs, rel = _err(got, plain)
+            if (q and max_abs != 0.0) or rel > 1e-2:
+                raise AssertionError(f"block1_small at M = {m} ({key}): "
+                                     f"max_abs {max_abs}, rel_rms {rel} to "
+                                     f"its plain version")
+            rec.update({f"{key}_max_abs_err": max_abs,
+                        f"{key}_rel_rms_err": rel,
+                        f"{key}_ms": _cuda_ms(run, 10)})
+            if q and counter == "block1_small":
+                vs_v1 = _err(got, block1_small._fused_block1_v1(
+                    x, *w, quantize=True))[0]
+                if vs_v1 != 0.0:
+                    raise AssertionError(f"block1_small at M = {m}: the "
+                                         f"first design differs by {vs_v1}")
+                rec["v1_max_abs_err"] = vs_v1
+        out[f"block1_small_m{m}"] = rec
     return out
 
 
@@ -2718,14 +2778,61 @@ def _v3_designs(wave, cfg, t_lo: int, t_hi: int, row1: dict) -> dict:
             **traces}
 
 
+# row 10's kernels a call: the second design's pad pass and its persistent
+# kernel
+V4_KERNELS = 2
+
+
+def _v4_designs(wave, cfg, row1: dict) -> dict:
+    """Row 10's two designs timed in turns beside row 1 (v1 v2 row1 row1
+    v2 v1), each traced by launch (the second must make V4_KERNELS kernels
+    a call), the first design held bit for bit to row 1's first design
+    (``csrc/logmel.cu``, whose tile code it shares), and the
+    ``torch.stft`` chain beside."""
+    from texttoaudiogrounding_tpu_torch.ops import frontend
+    from texttoaudiogrounding_tpu_torch.ops.kernels import logmel, logmel_v4
+
+    fns = {"v1": lambda: logmel_v4._fused_log_mel_spectrogram_v4_v1(wave,
+                                                                   cfg),
+           "v2": lambda: logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg),
+           "row1": row1["row1"]}
+    t = _turns(fns, ("v1", "v2", "row1"))
+    traces = {f"{d}_trace": _trace(fns[d], t[d], by_launch=True)
+              for d in ("v2", "v1")}
+    kernels = {d: _kernel_launches(traces[f"{d}_trace"]) for d in ("v2", "v1")}
+    if kernels["v2"] != V4_KERNELS:
+        raise AssertionError(f"logmel_v4: {kernels['v2']} kernels a call, "
+                             f"expected {V4_KERNELS}")
+    first = fns["v1"]()
+    v1_vs_row1 = _err(first, row1["row1_v1"]())[0]
+    if v1_vs_row1 != 0.0:
+        raise AssertionError(f"logmel_v4's first design differs from row "
+                             f"1's first design: max_abs {v1_vs_row1}")
+    b, n = wave.shape
+    tiles = b * -(-frontend.num_frames(n, cfg.hop_length) // logmel._TILE_V2)
+    chain = _logmel_chain(cfg, wave.device)
+    return {"ms": t["v2"], "v1_ms": t["v1"], "row1_turns_mean_ms": t["row1"],
+            "turns_ms": t["runs"], "kernels_per_call": kernels,
+            "v1_max_abs_vs_row1_v1": v1_vs_row1,
+            "v2_vs_v1_max_abs": _err(fns["v2"](), first)[0],
+            "tiles": tiles,
+            "persistent_blocks": logmel_v4._grid(wave.device, tiles),
+            "chain_ms": _cuda_ms(lambda: chain(wave), 10),
+            "chain": "torch.stft (cuFFT) -> power -> @ fb -> dB, f32",
+            "v1_source": "texttoaudiogrounding_tpu_torch/csrc/logmel_v4.cu",
+            **traces}
+
+
 def _logmel_designs(wave) -> tuple:
     """Rows 9 and 10 once on the served waveform, beside row 1's two
     designs: v3 on its second design (``logmel_v3_v2.cu``) held by
     :func:`_v3_check`, its edge frames within V3_EDGE_DB of the plain
     frontend's (``_edge_frames``), timed in turns with its first design
-    (``logmel_v3.cu``) beside row 1; v4 bit for bit to row 1's first
-    design (``csrc/logmel.cu``, whose tile code v4 shares); each compared
-    with the f64 log-mel.  Returns (records, outputs)."""
+    (``logmel_v3.cu``) beside row 1; v4 on its second design
+    (``logmel_v4_v2.cu``) bit for bit to row 1's second design
+    (``csrc/logmel_v2.cu``), timed in turns with its first design by
+    :func:`_v4_designs`; each compared with the f64 log-mel.  Returns
+    (records, outputs)."""
     from texttoaudiogrounding_tpu_torch.ops import frontend
     from texttoaudiogrounding_tpu_torch.ops.kernels import (
         logmel, logmel_v3, logmel_v4)
@@ -2771,10 +2878,11 @@ def _logmel_designs(wave) -> tuple:
             kernel=lambda: logmel_v4.fused_log_mel_spectrogram_v4(wave, cfg),
             plain=lambda: logmel.log_mel_plain(wave, cfg), ref=ref,
             ops={"bf16": dft4, "f32": power4 + mel4},
-            in_bytes=wave.numel() * 4, source="logmel_v4.cu",
-            replaces="logmel.py:175", target=row1["row1_v1"],
-            tolerance="bit for bit equal to row 1's first design",
-            beside=row1),
+            in_bytes=wave.numel() * 4, source="logmel_v4_v2.cu",
+            replaces="logmel.py:175", target=row1["row1"],
+            tolerance="bit for bit equal to row 1's second design; its "
+                      "first design bit for bit equal to row 1's first",
+            beside=row1, designs=lambda: _v4_designs(wave, cfg, row1)),
     }, outs
 
 
@@ -2881,13 +2989,14 @@ def _counter_modules() -> tuple:
 
 def _counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name (the first
-    designs of rows 1, 9, 3 and 8 count in ``logmel.launches_v1``,
-    ``logmel_v3.launches_v1``, ``conv_block_pair.launches_v1`` and
-    ``conv_block_wino.launches_v1``)."""
+    designs of rows 1, 9, 10, 3 and 8 count in ``logmel.launches_v1``,
+    ``logmel_v3.launches_v1``, ``logmel_v4.launches_v1``,
+    ``conv_block_pair.launches_v1`` and ``conv_block_wino.launches_v1``)."""
     ints, dicts = _counter_modules()
     out = {name: mod.launches for name, mod in ints.items()}
     out["logmel_v1"] = ints["logmel"].launches_v1
     out["logmel_v3_v1"] = ints["logmel_v3"].launches_v1
+    out["logmel_v4_v1"] = ints["logmel_v4"].launches_v1
     out["conv_block_pair_v1"] = ints["conv_block_pair"].launches_v1
     out["conv_block_wino_v1"] = ints["conv_block_wino"].launches_v1
     for mod in dicts:
@@ -2901,6 +3010,7 @@ def _reset_counts() -> None:
         mod.launches = 0
     ints["logmel"].launches_v1 = 0
     ints["logmel_v3"].launches_v1 = 0
+    ints["logmel_v4"].launches_v1 = 0
     ints["conv_block_pair"].launches_v1 = 0
     ints["conv_block_wino"].launches_v1 = 0
     for mod in dicts:
@@ -3406,8 +3516,8 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
 
     cuda = torch.autograd.DeviceType.CUDA
     # a by-launch trace of a call that launches kernels is taken again
-    # when the profiler recorded none of them, which happened once in
-    # dozens of profiles on an H100
+    # when the profiler recorded none of them (only a memset, once), which
+    # happened once in dozens of profiles on an H100
     for attempt in range(1, 4 if by_launch else 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3423,7 +3533,8 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
         launched = sorted((e for e in events
                            if "spin_kernel" not in e.name),
                           key=lambda e: e.time_range.start)
-        if launched:
+        if any(not e.name.startswith(("Memset", "Memcpy"))
+               for e in launched):
             break
     kernels = {}
     for e in launched:
@@ -3507,6 +3618,11 @@ def _ptxas(source: str) -> list:
                                  * (256 + 3 * n) * 64 + 1024)
         elif bn:
             k["dynamic_smem"] = 4 * (128 + int(bn.group(1))) * 64 + 1024
+        if "logmel_v4_v2_kernel" in name:
+            # the ring (4 x (128 + 256) rows of 64 bytes), pw (128 bins x
+            # 136 frames), band and 1024 weights, 10 barriers, the align
+            k["dynamic_smem"] = (4 * 384 * 64 + 128 * 136 * 4 + 64 * 3 * 4
+                                 + 1024 * 4 + 10 * 8 + 1024)
         if "wino_fold_kernel<" in name:
             # the ring (7 x (128 + 64) rows of 64 bytes), the four y and
             # the scales
@@ -3564,7 +3680,8 @@ def main() -> int:
                                           "conv_block_tri_v2",
                                           "conv_block_mel3_v2",
                                           "pair_conv_pool_v2",
-                                          "block1_small_v2", "logmel_v3_v2")}
+                                          "block1_small_v2", "logmel_v3_v2",
+                                          "logmel_v4_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
     rng = np.random.default_rng(0)

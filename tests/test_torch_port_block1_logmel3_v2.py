@@ -106,19 +106,19 @@ def b1_case():
 
 def conv1_rows(x, b: int, t0: int, rows: int, w1k, a1, b1) -> torch.Tensor:
     """``conv1_kernel``'s rows at times ``t0 .. t0 + rows`` of clip b,
-    ``[rows, 64, 64]`` f32: the staged log-mel tile (times t0 - 1 .., mels
-    -1 .. 64, zero outside the clip), the nine products in tap order dt *
+    ``[rows, M, 64]`` f32: the staged log-mel tile (times t0 - 1 .., mels
+    -1 .. M, zero outside the clip), the nine products in tap order dt *
     3 + dm, each sum and the affine rounded in f32, the ReLU, zero
     outside the clip."""
-    t = x.shape[1]
-    tile = torch.zeros(rows + 2, MELS + 2)
+    t, m = x.shape[1:]
+    tile = torch.zeros(rows + 2, m + 2)
     lo, hi = max(t0 - 1, 0), min(t0 + rows + 1, t)
     if lo < hi:
         tile[lo - (t0 - 1):hi - (t0 - 1), 1:-1] = x[b, lo:hi].float()
     w = w1k.float()
     acc = None
     for k in range(9):
-        term = tile[k // 3:k // 3 + rows, k % 3:k % 3 + MELS, None] * w[k]
+        term = tile[k // 3:k // 3 + rows, k % 3:k % 3 + m, None] * w[k]
         acc = term if acc is None else acc + term
     y = torch.relu(acc * a1 + b1)
     time = t0 + torch.arange(rows)
@@ -135,12 +135,13 @@ def row_blocks(r: int) -> list:
 
 def emulate_block1_small(x, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
                          info: dict | None = None):
-    """The second design of row 7 on ``x [B, T, 64]`` bf16."""
-    b, t, _ = x.shape
+    """The second design of row 7 on ``x [B, T, M]`` bf16, M 8, 16, 32 or
+    64."""
+    b, t, m = x.shape
     w1k, a1, b1, w2k, a2, b2 = tb1s.prepare(w1, ab1, w2, ab2, quantize)
     nch = -(-t // tc)
     r = tc + 2
-    y1 = torch.zeros(b * nch, r, MELS + 2, 64,
+    y1 = torch.zeros(b * nch, r, m + 2, 64,
                      dtype=torch.int8 if quantize else torch.bfloat16)
     ymax = torch.zeros(b * nch)
     for g in range(b * nch):
@@ -157,11 +158,11 @@ def emulate_block1_small(x, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
             for r0, y in rows_of.items():
                 y1[g, r0:r0 + y.shape[0], 1:-1] = y.to(torch.bfloat16)
     tiles = []
-    acc2 = igemm(y1, w2k, tc, tiles, tile_perm(MELS, True))
+    acc2 = igemm(y1, w2k, tc, tiles, tile_perm(m, True))
     if info is not None:
         info.update(y1=y1, tiles=tiles, ymax=ymax)
     gscale = tcb.over127(torch.clamp(ymax, min=1e-6)) if quantize else None
-    return conv2_pool(acc2, a2, b2, gscale, b, nch, tc, t, MELS, (2, 2),
+    return conv2_pool(acc2, a2, b2, gscale, b, nch, tc, t, m, (2, 2),
                       tiles)
 
 

@@ -330,9 +330,14 @@ def test_strong_config_names_resolve():
         assert callable(resolve(name)), name
 
 
-def test_strong_runner_trains_and_its_checkpoint_loads_in_jax(
-        grounding_data):
-    root, wav_csv, label_json, vocab_path, n_vocab = grounding_data
+def test_strong_runner_trains_and_its_checkpoint_loads_in_jax(tmp_path):
+    # four clips: one step an epoch, so that five epochs stay short
+    root = tmp_path
+    wav_csv, label_json, _ = make_grounding_data(
+        root / "data", num_audio=4, duration=1.0, seed=3,
+        event_len=(0.15, 0.3))
+    vocab_path = root / "data" / "vocab.pkl"
+    n_vocab = len(make_vocab(label_json, vocab_path))
 
     def loader(batch_size):
         return {
@@ -394,8 +399,9 @@ def test_strong_runner_trains_and_its_checkpoint_loads_in_jax(
     jbatch = {k: (v.astype(np.float32) if v.dtype == np.float16 else v)
               for k, v in batch.items()
               if isinstance(v, np.ndarray) and v.dtype != object}
-    ref = np.asarray(jmodel.apply(variables, jbatch,
-                                  train=False)["frame_sim"])
+    # one jitted call: the eager forward compiles every op on its own
+    ref = np.asarray(jax.jit(lambda v, b: jmodel.apply(
+        v, b, train=False)["frame_sim"])(variables, jbatch))
     model = _port_model(n_vocab)
     model.load_state_dict(sd)
     with torch.no_grad():

@@ -400,8 +400,9 @@ def test_registry_makes_the_bf16_model_from_the_config():
 
 
 def test_strong_runner_trains_the_bf16_config(tmp_path):
+    # four clips: one step an epoch, so that four epochs stay short
     wav_csv, label_json, _ = make_grounding_data(
-        tmp_path / "data", num_audio=8, duration=1.0, seed=3,
+        tmp_path / "data", num_audio=4, duration=1.0, seed=3,
         event_len=(0.15, 0.3))
     vocab = make_vocab(label_json, tmp_path / "data" / "vocab.pkl")
 

@@ -34,11 +34,15 @@
 //     GEMM reads, zero pad columns.  The first design's f32 y1 (550 MB at
 //     32 clips x 1001 frames, tc 48), its round trip and its requantize
 //     pass are gone.  bf16 runs one pass (OUT_BF16) into the same layout.
-//   * conv2 is igemm_kernel MODE 2 at BN = Cout = 64, M = 64 (two blocks
-//     an SM): the f32 pool from the accumulator registers, time pairs in
-//     one thread (M is a multiple of 8), the chunk's scale folded into
-//     alpha2 x sy[g], as rows 3-5 run it.  Not MODE 3: that is row 2's
-//     bf16-order pool, and row 7 pools in f32.
+//   * conv2 is igemm_kernel MODE 2 at BN = Cout = 64 (two blocks an SM):
+//     the f32 pool from the accumulator registers, time pairs in one
+//     thread, the chunk's scale folded into alpha2 x sy[g], as rows 3-5
+//     run it.  Not MODE 3: that is row 2's bf16-order pool, and row 7
+//     pools in f32.
+//   * M, the mel count, is a runtime argument: M = 8, 16, 32 or 64, the
+//     shapes whose time-pair windows lie inside a 128-row GEMM tile
+//     (ops/kernels/conv_block.py v2_takes); the wrapper sends the other
+//     even M to the first design, and this entry point refuses them.
 //
 // Bound on the H100: operations, 4.7 GOP of int8 for conv2 and 0.07
 // GFLOP for conv1 a 10 s clip (2.4 us at 1979 TOP/s), against 0.13 MB of
@@ -55,17 +59,17 @@ namespace {
 using ttg::bf16;
 namespace v2 = ttg::v2;
 
-constexpr int M = 64, C = 64, MP = M + 2, TT = 16;
+constexpr int C = 64, TT = 16;
 constexpr int MB = 32, NT1 = MB * 8;   // mels and threads of a conv1 block
 enum { OUT_BF16 = 0, OUT_MAX = 1, OUT_Q8 = 2 };
 
 // Row r of group g = b * nch + j is time j * tc + r - 1 of clip b; the
 // block takes rows [blockIdx.x rpb, + rpb) (rpb <= TT) of group blockIdx.y
 // at mels [MB blockIdx.z, + MB), thread (mel MB blockIdx.z + tid / 8,
-// channels 8 (tid % 8) + [0, 8)): half the mels a block, so that two
-// blocks fit an SM and one's staging overlaps the other's products.
-// x [B, T, 64] bf16, w1 [9, 64] bf16 (tap k = dt * 3 + dm), a1, b1 [64]
-// f32.
+// channels 8 (tid % 8) + [0, 8)): at M = 64 half the mels a block, so that
+// two blocks fit an SM and one's staging overlaps the other's products;
+// threads past the last mel only stage.  x [B, T, M] bf16, w1 [9, 64] bf16
+// (tap k = dt * 3 + dm), a1, b1 [64] f32; dst rows M + 2 mels wide.
 //   OUT_BF16: bf16 y1 into dst [G, R, MP, C], zero outside [0, T);
 //   OUT_MAX:  the group's max of y1 over its rows into ymax[g];
 //   OUT_Q8:   int8 y1 with the scale of ymax[g] into dst, zero outside.
@@ -74,13 +78,13 @@ __global__ void __launch_bounds__(NT1, 2)
     conv1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                  const float* __restrict__ a1, const float* __restrict__ b1,
                  unsigned* __restrict__ ymax, void* __restrict__ dst, int T,
-                 int nch, int tc, int R, int rpb) {
+                 int M, int nch, int tc, int R, int rpb) {
   // x at times t0 - 1 .. t0 + rpb, mels m0 - 1 .. m0 + MB
   __shared__ float xs[TT + 2][MB + 2];
   const int g = blockIdx.y, b = g / nch, r0 = blockIdx.x * rpb;
   const int t0 = (g % nch) * tc + r0 - 1, tid = threadIdx.x;
   const int m0 = blockIdx.z * MB;
-  const int nrows = min(rpb, R - r0);
+  const int nrows = min(rpb, R - r0), MP = M + 2;
   for (int i = tid; i < (nrows + 2) * (MB + 2); i += NT1) {
     const int tt = i / (MB + 2), mm = i - tt * (MB + 2);
     const int t = t0 - 1 + tt, m = m0 + mm - 1;
@@ -112,7 +116,7 @@ __global__ void __launch_bounds__(NT1, 2)
   if (OUT == OUT_Q8) qinv = 1.0f / v2::scale_of(ymax[g]);
 
   float vmax = 0.0f;
-  for (int tt = 0; tt < nrows; ++tt) {
+  for (int tt = 0; tt < (m < M ? nrows : 0); ++tt) {
     const int t = t0 + tt;
     const bool in_clip = t >= 0 && t < T;
     float xv[9];
@@ -166,24 +170,27 @@ __global__ void __launch_bounds__(NT1, 2)
 template <int OUT>
 cudaError_t launch_conv1(const bf16* x, const bf16* w1, const float* a1,
                          const float* b1, unsigned* ymax, void* dst, int G,
-                         int T, int nch, int tc, int R, cudaStream_t st) {
+                         int T, int M, int nch, int tc, int R,
+                         cudaStream_t st) {
   // rows a block: R split as evenly as blocks of at most TT rows allow
   const int nb = (R + TT - 1) / TT, rpb = (R + nb - 1) / nb;
-  dim3 grid((unsigned)((R + rpb - 1) / rpb), (unsigned)G, M / MB);
-  conv1_kernel<OUT><<<grid, NT1, 0, st>>>(x, w1, a1, b1, ymax, dst, T, nch,
-                                          tc, R, rpb);
+  dim3 grid((unsigned)((R + rpb - 1) / rpb), (unsigned)G,
+            (unsigned)((M + MB - 1) / MB));
+  conv1_kernel<OUT><<<grid, NT1, 0, st>>>(x, w1, a1, b1, ymax, dst, T, M,
+                                          nch, tc, R, rpb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B, T, 64] bf16 (the bn0 output); tc even; w1 [9, 64] bf16; a1, b1
-// [64] f32; w2 [64, 576] int8 (a2 = BN scale x weight scale) or bf16 (k =
-// (dt * 3 + dm) * 64 + ci); ymax [G] unsigned scratch (quant only; G = B
-// ceil(T / tc)); y1 [G, tc + 2, 66, 64] scratch, int8 (quant) or bf16;
-// out [B, T / 2, 32, 64] bf16.
+// x [B, T, M] bf16 (the bn0 output), M 8, 16, 32 or 64; tc even; w1 [9,
+// 64] bf16; a1, b1 [64] f32; w2 [64, 576] int8 (a2 = BN scale x weight
+// scale) or bf16 (k = (dt * 3 + dm) * 64 + ci); ymax [G] unsigned scratch
+// (quant only; G = B ceil(T / tc)); y1 [G, tc + 2, M + 2, 64] scratch,
+// int8 (quant) or bf16; out [B, T / 2, M / 2, 64] bf16.
 extern "C" int ttg_block1_small_v2(int quant, const void* x, int B, int T,
-                                   int tc, const void* w1, const float* a1,
+                                   int M, int tc, const void* w1,
+                                   const float* a1,
                                    const float* b1, const void* w2,
                                    const float* a2, const float* b2,
                                    void* ymax, void* y1, void* out,
@@ -193,18 +200,19 @@ extern "C" int ttg_block1_small_v2(int quant, const void* x, int B, int T,
   const bf16* w = static_cast<const bf16*>(w1);
   unsigned* ym = static_cast<unsigned*>(ymax);
   const int nch = (T + tc - 1) / tc, G = B * nch, R = tc + 2;
+  if (M < 8 || M % 8 || 128 % (2 * M)) return (int)cudaErrorInvalidValue;
   cudaError_t e;
 #define TTG_CHECK(...) \
   if ((e = (__VA_ARGS__)) != cudaSuccess) return (int)e;
   if (quant) {
     TTG_CHECK(cudaMemsetAsync(ym, 0, sizeof(unsigned) * G, st));
-    TTG_CHECK(launch_conv1<OUT_MAX>(xb, w, a1, b1, ym, nullptr, G, T, nch,
-                                    tc, R, st));
-    TTG_CHECK(launch_conv1<OUT_Q8>(xb, w, a1, b1, ym, y1, G, T, nch, tc, R,
-                                   st));
+    TTG_CHECK(launch_conv1<OUT_MAX>(xb, w, a1, b1, ym, nullptr, G, T, M,
+                                    nch, tc, R, st));
+    TTG_CHECK(launch_conv1<OUT_Q8>(xb, w, a1, b1, ym, y1, G, T, M, nch, tc,
+                                   R, st));
   } else {
-    TTG_CHECK(launch_conv1<OUT_BF16>(xb, w, a1, b1, nullptr, y1, G, T, nch,
-                                     tc, R, st));
+    TTG_CHECK(launch_conv1<OUT_BF16>(xb, w, a1, b1, nullptr, y1, G, T, M,
+                                     nch, tc, R, st));
   }
   v2::IgemmArgs c2{};
   c2.src = y1;

@@ -41,11 +41,13 @@
 // and, four times, its frames from L2 (~24 KB a stage against ~2.1 MFLOP);
 // a 2-block cluster with the basis multicast would halve the former.
 #include "conv_igemm_sm90.cuh"
+#include "logmel_v2.cuh"
 
 namespace {
 
 using ttg::bf16;
 namespace v2 = ttg::v2;
+using ttg_mel_v2::wave_pad_kernel;
 
 constexpr int HOP = 320, NFFT = 1024, NBIN = 512, NM = 64;
 constexpr int BMF = 128;                    // frames of a tile
@@ -60,34 +62,6 @@ constexpr int LDM = BMF + 1;                // mel sums [mel][frame]
 constexpr int RING = v2::STAGES * (A_STAGE + B_STAGE);
 constexpr int SMEM = RING + PBIN * LDP * 4 + NM * LDM * 4 + 1024;
 constexpr float DB = 4.342944819032518f;    // 10 / ln 10
-
-// xpad[b, i] = bf16(x[b, reflect(i - pad)]) for i < N + 2 pad, else 0;
-// thread v writes the 8 samples [8 v, 8 v + 8) of the flat [B, npad].
-__global__ void wave_pad_kernel(const float* __restrict__ x,
-                                bf16* __restrict__ xpad, int N, int pad,
-                                long long npad, long long nvec) {
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= nvec) return;
-  const long long b = (8 * v) / npad;
-  const long long i0 = 8 * v - b * npad;
-  const float* clip = x + b * N;
-  float f[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    long long j = i0 + e - pad;
-    float val = 0.0f;
-    if (j < (long long)N + pad) {
-      j = j < 0 ? -j : (j >= N ? 2LL * (N - 1) - j : j);
-      val = clip[j];
-    }
-    f[e] = val;
-  }
-  uint4 o;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-  reinterpret_cast<uint4*>(xpad)[v] = o;
-}
 
 // One tile: frames [f0, f0 + 128) of clip blockIdx.y, f0 = 128 blockIdx.x.
 //   xpad [B, npad] bf16; basis [1024 (2 NBIN) rows, NFFT] bf16, row 2f + e

@@ -18,17 +18,22 @@ banded K = 384 int8 dots; the port keeps the arithmetic, not the layout:
   folded into the BN affine; int32 sums;
 * f32 avg+max pool, the output bf16 (int8) or ``compute_dtype``;
 * ``tc`` defaults to 48 when padding T to a multiple of 48 adds at most
-  96 frames (``:488-489``), else 2; T is padded to the chunk grid.
+  96 frames (``:488-489``), else 2; T is padded to the chunk grid;
+* any even mel count M (``:484-486``, ``mp = m // 2``; the docstring's
+  "M = 64" is Cnn8Rnn's), the output ``[B, T // 2, M // 2, 64]``.
 
 :func:`fused_block1` launches the second design for a CUDA tensor and runs
 :func:`block1_small_plain` for a CPU tensor.  The second design computes
 conv1 from the log-mel itself, without the im2col (in int8 twice: a max
 pass, then the rows quantized into conv2's mel-padded input), and conv2
-on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``.  The first
-design (``csrc/block1_small.cu``: conv1 from the im2col built in PyTorch,
-f32 y1, a requantize pass and WMMA tiles) gives the same int8 result bit
-for bit and is reachable only through :func:`_fused_block1_v1`, which
-``chip_smoke.py`` times beside it.
+on the wgmma implicit GEMM of ``csrc/conv_igemm_sm90.cuh``, which pools
+time pairs inside a thread and so takes M 8, 16, 32 or 64
+(``conv_block.v2_takes``).  The first design (``csrc/block1_small.cu``:
+conv1 from the im2col built in PyTorch, f32 y1, a requantize pass and WMMA
+tiles) gives the same int8 result bit for bit at any even M.
+:func:`fused_block1` runs it, counted as ``block1_small_v1``, at the other
+even M, as rows 3-6 route those shapes; :func:`_fused_block1_v1` reaches
+it at every M, and ``chip_smoke.py`` times it beside the second.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from texttoaudiogrounding_tpu_torch.ops.kernels.conv_block import (
     check_device,
     conv2_pool_plain,
     conv_weights,
+    v2_takes,
 )
 
 __all__ = ["fused_block1", "block1_small_plain", "conv1_im2col",
@@ -50,8 +56,6 @@ __all__ = ["fused_block1", "block1_small_plain", "conv1_im2col",
 # kernel launches through fused_block1 (second design) and
 # _fused_block1_v1 (the first)
 launches = {"block1_small": 0, "block1_small_v1": 0}
-
-_M = 64
 
 
 def default_tc(t: int) -> int:
@@ -74,11 +78,12 @@ def conv1_im2col(x_mel: torch.Tensor, t_grid: int) -> torch.Tensor:
 
 
 def _conv1(xim: torch.Tensor, w1: torch.Tensor, t_grid: int) -> torch.Tensor:
-    """conv1 sums ``[B, t_grid, 64, C]`` f32 from the im2col: output mel
+    """conv1 sums ``[B, t_grid, M, C]`` f32 from the im2col: output mel
     2j + p takes column dt * 4 + dm + p with weight w1[dt, dm], the
     products added in tap order dt * 3 + dm."""
     b = xim.shape[0]
-    x = xim.reshape(b, t_grid, _M // 2, 16).float()
+    mp = xim.shape[1] // t_grid
+    x = xim.reshape(b, t_grid, mp, 16).float()
     w = w1[:, :, 0, :].reshape(9, -1).float()
     parts = []
     for p in range(2):
@@ -87,7 +92,7 @@ def _conv1(xim: torch.Tensor, w1: torch.Tensor, t_grid: int) -> torch.Tensor:
             term = x[..., (k // 3) * 4 + k % 3 + p, None] * w[k]
             acc = term if acc is None else acc + term
         parts.append(acc)
-    return torch.stack(parts, dim=3).reshape(b, t_grid, _M, -1)
+    return torch.stack(parts, dim=3).reshape(b, t_grid, 2 * mp, -1)
 
 
 def block1_small_plain(x_mel, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
@@ -108,7 +113,8 @@ def block1_small_plain(x_mel, w1, ab1, w2, ab2, *, quantize: bool, tc: int,
 
 
 _P, _I = _build.P, _build.I
-_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_ARGS = [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _P]
 
 
 def prepare(w1, ab1, w2, ab2, quantize: bool) -> tuple:
@@ -121,8 +127,10 @@ def prepare(w1, ab1, w2, ab2, quantize: bool) -> tuple:
 
 def _check_args(x_mel, w1, w2, tc: int | None) -> int:
     """The block's shapes; returns the chunk."""
-    if x_mel.dim() != 3 or x_mel.shape[2] != _M:
-        raise ValueError("x_mel must be [B, T, 64]")
+    if x_mel.dim() != 3 or x_mel.shape[2] < 2 or x_mel.shape[2] % 2:
+        raise ValueError(f"x_mel must be [B, T, M] with M even (the mel "
+                         f"pairs of conv_block_small.py:486), got "
+                         f"{tuple(x_mel.shape)}")
     if tuple(w1.shape) != (3, 3, 1, 64) or tuple(w2.shape) != (3, 3, 64, 64):
         raise ValueError("block 1 takes w1 [3, 3, 1, 64], w2 [3, 3, 64, 64]")
     tc = tc or default_tc(x_mel.shape[1])
@@ -131,7 +139,8 @@ def _check_args(x_mel, w1, w2, tc: int | None) -> int:
     return tc
 
 
-_V2_ARGS = [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_V2_ARGS = [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P]
 
 
 def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
@@ -140,13 +149,15 @@ def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                  prepared: tuple | None = None) -> torch.Tensor:
     """Fused PANNs block 1 (1 → 64 → 64, pool (2, 2)) from the log-mel.
 
-    x_mel ``[B, T, 64]`` (the bn0 output); w1 ``[3, 3, 1, 64]``, w2
-    ``[3, 3, 64, 64]`` HWIO f32; ab from ``fold_bn``; ``prepared`` is
-    :func:`prepare` of the same weights.  Returns ``[B, T // 2, 32,
-    64]``, bf16 for int8, else ``compute_dtype``.  Serving only (running
-    BN statistics).
+    x_mel ``[B, T, M]``, M even (the bn0 output); w1 ``[3, 3, 1, 64]``,
+    w2 ``[3, 3, 64, 64]`` HWIO f32; ab from ``fold_bn``; ``prepared`` is
+    :func:`prepare` of the same weights.  Returns ``[B, T // 2, M // 2,
+    64]``, bf16 for int8, else ``compute_dtype``.  On a CUDA tensor M 8,
+    16, 32 and 64 run the second design and the other even M the first
+    (counted as ``block1_small_v1``).  Serving only (running BN
+    statistics).
     """
-    b, t, _ = x_mel.shape
+    b, t, m = x_mel.shape
     tc = _check_args(x_mel, w1, w2, tc)
     check_device(x_mel, w1, w2, *ab1, *ab2)
     if not x_mel.is_cuda:
@@ -155,18 +166,20 @@ def fused_block1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                                   compute_dtype=compute_dtype)
     if compute_dtype != torch.bfloat16:
         raise ValueError("the kernel computes in bf16 (or int8)")
+    if not v2_takes(m, (2, 2)):
+        return _launch_v1(x_mel, w1, ab1, w2, ab2, quantize, tc, prepared)
     x = x_mel.to(torch.bfloat16).contiguous()
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
     check_device(x_mel, *wk)
     g = b * -(-t // tc)
-    y1 = torch.empty(g, tc + 2, _M + 2, 64, device=x.device,
+    y1 = torch.empty(g, tc + 2, m + 2, 64, device=x.device,
                      dtype=torch.int8 if quantize else torch.bfloat16)
     ymax = torch.empty(g if quantize else 1, dtype=torch.int32,
                        device=x.device)
-    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+    out = torch.empty(b, t // 2, m // 2, 64, dtype=torch.bfloat16,
                       device=x.device)
     fn = _build.function("block1_small_v2", "ttg_block1_small_v2", _V2_ARGS)
-    err = fn(int(quantize), x.data_ptr(), b, t, tc,
+    err = fn(int(quantize), x.data_ptr(), b, t, m, tc,
              *(v.data_ptr() for v in wk), ymax.data_ptr(), y1.data_ptr(),
              out.data_ptr(), _build.stream())
     launches["block1_small"] += 1
@@ -180,25 +193,33 @@ def _fused_block1_v1(x_mel: torch.Tensor, w1: torch.Tensor, ab1: tuple,
                      prepared: tuple | None = None) -> torch.Tensor:
     """The first design (``csrc/block1_small.cu``, from the im2col) on a
     CUDA tensor, arguments as :func:`fused_block1`; nothing served calls
-    it.  ``chip_smoke.py`` holds the second design to it."""
-    b, t, _ = x_mel.shape
+    it at M 8, 16, 32 or 64.  ``chip_smoke.py`` holds the second design to
+    it."""
     tc = _check_args(x_mel, w1, w2, tc)
     if not x_mel.is_cuda:
         raise ValueError("the first design runs on a CUDA tensor only")
     check_device(x_mel, w1, w2, *ab1, *ab2)
+    return _launch_v1(x_mel, w1, ab1, w2, ab2, quantize, tc, prepared)
+
+
+def _launch_v1(x_mel, w1, ab1, w2, ab2, quantize: bool, tc: int,
+               prepared: tuple | None) -> torch.Tensor:
+    """The first design on checked arguments, counted in
+    ``launches["block1_small_v1"]``."""
+    b, t, m = x_mel.shape
     nch = -(-t // tc)
     xim = conv1_im2col(x_mel.to(torch.bfloat16), nch * tc).contiguous()
     wk = prepared or prepare(w1, ab1, w2, ab2, quantize)
     check_device(x_mel, *wk)
     dev = x_mel.device
-    y1 = torch.empty(b * nch, tc + 2, _M, 64, device=dev,
+    y1 = torch.empty(b * nch, tc + 2, m, 64, device=dev,
                      dtype=torch.float32 if quantize else torch.bfloat16)
     y1q = torch.empty_like(y1, dtype=torch.int8) if quantize else y1
     sy = torch.empty(b * nch, device=dev)
-    out = torch.empty(b, t // 2, _M // 2, 64, dtype=torch.bfloat16,
+    out = torch.empty(b, t // 2, m // 2, 64, dtype=torch.bfloat16,
                       device=dev)
     fn = _build.function("block1_small", "ttg_block1_small", _ARGS)
-    err = fn(int(quantize), xim.data_ptr(), b, t, tc,
+    err = fn(int(quantize), xim.data_ptr(), b, t, m, tc,
              *(v.data_ptr() for v in wk), y1.data_ptr(), y1q.data_ptr(),
              sy.data_ptr(), out.data_ptr(), _build.stream())
     launches["block1_small_v1"] += 1

@@ -16,9 +16,10 @@ frames × all bins a block (the basis laid out by
 projection (:func:`mel_bands`).  The first design (``csrc/logmel.cu``,
 16-frame WMMA tiles, :func:`kernel_input`'s PyTorch padding) is reachable
 only through :func:`_fused_log_mel_spectrogram_v1`: ``chip_smoke.py``
-times it beside the second, and rows 9 and 10 (``logmel_v3``,
-``logmel_v4``), which share its tile code (``csrc/logmel.cuh``), are held
-to it.
+times it beside the second, and the first designs of rows 9 and 10
+(``logmel_v3``, ``logmel_v4``), which share its tile code
+(``csrc/logmel.cuh``), are held to it.  Row 10's second design
+(``csrc/logmel_v4_v2.cu``) is held to this module's second design.
 """
 
 from __future__ import annotations
@@ -225,8 +226,9 @@ def fused_log_mel_spectrogram(waveform: torch.Tensor,
 def _fused_log_mel_spectrogram_v1(waveform: torch.Tensor,
                                   cfg: LogMelConfig) -> torch.Tensor:
     """The first design (``csrc/logmel.cu``) on a CUDA tensor, counted in
-    ``launches_v1``; nothing served calls it.  Rows 9 and 10 are held to
-    it, and ``chip_smoke.py`` times the second design beside it."""
+    ``launches_v1``; nothing served calls it.  The first designs of rows 9
+    and 10 are held to it, and ``chip_smoke.py`` times the second design
+    beside it."""
     global launches_v1
     _check(waveform, cfg)
     if not waveform.is_cuda:
