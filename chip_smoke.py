@@ -6,7 +6,8 @@
 Phases, each printing one line:
 
 1. build: compile every kernel of ``texttoaudiogrounding_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and print the card's name and
+   (one ``nvcc`` per source, in parallel) and the native evaluation
+   decoder (``native/decode.cpp``, g++), and print the card's name and
    power limit as ``nvidia-smi`` reports them; then the registers, shared
    memory and spills of each kernel of the second designs
    (``conv_block_v2.cu``, ``conv_block1_v2.cu``, ``logmel_v2.cu``,
@@ -175,7 +176,29 @@ Phases, each printing one line:
    exist, the loss must fall over 8 steps on one batch and both routes'
    gradients lie within stated relative RMS limits of the all-plain
    path's; then the step is timed with each GRU backward, (a) v1, (b) v2,
-   (c) v3, in turns a b c c b a, and profiled once each.
+   (c) v3, in turns a b c c b a, and profiled once each;
+8. evaluate: from the checkpoints of phases 5 and 7, on an evaluation set
+   made in memory (32 clips x 10 s, two phrases a clip, each a tone over
+   one labelled segment; ``AudioPhraseEvalDataset`` over waveforms by
+   audio id, a duration TSV), with ``configs/strong/biencoder_eval.yaml``'s
+   keys (50 thresholds, ``max_efprs`` 400 ... 1000 and None):
+   ``StrongRunner.evaluate`` of the f32 checkpoint (``gru_fwd`` once a
+   batch, and no other kernel), again with ``gru_kernel=False`` (the score
+   tracks within 1e-4 of the kernel's) and with the serving
+   ``model_overrides`` (``dtype: bfloat16, conv_mode: int8``: rows 1-4
+   once a batch each, as a served request's forward, the tracks within
+   0.05 of the f32 ones), and ``WeakPhraseRunner.evaluate`` of the WSTAG
+   checkpoint with ``configs/weak_phrase/eval.yaml``'s keys (``gru_fwd``
+   once a batch); every metric finite in [0, 1], ``result.txt`` and the
+   predictions TSVs written; the native decoder against NumPy on every
+   evaluated track (the same segments); ``GroundingPredictor.
+   from_experiment`` on the strong run serving the first phrase of every
+   clip in one request (within 1e-4 of the evaluated tracks); the strong
+   run resumed from ``last.pth`` for one more epoch (it starts at the
+   saved epoch + 1 and Adam's step count runs on); the forward's ms a
+   batch (CUDA events) in f32, in the serving mode and in the serving mode
+   with the bf16 GRU kernel (each within 0.05 of the f32 forward), and
+   the host seconds of decoding, PSDS and th-AUC.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -190,6 +213,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2919,6 +2943,21 @@ def _strong_config(exp_dir: str, **audio_args) -> dict:
     }
 
 
+def _train_data(work: Path, weak: bool = False) -> dict:
+    """The ``data.train`` entry of a training config whose loaders are made
+    in memory (``_loaders``, ``_weak_loaders``): the dataset's type and time
+    resolution and the collate's tokenizer (``work/vocab.pkl``), which
+    evaluation and ``GroundingPredictor.from_experiment`` read."""
+    dataset = ({"type": "AudioSamplePhrasesDataset", "args": {}} if weak else
+               {"type": "AudioPhraseDataset",
+                "args": {"time_resolution": 0.04}})
+    return {"train": {"dataset": dataset, "collate_fn": {
+        "type": "TextCollate",
+        "args": {"text_key": "phrases" if weak else "phrase",
+                 "tokenizer": {"type": "DictTokenizer", "args": {
+                     "vocabulary": str(work / "vocab.pkl")}}}}}}
+
+
 def _clip_items(count: int, seed: int):
     """A dataset of ``AudioPhraseDataset`` items made in memory: 10 s of
     noise with a tone over one labelled segment, the phrase naming the
@@ -3038,9 +3077,9 @@ def _loaders(tok, seed: int) -> tuple:
             build_loader(val_items, collate, seed, batch_size=TRAIN_CLIPS))
 
 
-def training_phase(tok) -> dict:
-    import tempfile
-
+def training_phase(tok, work: Path) -> tuple:
+    """The strong f32 fit and its checks; returns (report, the fit's
+    experiment directory under ``work``, kept for the evaluate phase)."""
     import numpy as np
     import torch
 
@@ -3053,37 +3092,37 @@ def training_phase(tok) -> dict:
 
     report: dict = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
                     "tf32": False}
-    with tempfile.TemporaryDirectory(prefix="ttg_train_") as tmp:
-        runner = StrongRunner(device=DEVICE)
-        config = runner.setup(_strong_config(tmp))
-        exp_dir = runner.prepare_experiment()
-        train_loader, val_loader = _loaders(tok, config["seed"])
-        model = runner.build_model()
-        sd = random_state_dict(model, seed=1)
-        model.load_state_dict(sd)
-        loss_fn = runner.build_loss()
+    runner = StrongRunner(device=DEVICE)
+    config = runner.setup({**_strong_config(str(work / "strong")),
+                           "data": _train_data(work)})
+    exp_dir = runner.prepare_experiment()
+    train_loader, val_loader = _loaders(tok, config["seed"])
+    model = runner.build_model()
+    sd = random_state_dict(model, seed=1)
+    model.load_state_dict(sd)
+    loss_fn = runner.build_loss()
 
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        record = runner.fit(model, loss_fn, train_loader, val_loader,
-                            strong_output_transform, exp_dir)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = _counts()
-        steps = TRAIN_EPOCHS * TRAIN_STEPS
-        want = _want(gru_fwd=steps + TRAIN_EPOCHS * VAL_STEPS, gru_bwd=steps)
-        if launches != want:
-            raise AssertionError(f"fit: kernel launches {launches}, "
-                                 f"expected {want}")
-        if not all(np.isfinite(record["step_loss"] + record["val_loss"])):
-            raise AssertionError(f"fit: loss not finite {record}")
-        for name in ("best.pth", "last.pth", "train.log"):
-            if not (exp_dir / name).is_file():
-                raise AssertionError(f"fit: {name} not written")
-        report.update(fit_s=fit_s, fit_launches=launches,
-                      fit_step_loss=record["step_loss"],
-                      fit_val_loss=record["val_loss"])
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    record = runner.fit(model, loss_fn, train_loader, val_loader,
+                        strong_output_transform, exp_dir)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts()
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    want = _want(gru_fwd=steps + TRAIN_EPOCHS * VAL_STEPS, gru_bwd=steps)
+    if launches != want:
+        raise AssertionError(f"fit: kernel launches {launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(record["step_loss"] + record["val_loss"])):
+        raise AssertionError(f"fit: loss not finite {record}")
+    for name in ("best.pth", "last.pth", "train.log"):
+        if not (exp_dir / name).is_file():
+            raise AssertionError(f"fit: {name} not written")
+    report.update(fit_s=fit_s, fit_launches=launches,
+                  fit_step_loss=record["step_loss"],
+                  fit_val_loss=record["val_loss"])
 
     # gradients: kernel path against the all-plain path, dropout off
     batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
@@ -3130,7 +3169,7 @@ def training_phase(tok) -> dict:
         fixed_batch_loss=losses, step_ms=step_ms,
         steps_per_s=1e3 / step_ms, clips_per_s=TRAIN_CLIPS * 1e3 / step_ms,
         step_ms_tf32=step_ms_tf32, trace=_trace(step, step_ms))
-    return report
+    return report, exp_dir
 
 
 BF16_ARGS = {"dtype": "bfloat16", "gru_bwd": "bf16", "bn_pool": [64, 128],
@@ -3363,14 +3402,13 @@ def _weak_loaders(tmp: str, tok, seed: int) -> tuple:
             build_loader(val, collate, seed, batch_size=TRAIN_CLIPS))
 
 
-def training_weak_phase(tok) -> dict:
+def training_weak_phase(tok, work: Path) -> tuple:
     """``WeakPhraseRunner.fit`` on the WSTAG similarity config at full
     width, once with each hoisted backward (``gru_bwd`` v2, then v3),
     the counts set to 0 before each fit; gradients of both against the
     all-plain path, the loss on one batch, checkpoints; then the three
-    GRU backwards timed in turns a b c c b a and profiled once each."""
-    import tempfile
-
+    GRU backwards timed in turns a b c c b a and profiled once each.
+    Returns (report, the v2 fit's experiment directory under ``work``)."""
     import numpy as np
     import torch
 
@@ -3386,43 +3424,44 @@ def training_weak_phase(tok) -> dict:
     steps = TRAIN_EPOCHS * TRAIN_STEPS
     vals = TRAIN_EPOCHS * VAL_STEPS
     runner = WeakPhraseRunner(device=DEVICE)
-    with tempfile.TemporaryDirectory(prefix="ttg_train_weak_") as tmp:
-        for bwd in ("v2", "v3"):
-            config = runner.setup(_weak_config(f"{tmp}/{bwd}", gru_bwd=bwd))
-            exp_dir = runner.prepare_experiment()
-            train_loader, val_loader = _weak_loaders(tmp, tok,
-                                                     config["seed"])
-            model = runner.build_model()
-            sd = random_state_dict(model, seed=2)
-            model.load_state_dict(sd)
-            loss_fn = runner.build_loss()
-            _reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            record = runner.fit(model, loss_fn, train_loader, val_loader,
-                                weak_output_transform, exp_dir)
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-            launches = _counts()
-            want = _want(gru_fwd=steps + vals, **{f"gru_bwd_{bwd}": steps})
-            if launches != want:
-                raise AssertionError(f"weak fit ({bwd}): kernel launches "
-                                     f"{launches}, expected {want}")
-            if not all(np.isfinite(record["step_loss"]
-                                   + record["val_loss"])):
-                raise AssertionError(f"weak fit ({bwd}): loss not finite "
-                                     f"{record}")
-            for name in ("best.pth", "last.pth", "train.log"):
-                if not (exp_dir / name).is_file():
-                    raise AssertionError(f"weak fit ({bwd}): {name} not "
-                                         "written")
-            ckpt = torch.load(exp_dir / "last.pth", weights_only=True)
-            if not ckpt["save_trainable_only"]:
-                raise AssertionError("weak fit: save_trainable_only unset")
-            report["fits"][bwd] = {"fit_s": fit_s, "launches": launches,
-                                   "step_loss": record["step_loss"],
-                                   "val_loss": record["val_loss"]}
-        batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
+    tmp = str(work / "weak")
+    for bwd in ("v2", "v3"):
+        config = runner.setup({**_weak_config(f"{tmp}/{bwd}", gru_bwd=bwd),
+                               "data": _train_data(work, weak=True)})
+        exp_dir = runner.prepare_experiment()
+        train_loader, val_loader = _weak_loaders(tmp, tok,
+                                                 config["seed"])
+        model = runner.build_model()
+        sd = random_state_dict(model, seed=2)
+        model.load_state_dict(sd)
+        loss_fn = runner.build_loss()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = runner.fit(model, loss_fn, train_loader, val_loader,
+                            weak_output_transform, exp_dir)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        want = _want(gru_fwd=steps + vals, **{f"gru_bwd_{bwd}": steps})
+        if launches != want:
+            raise AssertionError(f"weak fit ({bwd}): kernel launches "
+                                 f"{launches}, expected {want}")
+        if not all(np.isfinite(record["step_loss"]
+                               + record["val_loss"])):
+            raise AssertionError(f"weak fit ({bwd}): loss not finite "
+                                 f"{record}")
+        for name in ("best.pth", "last.pth", "train.log"):
+            if not (exp_dir / name).is_file():
+                raise AssertionError(f"weak fit ({bwd}): {name} not "
+                                     "written")
+        ckpt = torch.load(exp_dir / "last.pth", weights_only=True)
+        if not ckpt["save_trainable_only"]:
+            raise AssertionError("weak fit: save_trainable_only unset")
+        report["fits"][bwd] = {"fit_s": fit_s, "launches": launches,
+                               "step_loss": record["step_loss"],
+                               "val_loss": record["val_loss"]}
+    batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
 
     # gradients of both hoisted routes against the all-plain path
     plain_cfg = _weak_config("", gru_kernel=False, dropout=[0.0, 0.0])
@@ -3481,6 +3520,275 @@ def training_weak_phase(tok) -> dict:
         grad_rel_rms_max={k: {"trunk": v[0], "rest": v[1]}
                           for k, v in worst.items()},
         fixed_batch_loss=losses, routes=routes)
+    return report, Path(tmp) / "v2"
+
+
+# The evaluation set: 32 clips of 10 s, two phrases a clip (a tone each
+# over one labelled segment), in label.json's layout; configs/strong/
+# biencoder_eval.yaml's and configs/weak_phrase/eval.yaml's keys
+EVAL_CLIPS, EVAL_BATCH = 32, 32
+EVAL_KEYS = {"resume": "best", "n_thresholds": 50, "window_size": 1,
+             "max_efprs": [400, 600, 800, 1000, None],
+             "output": "result.txt"}
+SERVING_ARGS = {"dtype": "bfloat16", "conv_mode": "int8"}
+
+
+def _eval_config(work: Path, waves: dict, label: list, **keys) -> dict:
+    """An eval config over the in-memory set: ``AudioPhraseEvalDataset``
+    with the waveforms by audio id and the label list, the eval collate,
+    batches of ``EVAL_BATCH`` and the duration TSV under ``work``."""
+    return {**EVAL_KEYS, **keys, "data": {"test": {
+        "dataset": {"type": "AudioPhraseEvalDataset",
+                    "args": {"waveform": waves, "label": label}},
+        "collate_fn": {"type": "TextCollate", "args": {
+            "text_key": "phrase", "pad_keys": ["waveform"],
+            "pad_buckets": {"waveform": 32000}, "text_bucket": 4,
+            "tokenizer": {"type": "DictTokenizer", "args": {
+                "vocabulary": str(work / "vocab.pkl")}}}},
+        "dataloader_args": {"batch_size": EVAL_BATCH},
+        "duration": str(work / "duration.tsv")}}}
+
+
+def _eval_data(work: Path) -> tuple:
+    """(waveforms by audio id in float16, label list): 10 s of noise with
+    two tones, each over one segment that its phrase names; the duration
+    TSV is written to ``work``."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    n = SR * CLIP_S
+    waves, label = {}, []
+    for i in range(EVAL_CLIPS):
+        wav = rng.normal(0, 0.01, n).astype(np.float32)
+        phrases = []
+        for j, k in enumerate(rng.choice(len(_TONES), 2, replace=False)):
+            on = round(float(rng.uniform(0.05, 0.7)) * CLIP_S, 3)
+            off = round(on + float(rng.uniform(0.05, 0.25)) * CLIP_S, 3)
+            idx = np.arange(int(on * SR), int(off * SR))
+            wav[idx] += 0.3 * np.sin(2 * np.pi * _TONES[k] * idx / SR)
+            phrases.append({"phrase": f"w{2 + k} w{20 + k}",
+                            "start_index": 2 * j, "end_index": 2 * j + 1,
+                            "segments": [[on, off]]})
+        waves[f"eval{i}"] = wav.astype(np.float16)
+        label.append({"audiocap_id": 1000 + i, "audio_id": f"eval{i}",
+                      "tokens": " ".join(p["phrase"] for p in phrases),
+                      "phrases": phrases})
+    (work / "duration.tsv").write_text("audio_id\tduration\n" + "".join(
+        f"eval{i}\t{float(CLIP_S)}\n" for i in range(EVAL_CLIPS)))
+    return waves, label
+
+
+def _tracks(runner) -> dict:
+    return {f: t["fake_event"]
+            for f, t in runner.eval_output["score_buffer"].items()}
+
+
+def _track_gap(tracks: dict, ref: dict) -> float:
+    import numpy as np
+    if tracks.keys() != ref.keys():
+        raise AssertionError("evaluated tracks differ in their files")
+    return max(float(np.max(np.abs(tracks[f] - ref[f]))) for f in ref)
+
+
+def _evaluated(label: str, run, want: dict, out_dir: Path,
+               n_thresholds: int) -> dict:
+    """Run one evaluation (``run()`` returns its metrics) with the counts
+    set to 0 just before, and hold it: the counts read just after equal
+    ``want``, every metric finite in [0, 1], ``result.txt`` and one
+    predictions TSV a threshold written."""
+    import math
+
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in results.values()):
+        raise AssertionError(f"{label}: metrics out of [0, 1]: {results}")
+    if not (out_dir / "result.txt").is_file() or len(list(
+            (out_dir / "predictions").glob("*.tsv"))) != n_thresholds:
+        raise AssertionError(f"{label}: result.txt or predictions missing")
+    return {"metrics": results, "seconds": seconds, "launches": launches}
+
+
+def evaluate_phase(tok, work: Path, strong_exp: Path, weak_exp: Path
+                   ) -> dict:
+    """Evaluation on the card from the training phases' checkpoints, on
+    the in-memory set (``_eval_data``): ``StrongRunner.evaluate`` of the
+    f32 strong checkpoint (row 13's forward kernel), again with
+    ``gru_kernel=False`` (tracks within 1e-4), and in the serving
+    configuration (``model_overrides``: rows 1-4, tracks within 0.05 of
+    the f32 ones); ``WeakPhraseRunner.evaluate`` of the WSTAG checkpoint;
+    the native decoder against NumPy on every evaluated track;
+    ``GroundingPredictor.from_experiment`` serving the set's first
+    phrases (within 1e-4 of the evaluated tracks); a resumed strong run for
+    one more epoch from ``last.pth``; the forward's ms a batch (f32,
+    serving, serving with the bf16 GRU kernel) and the host seconds of
+    decoding, PSDS and th-AUC."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import GroundingPredictor
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.evaluation.decode import (
+        decode_multi_threshold)
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner, strong_output_transform)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseRunner)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    waves, label = _eval_data(work)
+    batches = -(-2 * EVAL_CLIPS // EVAL_BATCH)
+    n_th = EVAL_KEYS["n_thresholds"]
+    report: dict = {"clips": EVAL_CLIPS, "phrases": 2 * EVAL_CLIPS,
+                    "clip_s": CLIP_S, "batch": EVAL_BATCH}
+
+    # f32 checkpoint: row 13's forward once a batch
+    f32 = StrongRunner(device=DEVICE)
+    report["f32"] = _evaluated(
+        "evaluate f32", lambda: f32.evaluate(
+            strong_exp, _eval_config(work, waves, label)),
+        _want(gru_fwd=batches), strong_exp, n_th)
+    report["f32"]["host_seconds"] = dict(f32.eval_seconds)
+    report["f32"]["curve_files"] = sorted(
+        p.name for p in (strong_exp / "psds").iterdir())
+    tracks = _tracks(f32)
+    if len(tracks) != 2 * EVAL_CLIPS:
+        raise AssertionError(f"evaluate f32: {len(tracks)} tracks")
+
+    # the same weights without the GRU kernel, and in the serving mode
+    plain = StrongRunner(device=DEVICE)
+    report["plain_gru"] = _evaluated(
+        "evaluate gru_kernel=False", lambda: plain.evaluate(
+            strong_exp, _eval_config(work, waves, label, model_overrides={
+                "audio_encoder": {"args": {"gru_kernel": False}}},
+                output="result_plain.txt")),
+        _want(), strong_exp, n_th)
+    gap = _track_gap(_tracks(plain), tracks)
+    if gap > 1e-4:
+        raise AssertionError(f"evaluate: GRU kernel tracks {gap} off the "
+                             "plain GRU's (limit 1e-4)")
+    report["plain_gru"]["max_abs_vs_kernel"] = gap
+    served = StrongRunner(device=DEVICE)
+    report["serving"] = _evaluated(
+        "evaluate serving", lambda: served.evaluate(
+            strong_exp, _eval_config(
+                work, waves, label,
+                model_overrides={"audio_encoder": {"args": SERVING_ARGS}},
+                output="result_serving.txt")),
+        _want(**{k: v * batches for k, v in SERVING_PER_FORWARD.items()}),
+        strong_exp, n_th)
+    gap = _track_gap(_tracks(served), tracks)
+    if gap > 0.05:
+        raise AssertionError(f"evaluate: serving tracks {gap} off the f32 "
+                             "ones (limit 0.05)")
+    report["serving"]["max_abs_vs_f32"] = gap
+    report["serving"]["host_seconds"] = dict(served.eval_seconds)
+
+    # WSTAG: the phrase axis of 1, row 13's forward once a batch
+    weak = WeakPhraseRunner(device=DEVICE)
+    report["weak"] = _evaluated(
+        "evaluate WSTAG", lambda: weak.evaluate(
+            weak_exp, _eval_config(work, waves, label, time_resolution=0.04)),
+        _want(gru_fwd=batches), weak_exp, n_th)
+
+    # the native decoder against NumPy on every evaluated track
+    thresholds = np.arange(1 / (n_th * 2), 1, 1 / n_th)
+    t0 = time.perf_counter()
+    n_tracks = 0
+    for runner in (f32, plain, served, weak):
+        for scores in _tracks(runner).values():
+            nat = decode_multi_threshold(scores, thresholds, 1, 13, 0.04)
+            ref = decode_multi_threshold(scores, thresholds, 1, 13, 0.04,
+                                         use_native=False)
+            if not all(np.array_equal(a, b) for a, b in zip(nat, ref)):
+                raise AssertionError("native decode differs from NumPy")
+            n_tracks += 1
+    report["native_vs_numpy"] = {"tracks": n_tracks, "thresholds": n_th,
+                                 "seconds_both": time.perf_counter() - t0}
+
+    # from_experiment serves the first phrase of every clip
+    _reset_counts()
+    pred = GroundingPredictor.from_experiment(strong_exp, device=DEVICE)
+    audio = np.stack([waves[it["audio_id"]].astype(np.float32)
+                      for it in label])
+    probs, lengths = pred.predict(
+        audio, [audio.shape[1]] * EVAL_CLIPS,
+        [it["phrases"][0]["phrase"] for it in label], return_length=True)
+    report["from_experiment"] = {"launches": _counts()}
+    if report["from_experiment"]["launches"] != _want(gru_fwd=1):
+        raise AssertionError(f"from_experiment: kernel launches "
+                             f"{report['from_experiment']['launches']}")
+    gap = max(float(np.max(np.abs(
+        p[:n] - tracks[f"{it['audiocap_id']}_0"])))
+        for it, p, n in zip(label, probs, lengths))
+    if gap > 1e-4:
+        raise AssertionError(f"from_experiment: frame_sim {gap} off the "
+                             "evaluated tracks (limit 1e-4)")
+    report["from_experiment"]["max_abs_vs_evaluate"] = gap
+    del pred
+
+    # one more epoch from last.pth: epoch and Adam's step count run on
+    saved = torch.load(strong_exp / "last.pth", weights_only=True)
+    runner = StrongRunner(device=DEVICE)
+    config = runner.setup({
+        **_strong_config(str(work / "resumed")), "data": _train_data(work),
+        "resume": str(strong_exp / "last.pth")})
+    config["trainer"]["epochs"] = saved["epoch"] + 1
+    exp_dir = runner.prepare_experiment()
+    train_loader, val_loader = _loaders(tok, config["seed"])
+    record = runner.fit(runner.build_model(), runner.build_loss(),
+                        train_loader, val_loader, strong_output_transform,
+                        exp_dir)
+    last = torch.load(exp_dir / "last.pth", weights_only=True)
+    step = float(last["optimizer"]["state"][0]["step"])
+    want_step = float(saved["optimizer"]["state"][0]["step"]) + TRAIN_STEPS
+    if not (record["start_epoch"] == saved["epoch"] + 1 == last["epoch"]
+            and step == want_step):
+        raise AssertionError(
+            f"resume: started at epoch {record['start_epoch']}, saved "
+            f"{saved['epoch']}, Adam step {step} (expected {want_step})")
+    report["resume"] = {"saved_epoch": saved["epoch"],
+                        "start_epoch": record["start_epoch"],
+                        "adam_step": step,
+                        "train_loss": record["train_loss"]}
+
+    # the forward's ms a batch (CUDA events): f32, serving, and serving
+    # with the opt-in bf16 GRU kernel (row 14), each held to the f32
+    # forward's frame_sim within 0.05 on the batch
+    batch = to_device(next(iter(f32.build_dataloader(
+        _eval_config(work, waves, label)["data"]["test"], shuffle=False))),
+        torch.device(DEVICE))
+    with_kernel = copy.deepcopy(served.config["model"])
+    with_kernel["audio_encoder"]["args"]["gru_kernel"] = True
+    report["forward"] = {}
+    ref = None
+    for name, cfg in (("f32", f32.config["model"]),
+                      ("serving", served.config["model"]),
+                      ("serving_gru_kernel", with_kernel)):
+        model = instantiate(cfg, device=DEVICE).eval()
+        f32.restore_state(model, strong_exp)
+        with torch.no_grad():
+            out = model(batch)["frame_sim"].float()
+            ref = out if ref is None else ref
+            gap = float((out - ref).abs().max())
+            if gap > 0.05:
+                raise AssertionError(f"evaluate forward {name}: frame_sim "
+                                     f"{gap} off the f32 forward's")
+            report["forward"][name] = {
+                "ms_per_batch": _cuda_ms(lambda: model(batch), 5),
+                "max_abs_vs_f32": gap}
+        del model
     return report
 
 
@@ -3515,9 +3823,10 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    # a by-launch trace of a call that launches kernels is taken again
-    # when the profiler recorded none of them (only a memset, once), which
-    # happened once in dozens of profiles on an H100
+    # a by-launch trace is taken again when the profiler recorded none of
+    # the call's kernels (only a memset, once in dozens of profiles on an
+    # H100) or dropped the record of some (1 of 3 once, in a whole run):
+    # see _unrecorded
     for attempt in range(1, 4 if by_launch else 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3533,8 +3842,10 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
         launched = sorted((e for e in events
                            if "spin_kernel" not in e.name),
                           key=lambda e: e.time_range.start)
-        if any(not e.name.startswith(("Memset", "Memcpy"))
-               for e in launched):
+        unrecorded = _unrecorded(prof.events(), events)
+        if not unrecorded and any(
+                not e.name.startswith(("Memset", "Memcpy"))
+                for e in launched):
             break
     kernels = {}
     for e in launched:
@@ -3559,7 +3870,7 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
         order["by_launch"] = [{"kernel": e.name[:60],
                                "ms": e.time_range.elapsed_us() / 1e3}
                               for e in launched]
-    return {**order, "attempts": attempt,
+    return {**order, "attempts": attempt, "unrecorded": unrecorded,
             "marker_recorded": len(events) - len(launched),
             "request_ms": request_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / request_ms,
@@ -3568,6 +3879,25 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
             "launches": sum(c for _, c in kernels.values()),
             "top": [{"kernel": k[:90], "ms": ms, "count": c}
                     for k, (ms, c) in top]}
+
+
+def _unrecorded(events, device) -> int:
+    """The kernel launches of the traced call whose kernel the profiler
+    did not record: a CUDA runtime launch event on the host (which the
+    port's libraries, with their own static runtime, report too) with no
+    device event of its correlation id.  The launches before the first
+    device synchronize (the marker's) are left out."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu = [e for e in events if e.device_type != cuda]
+    syncs = [e.time_range.start for e in cpu
+             if e.name == "cudaDeviceSynchronize"]
+    if not syncs:
+        return 0
+    ids = {e.id for e in device}
+    return sum(1 for e in cpu if "LaunchKernel" in e.name
+               and e.time_range.start > min(syncs) and e.id not in ids)
 
 
 def _ptxas(source: str) -> list:
@@ -3661,6 +3991,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from texttoaudiogrounding_tpu_torch import native
     from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
     from texttoaudiogrounding_tpu_torch.data.vocabulary import Vocabulary
     from texttoaudiogrounding_tpu_torch.ops.kernels import _build
@@ -3670,9 +4001,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     build_s = _build.build_all()
+    t0 = time.perf_counter()
+    native.build()
+    native_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": [s.name for s in _build.sources()],
-                      "card": smi}), flush=True)
+                      "native_decoder_s": native_s, "card": smi}),
+          flush=True)
     ptxas = {src: _ptxas(src) for src in ("conv_block_v2", "conv_block1_v2",
                                           "logmel_v2", "gru_fwd_sm90",
                                           "gru_bwd_sm90", "gru_walk_sm90",
@@ -3683,7 +4018,8 @@ def main() -> int:
                                           "block1_small_v2", "logmel_v3_v2",
                                           "logmel_v4_v2")}
     print(json.dumps({"phase": "ptxas", "kernels": ptxas}), flush=True)
-    report = {"card": smi, "build_s": build_s, "ptxas": ptxas}
+    report = {"card": smi, "build_s": build_s, "native_decoder_s": native_s,
+              "ptxas": ptxas}
     rng = np.random.default_rng(0)
     kernels = (kernel_phase(KERNEL_CLIPS, rng)
                + gru_kernel_phase(KERNEL_CLIPS, rng)
@@ -3697,6 +4033,11 @@ def main() -> int:
     for word in ["<pad>", "<unk>"] + [f"w{i}" for i in range(2, 5000)]:
         vocab.add_word(word)
     tok = DictTokenizer(vocab)
+    # the training runs' experiment directories stay here for the
+    # evaluate phase; removed when the script ends
+    work_dir = tempfile.TemporaryDirectory(prefix="ttg_smoke_")
+    work = Path(work_dir.name)
+    vocab.save(work / "vocab.pkl")
     serving, handoff = serving_phase(rng, tok)
     report["serving"] = serving
     print(json.dumps({"phase": "serving", "card": smi,
@@ -3720,7 +4061,7 @@ def main() -> int:
             "route", "source", "replaces", "tolerance", "library")
             and not k.endswith("trace")}
         for row in designs]}), flush=True)
-    train = training_phase(tok)
+    train, strong_exp = training_phase(tok, work)
     report["train"] = train
     print(json.dumps({"phase": "train", "card": smi, **{
         k: train[k] for k in ("steps_per_s", "clips_per_s", "step_ms",
@@ -3748,7 +4089,7 @@ def main() -> int:
                            "gru_ms", "conv_ms")}}
                    for k, v in train16["routes"].items()}}), flush=True)
 
-    weak = training_weak_phase(tok)
+    weak, weak_exp = training_weak_phase(tok, work)
     report["train_weak"] = weak
     print(json.dumps({"phase": "train_weak", "card": smi, **{
         k: weak[k] for k in ("grad_rel_rms_max", "fixed_batch_loss")},
@@ -3762,6 +4103,18 @@ def main() -> int:
                            "conv_ms")}}
                    for k, v in weak["routes"].items()}}), flush=True)
 
+    evaluation = evaluate_phase(tok, work, strong_exp, weak_exp)
+    work_dir.cleanup()
+    report["evaluate"] = evaluation
+    print(json.dumps({"phase": "evaluate", "card": smi, **{
+        k: evaluation[k] for k in ("forward", "native_vs_numpy", "resume")},
+        "from_experiment_max_abs": evaluation["from_experiment"][
+            "max_abs_vs_evaluate"],
+        **{k: {m: evaluation[k][m] for m in (
+            "metrics", "seconds", "host_seconds", "max_abs_vs_kernel",
+            "max_abs_vs_f32", "curve_files") if m in evaluation[k]}
+           for k in ("f32", "plain_gru", "serving", "weak")}}), flush=True)
+
     # launches on each path, counted from zero just before it
     by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
                            serving["gru_fwd_bf16_launches"]},
@@ -3771,7 +4124,9 @@ def main() -> int:
                "train": train["fit_launches"],
                "train_bf16": train16["fit_launches"],
                **{f"train_weak_{k}": v["launches"]
-                  for k, v in weak["fits"].items()}}
+                  for k, v in weak["fits"].items()},
+               **{f"evaluate_{k}": evaluation[k]["launches"]
+                  for k in ("f32", "serving", "weak", "from_experiment")}}
     for row in kernels:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c.get(counter, 0)

@@ -45,14 +45,21 @@ def _load_label(label) -> list:
 
 
 class AudioPhraseEvalDataset(Dataset):
-    """One item per (audio, phrase) pair."""
+    """One item per (audio, phrase) pair.  ``waveform``: the index TSV, or
+    a dict of waveforms in memory by audio id."""
 
-    def __init__(self, waveform: str, label, sample_rate: int = 32000):
-        self.aid_to_h5 = load_dict_from_csv(waveform,
-                                            ("audio_id", "hdf5_path"))
+    def __init__(self, waveform, label, sample_rate: int = 32000):
+        self.aid_to_h5 = (waveform if isinstance(waveform, dict)
+                          else load_dict_from_csv(waveform,
+                                                  ("audio_id", "hdf5_path")))
         self.cache: dict = {}
         self.data = _load_label(label)
         self.sample_rate = sample_rate
+        self.generate_index()
+
+    def generate_index(self) -> None:
+        """(audio, phrase) index pairs over ``self.data``; call again after
+        replacing it."""
         self.idxs = [(ai, pi)
                      for ai, audio_item in enumerate(self.data)
                      for pi, _ in enumerate(audio_item["phrases"])]
@@ -67,9 +74,9 @@ class AudioPhraseEvalDataset(Dataset):
         audio_idx, phrase_idx = self.idxs[index]
         audio_item = self.data[audio_idx]
         phrase_item = audio_item["phrases"][phrase_idx]
-        waveform = read_from_h5(audio_item["audio_id"],
-                                self.aid_to_h5[audio_item["audio_id"]],
-                                self.cache)
+        source = self.aid_to_h5[audio_item["audio_id"]]
+        waveform = (source if isinstance(source, np.ndarray) else
+                    read_from_h5(audio_item["audio_id"], source, self.cache))
         return {
             "audio_id": audio_item["audio_id"],
             "audiocap_id": audio_item["audiocap_id"],

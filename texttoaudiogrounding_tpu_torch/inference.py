@@ -8,19 +8,30 @@ padded to a multiple of ``audio_bucket`` samples, token ids to a multiple
 of ``text_bucket``, and the batch split into bucket-sized sub-batches
 (padded by repeating the last clip, trimmed afterwards); padded frames
 are zeroed.  The model runs on its own device (the card by default).
+``GroundingPredictor.from_experiment`` builds one from a training run's
+directory (``config.json`` and a checkpoint).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List
 
 import numpy as np
 import torch
 
+from texttoaudiogrounding_tpu_torch.device import resolve_device
 from texttoaudiogrounding_tpu_torch.evaluation.decode import (
     find_contiguous_regions,
     median_filter,
 )
+from texttoaudiogrounding_tpu_torch.training.train_state import (
+    checkpoint_path,
+    load_checkpoint,
+    load_weights,
+)
+from texttoaudiogrounding_tpu_torch.utils.config import load_config
+from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -52,6 +63,32 @@ class GroundingPredictor:
         self.audio_bucket = audio_bucket
         self.text_bucket = text_bucket
         self.batch_buckets = tuple(sorted(batch_buckets or ()))
+
+    @classmethod
+    def from_experiment(cls, experiment_path, which: str = "best",
+                        batch_buckets: tuple | None = None,
+                        device="cuda") -> "GroundingPredictor":
+        """The model of ``experiment_path/config.json`` on ``device`` (the
+        card unless the CPU is asked for) with the ``which`` checkpoint's
+        weights, the training collate's tokenizer and the training
+        dataset's time resolution (JAX ``inference.py:90``).
+        ``batch_buckets``: as ``__init__``'s; None takes the config's
+        ``inference_args.batch_buckets``, else the default."""
+        exp_dir = Path(experiment_path)
+        config = load_config(exp_dir / "config.json")
+        model = instantiate(config["model"], device=resolve_device(device))
+        load_weights(model, load_checkpoint(checkpoint_path(exp_dir, which)),
+                     log_fn=lambda *_: None)
+        train = config["data"]["train"]
+        tokenizer = instantiate(train["collate_fn"]["args"]["tokenizer"])
+        inference_args = config.get("inference_args", {})
+        time_res = train["dataset"]["args"].get(
+            "time_resolution", inference_args.get("time_resolution", 0.04))
+        if batch_buckets is None:
+            batch_buckets = inference_args.get("batch_buckets")
+        kwargs = {} if batch_buckets is None else {
+            "batch_buckets": tuple(batch_buckets)}
+        return cls(model, tokenizer, time_resolution=time_res, **kwargs)
 
     @property
     def device(self) -> torch.device:

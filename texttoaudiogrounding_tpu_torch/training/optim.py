@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 
-
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place, without a host synchronisation; returns the norm."""
@@ -62,6 +61,11 @@ class Optimizer:
     def state_dict(self) -> dict:
         return self.inner.state_dict()
 
+    def load_state_dict(self, state: dict) -> None:
+        """Adam's moments, step counts and learning rate, moved to the
+        parameters' device."""
+        self.inner.load_state_dict(state)
+
 
 class ReduceLROnPlateau:
     """torch ``ReduceLROnPlateau``'s rule as the JAX package applies it:
@@ -101,6 +105,11 @@ class ReduceLROnPlateau:
         return {"best": self.best, "num_bad_epochs": self.num_bad_epochs,
                 "lr": self.lr}
 
+    def load_state_dict(self, state: dict) -> None:
+        self.best = state["best"]
+        self.num_bad_epochs = state["num_bad_epochs"]
+        self.lr = state["lr"]
+
 
 class MetricImprover:
     """Early-stopping monitor (reference utils/train_util.py:326-346)."""
@@ -120,3 +129,6 @@ class MetricImprover:
 
     def state_dict(self) -> dict:
         return dict(self.__dict__)
+
+    def load_state_dict(self, state: dict) -> None:
+        self.__dict__.update(state)

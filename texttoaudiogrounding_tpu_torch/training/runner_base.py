@@ -12,8 +12,14 @@ the plateau learning rate, early stopping and the best/last checkpoints.
 Between the backward and the clipping, :meth:`BaseRunner.post_grad_hook`
 may change the gradients (the weak runner's NaN guard); each epoch starts
 with the train loader's ``set_epoch`` where it has one (the datasets that
-sample draw anew).  Resume and finetune, several cards and the profiler
-are not ported.
+sample draw anew).  ``resume: <checkpoint>`` in the config continues a run
+(JAX ``runner_base.py:368-381, 534``): the weights, Adam's state, the
+plateau scheduler, the metric monitor and ``not_improve_cnt``, from the
+saved epoch + 1; with ``finetune: true`` (top level or under ``trainer``)
+it loads the weights alone and starts at epoch 1, as it does for a
+reference-format ``.pth``.  :meth:`BaseRunner.restore_state` loads an
+experiment's ``best`` or ``last`` weights for evaluation.  Several cards
+and the profiler are not ported.
 
 Runs on the card unless ``device="cpu"`` is asked for.  TF32 is off: f32
 convolutions and matrix products run in full f32, as the JAX reference
@@ -39,6 +45,9 @@ from texttoaudiogrounding_tpu_torch.training.optim import (
     ReduceLROnPlateau,
 )
 from texttoaudiogrounding_tpu_torch.training.train_state import (
+    checkpoint_path,
+    load_checkpoint,
+    load_weights,
     save_checkpoint,
 )
 from texttoaudiogrounding_tpu_torch.utils.config import (
@@ -77,8 +86,8 @@ class BaseRunner:
 
     # ------------------------------------------------------------ builders
     def setup(self, config) -> dict:
-        """``config``: a dict or a YAML path.  Seeds numpy and torch (the
-        dropout masks' generator starts from the torch seed)."""
+        """``config``: a dict, or a JSON or YAML path.  Seeds numpy and
+        torch (the dropout masks' generator starts from the torch seed)."""
         self.config = load_config(config)
         self.config.setdefault("seed", 1)
         np.random.seed(self.config["seed"])
@@ -139,8 +148,8 @@ class BaseRunner:
             output_transform: Callable, exp_dir: Path) -> dict:
         """Epoch loop with plateau LR, early stop, best/last checkpoints
         (reference run_strong.py:712-810).  Returns the run's record:
-        ``train_loss`` and ``val_loss`` per epoch and ``step_loss`` (every
-        step's loss)."""
+        ``train_loss`` and ``val_loss`` per epoch, ``step_loss`` (every
+        step's loss) and ``start_epoch``."""
         trainer = self.config.get("trainer", {})
         epochs = trainer.get("epochs", 10)
         epoch_length = trainer.get("epoch_length")
@@ -169,11 +178,21 @@ class BaseRunner:
             f"{str(compute).replace('torch.', '')}; TF32 "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 
-        record = {"train_loss": [], "val_loss": [], "step_loss": []}
-        not_improve_cnt = 0
-        epoch = 0
+        start_epoch, not_improve_cnt = 1, 0
+        if self.config.get("resume"):
+            finetune = self.config.get("finetune",
+                                       trainer.get("finetune", False))
+            meta = self._resume(model, optimizer, scheduler, metric_improver,
+                                self.config["resume"], finetune)
+            if meta:
+                start_epoch = meta["epoch"] + 1
+                not_improve_cnt = meta["not_improve_cnt"]
+
+        record = {"train_loss": [], "val_loss": [], "step_loss": [],
+                  "start_epoch": start_epoch}
+        epoch = start_epoch - 1
         train_iter = iter(train_loader)
-        for epoch in range(1, epochs + 1):
+        for epoch in range(start_epoch, epochs + 1):
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             t0 = time.time()
@@ -227,3 +246,35 @@ class BaseRunner:
                         epoch, metric_improver.state_dict(),
                         not_improve_cnt, include_optim, trainable_only)
         return record
+
+    # ------------------------------------------------------ checkpoints
+    def restore_state(self, model, exp_dir: Path, which: str = "best"
+                      ) -> dict:
+        """Load ``exp_dir``'s ``which`` checkpoint's weights into ``model``
+        (evaluation; JAX ``runner_base.py:489``); returns its payload."""
+        payload = load_checkpoint(checkpoint_path(exp_dir, which))
+        load_weights(model, payload, self.logger.info)
+        return payload
+
+    def _resume(self, model, optimizer, scheduler, monitor, ckpt_path,
+                finetune: bool = False) -> dict:
+        """Restore a checkpoint into a fresh run (JAX
+        ``runner_base.py:534``).  The weights always; unless ``finetune``,
+        and where the checkpoint has them, the optimizer and scheduler
+        states and the monitor.  Returns ``{epoch, not_improve_cnt}`` for a
+        full resume, else ``{}``."""
+        payload = load_checkpoint(ckpt_path)
+        load_weights(model, payload, self.logger.info)
+        full = not finetune and "epoch" in payload
+        if full:
+            if "optimizer" in payload:
+                optimizer.load_state_dict(payload["optimizer"])
+            if "lr_scheduler" in payload:
+                scheduler.load_state_dict(payload["lr_scheduler"])
+            monitor.load_state_dict(payload["metric_monitor"])
+        self.logger.info(f"resumed from {ckpt_path} (finetune={finetune}, "
+                         f"epoch={payload.get('epoch')})")
+        if not full:
+            return {}
+        return {"epoch": payload["epoch"],
+                "not_improve_cnt": payload["not_improve_cnt"]}

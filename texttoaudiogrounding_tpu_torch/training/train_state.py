@@ -9,6 +9,14 @@ not-improved count and ``save_trainable_only``, the runner's setting (the
 weak runner's is True, as in the JAX package).  The port has no freeze
 masks yet, so every parameter is trainable and the state dict is whole
 either way.
+
+:func:`load_checkpoint` reads them back, and a reference-format ``.pth``
+(``{"model": state_dict}``, the layout of the JAX package's
+``training/torch_import.py:export_biencoder`` and
+``save_torch_checkpoint``, or a bare state dict) as weights alone;
+:func:`load_weights` puts a checkpoint's weights into a model, merging by
+name and shape (:func:`merge_matched_params`) where the checkpoint may
+hold only part of the model.
 """
 
 from __future__ import annotations
@@ -37,3 +45,47 @@ def save_checkpoint(path: str | Path, model: torch.nn.Module, optimizer,
     tmp = path.with_suffix(".tmp")
     torch.save(payload, tmp)
     tmp.replace(path)
+
+
+def checkpoint_path(exp_dir: str | Path, which: str = "best") -> Path:
+    """``exp_dir/<which>.pth``: ``"best"`` and ``"best.pth"`` both name
+    ``best.pth``."""
+    name = str(which)
+    return Path(exp_dir) / (name if name.endswith(".pth") else f"{name}.pth")
+
+
+def load_checkpoint(path: str | Path) -> dict:
+    """A checkpoint's payload, on the CPU.  A reference-format file comes
+    back as ``{"model": state_dict}`` with nothing else."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
+        return payload
+    return {"model": payload}
+
+
+def merge_matched_params(model: torch.nn.Module, state_dict: dict,
+                         log_fn=print) -> list:
+    """Load the entries of ``state_dict`` whose name and shape match the
+    model's (reference utils/train_util.py:219-248); the model keeps its
+    own values for the rest.  Logs and returns the names not loaded."""
+    own = model.state_dict()
+    matched = {k: v for k, v in state_dict.items()
+               if k in own and own[k].shape == v.shape}
+    skipped = sorted(set(state_dict) - set(matched))
+    kept = sorted(set(own) - set(matched))
+    model.load_state_dict(matched, strict=False)
+    if skipped or kept:
+        log_fn(f"checkpoint entries not loaded (name or shape): {skipped}; "
+               f"model entries kept: {kept}")
+    return skipped + kept
+
+
+def load_weights(model: torch.nn.Module, payload: dict, log_fn=print) -> None:
+    """A checkpoint's weights into ``model`` (in place: ``copy_`` into the
+    existing tensors, so the conv blocks' prepared kernel weights are made
+    anew).  Trainable-only and reference-format checkpoints merge by name
+    and shape; a whole checkpoint of this package must match exactly."""
+    if payload.get("save_trainable_only") or "epoch" not in payload:
+        merge_matched_params(model, payload["model"], log_fn)
+    else:
+        model.load_state_dict(payload["model"])
