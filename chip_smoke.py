@@ -49,7 +49,11 @@ Phases, each printing one line:
    (B = 5, H = 30 and 120), the bf16-operand backward also at T = 2,
    where its bf16 roundings are held tight enough that the backward
    without them fails, beside ``torch.nn.GRU`` (cuDNN, f32 and bf16) on
-   the same weights as a yardstick and a third opinion; and the training
+   the same weights as a yardstick and a third opinion; row 13's forward
+   and backward also at the CDur path's shape (T = 125, 2B = 64, H = 128
+   over an input of 128: 8-CTA clusters, 3 groups of 11 rows), each output
+   and gradient within 1e-4 of its plain version, beside ``torch.nn.GRU``
+   and their CUDA launches a call counted (1 and 2); and the training
    path's pool kernels (``dual_pool_fwd``/``_bwd``, ``bn_pool_fwd``,
    ``bn_pool_bwd`` on its second design, ``bn_pool_v2.cu``, and the batch
    statistics ``bn_pool_stats``) at the four conv blocks' outputs of a
@@ -198,7 +202,32 @@ Phases, each printing one line:
    saved epoch + 1 and Adam's step count runs on); the forward's ms a
    batch (CUDA events) in f32, in the serving mode and in the serving mode
    with the bf16 GRU kernel (each within 0.05 of the f32 forward), and
-   the host seconds of decoding, PSDS and th-AUC.
+   the host seconds of decoding, PSDS and th-AUC;
+9. train_cdur: ``StrongRunner.train`` on ``configs/strong/cdur_w2vmean.yaml``
+   as a dict (``_cdur_config``: BiEncoder(CrnnEncoder(256),
+   EmbeddingAgg(5221, 256), ExpNegL2), FrameBceLoss at 0.08 s frames), cut
+   as ``CDUR_CUTS`` lists: data in memory (32 clips x 10 s a batch, 2
+   validation batches of 64), 2 epochs of 4 steps, the step profiler on
+   steps 2-3; ``gru_fwd`` / ``gru_bwd`` rise by one a train step (and one
+   ``gru_fwd`` a validation batch), the trace names both cluster GRU
+   kernels, the epoch log its throughput, checkpoints written;
+   ``StrongRunner.evaluate`` of the run (metrics finite in [0, 1], frames
+   of 0.08 s) and ``from_experiment`` (within 1e-4 of the evaluated
+   tracks); the loss falls over 8 steps on one batch; the step's ms (CUDA
+   events, 5 steps) and, from one traced step, the device ms of the
+   frontend's DFT matmul, the convolutions and row 13, with the largest
+   operators;
+10. finetune_frozen: the WSTAG (v2) run's best checkpoint finetuned for an
+   epoch of 4 steps with ``freeze_cnn`` and ``freeze_bn`` and
+   ``save_trainable_only``: every frozen parameter and running statistic
+   bit for bit the same, the GRU and text parameters moved, the checkpoint
+   the trainable parameters and every buffer; a resume from it starts at
+   the saved epoch + 1;
+11. desed: ``evaluation/desed.py``'s ``score_clips_zero_shot`` with
+   ``from_experiment`` on the WSTAG run over 16 synthetic 10 s clips x the
+   10 DESED classes (one forward of 10 rows a clip, ``gru_fwd`` once a
+   forward), PSDS1, PSDS2 and macro-F1 finite in [0, 1], the host seconds
+   of scoring and of the metrics.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1029,30 +1058,27 @@ def _gru_walk_shapes(rng) -> list:
     return out
 
 
-def gru_kernel_phase(clips: int, rng) -> list:
-    """The GRU kernels against their plain versions at T = 250, 2B = 64,
-    H = 256, beside ``torch.nn.GRU`` on the same weights; the backward's
-    second design also against its first."""
+def _gru_inputs(rng, t: int, b: int, h: int, d: int) -> tuple:
+    """A BiGRU's inputs on the card, drawn from ``rng``: ``x [B, T, In]``,
+    the output gradient ``gy [T, 2B, H]``, ``project`` (x → the kernels'
+    ``proj``), ``proj``, ``wh``, ``bn`` in the port's layout
+    (``models/layers.py`` BiGRU: time-major, direction 1 time-flipped, the
+    r/z recurrent biases folded into the input ones), and ``torch.nn.GRU``
+    on the same weights."""
     import numpy as np
     import torch
 
-    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
-
     dev = torch.device(DEVICE)
-    t, b, h, d = GRU_T, clips, GRU_H, GRU_IN
 
     def tensor(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     x = tensor(rng.normal(0, 1, (b, t, d)))
-    x_rng = np.random.default_rng(1)          # the extra batch sizes' inputs
     w_ih = tensor(rng.normal(0, 1 / np.sqrt(d), (2, 3 * h, d)))
     w_hh = tensor(rng.normal(0, 1 / np.sqrt(h), (2, 3 * h, h)))
     b_ih = tensor(rng.normal(0, 0.05, (2, 3 * h)))
     b_hh = tensor(rng.normal(0, 0.05, (2, 3 * h)))
     gy = tensor(rng.normal(0, 1, (t, 2 * b, h)))
-    # the port's layout (models/layers.py BiGRU): time-major, direction 1
-    # time-flipped, the r/z recurrent biases folded into the input ones
     bi = b_ih + torch.cat([b_hh[:, :2 * h], torch.zeros_like(b_hh[:, :h])],
                           dim=1)
 
@@ -1062,10 +1088,6 @@ def gru_kernel_phase(clips: int, rng) -> list:
                 + bi[:, None, None]).permute(2, 0, 1, 3).reshape(
                     t, 2 * x.shape[0], 3 * h).contiguous()
 
-    proj = project(x)
-    wh = w_hh.transpose(1, 2).contiguous()
-    bn = b_hh[:, 2 * h:].contiguous()
-
     lib = torch.nn.GRU(d, h, bidirectional=True, batch_first=True).to(dev)
     with torch.no_grad():
         for i, sfx in enumerate(("", "_reverse")):
@@ -1073,6 +1095,23 @@ def gru_kernel_phase(clips: int, rng) -> list:
             getattr(lib, f"weight_hh_l0{sfx}").copy_(w_hh[i])
             getattr(lib, f"bias_ih_l0{sfx}").copy_(b_ih[i])
             getattr(lib, f"bias_hh_l0{sfx}").copy_(b_hh[i])
+    return (x, gy, project, project(x), w_hh.transpose(1, 2).contiguous(),
+            b_hh[:, 2 * h:].contiguous(), lib)
+
+
+def gru_kernel_phase(clips: int, rng) -> list:
+    """The GRU kernels against their plain versions at T = 250, 2B = 64,
+    H = 256, beside ``torch.nn.GRU`` on the same weights; the backward's
+    second design also against its first."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    t, b, h, d = GRU_T, clips, GRU_H, GRU_IN
+    x_rng = np.random.default_rng(1)          # the extra batch sizes' inputs
+    x, gy, project, proj, wh, bn, lib = _gru_inputs(rng, t, b, h, d)
+    dev = x.device
     lib16 = torch.nn.GRU(d, h, bidirectional=True, batch_first=True).to(
         dev, torch.bfloat16)
     lib16.load_state_dict(lib.state_dict())
@@ -3057,6 +3096,10 @@ def _reset_counts() -> None:
             mod.launches[k] = 0
 
 
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def _want(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in _counts()}
 
@@ -3792,6 +3835,527 @@ def evaluate_phase(tok, work: Path, strong_exp: Path, weak_exp: Path
     return report
 
 
+# ------------------------------------- the CDur config, freezing, DESED
+# CDur's BiGRU: 125 steps (501 frames halved twice), 32 clips, H = 128 over
+# 128 channels x 1 mel
+CDUR_T, CDUR_H, CDUR_IN = 125, 128, 128
+CDUR_YAML = "configs/strong/cdur_w2vmean.yaml"
+CDUR_EPOCHS, CDUR_STEPS, CDUR_VAL_BATCHES = 2, 4, 2
+# the keys of _cdur_config that differ from configs/strong/cdur_w2vmean.yaml:
+# the run's directory, the data made in memory and the tokenizer's vocabulary
+# file, the epochs cut to CDUR_EPOCHS of CDUR_STEPS, the profiler on
+CDUR_CUTS = (
+    "experiment_path", "data.train.dataset.args.waveform",
+    "data.train.dataset.args.label", "data.val.dataset.args.waveform",
+    "data.val.dataset.args.label",
+    "data.train.collate_fn.args.tokenizer.args.vocabulary",
+    "data.val.collate_fn.args.tokenizer.args.vocabulary", "trainer.epochs",
+    "trainer.epoch_length", "trainer.profile")
+
+
+def gru_cdur_rows(clips: int, rng) -> list:
+    """Row 13's forward and backward at the CDur path's shape (T = 125, 2B =
+    64, H = 128: 8-CTA clusters, 3 groups of 11 rows a direction) against
+    their plain versions, each output and gradient within 1e-4 relative
+    RMS, timed with CUDA events beside ``torch.nn.GRU`` on the same
+    weights, their CUDA launches a call counted by the profiler (1 and
+    2)."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    t, b, h, d = CDUR_T, clips, CDUR_H, CDUR_IN
+    x, gy, _, proj, wh, bn, lib = _gru_inputs(rng, t, b, h, d)
+    dev = x.device
+    lib.flatten_parameters()
+    gy_lib = torch.randn(b, t, 2 * h, device=dev)
+
+    def lib_fwd_bwd():
+        out, _ = lib(x)
+        out.backward(gy_lib)
+
+    ys = gru.gru_forward(proj, wh, bn)
+    ys_plain = gru.gru_forward_plain(proj, wh, bn)
+    with torch.no_grad():
+        lib_out, _ = lib(x)
+    ys_bf = ys.reshape(t, 2, b, h).permute(1, 2, 0, 3)
+    lib_gap = float((torch.cat([ys_bf[0], torch.flip(ys_bf[1], dims=(1,))],
+                               dim=-1) - lib_out).abs().max())
+    if lib_gap > 1e-3:
+        raise AssertionError(f"gru_fwd at CDur's shape: off torch.nn.GRU by "
+                             f"{lib_gap}")
+    grads = gru.gru_backward(proj, ys_plain, gy, wh, bn)
+    grads_plain = gru.gru_backward_plain(proj, ys_plain, gy, wh, bn)
+    fwd_ops = 2.0 * t * 2 * b * h * 3 * h
+    fwd_bytes = 4 * (proj.numel() + ys.numel() + wh.numel() + bn.numel())
+    bwd_bytes = 4 * (2 * proj.numel() + 2 * ys.numel() + 2 * wh.numel()
+                     + 2 * bn.numel())
+    lib_fwd_ms = _cuda_ms(lambda: lib(x), 10)
+    lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
+    rows = [
+        dict(name="gru_fwd_cdur", counter="gru_fwd", got=ys, ref=ys_plain,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
+             source="texttoaudiogrounding_tpu_torch/csrc/gru_fwd_sm90.cu",
+             kernel=lambda: gru.gru_forward(proj, wh, bn),
+             plain=lambda: gru.gru_forward_plain(proj, wh, bn),
+             bound=_bound(fwd_bytes, {"f32": fwd_ops}),
+             plan=gru.forward_plan(b, h), library_ms=lib_fwd_ms,
+             library_max_abs_diff=lib_gap),
+        dict(name="gru_bwd_cdur", counter="gru_bwd", got=grads,
+             ref=grads_plain,
+             replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
+             source="texttoaudiogrounding_tpu_torch/csrc/gru_bwd_sm90.cu",
+             kernel=lambda: gru.gru_backward(proj, ys_plain, gy, wh, bn),
+             plain=lambda: gru.gru_backward_plain(proj, ys_plain, gy, wh,
+                                                  bn),
+             bound=_bound(bwd_bytes, {"f32": 3 * fwd_ops}),
+             plan=gru.cluster_plan(b, h),
+             library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+             library_fwd_bwd_ms=lib_fwd_bwd_ms)]
+    out = []
+    for row in rows:
+        max_abs, rel = _max_err(row["got"], row["ref"])
+        if rel > 1e-4:
+            raise AssertionError(f"{row['name']}: kernel disagrees with its "
+                                 f"plain version: rel_rms {rel} > 1e-4 "
+                                 f"(max_abs {max_abs})")
+        ms = _cuda_ms(row["kernel"], 10)
+        out.append({
+            "name": row["name"], "counter": row["counter"],
+            "path": "train_cdur", "route": "cuda",
+            "source": row["source"], "replaces": row["replaces"],
+            "max_abs_err": max_abs, "rel_rms_err": rel,
+            "tolerance": "rel_rms{} <= 1e-4".format(
+                "" if isinstance(row["got"], torch.Tensor)
+                else " of each gradient"),
+            "ms": ms, "kernel_ms": ms,
+            "plain_ms": _cuda_ms(row["plain"], 2),
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"],
+            "library": "torch.nn.GRU (cuDNN; includes the input projection)",
+            "cuda_launches_per_call": _launches_per_call(row["kernel"]),
+            "T": t, "rows": 2 * b, "H": h, "plan": row["plan"],
+            **{k: row[k] for k in ("library_fwd_bwd_ms",
+                                   "library_max_abs_diff") if k in row}})
+    want = {"gru_fwd_cdur": 1, "gru_bwd_cdur": 2}
+    for row in out:
+        if row["cuda_launches_per_call"] != want[row["name"]]:
+            raise AssertionError(
+                f"{row['name']}: {row['cuda_launches_per_call']} CUDA "
+                f"launches a call, expected {want[row['name']]}")
+    return out
+
+
+def _cdur_data(prefix: str, count: int, seed: int) -> tuple:
+    """(waveforms by audio id in float16, label list) of ``count`` 10 s
+    clips made in memory, each of noise with one tone over a segment that
+    its phrase names (``AudioPhraseDataset``'s label format)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = SR * CLIP_S
+    waves, label = {}, []
+    for i in range(count):
+        wav = rng.normal(0, 0.01, n).astype(np.float32)
+        k = int(rng.integers(len(_TONES)))
+        on = round(float(rng.uniform(0.05, 0.7)) * CLIP_S, 3)
+        off = round(on + float(rng.uniform(0.05, 0.25)) * CLIP_S, 3)
+        idx = np.arange(int(on * SR), int(off * SR))
+        wav[idx] += 0.3 * np.sin(2 * np.pi * _TONES[k] * idx / SR)
+        phrase = f"w{2 + k} w{20 + k}"
+        waves[f"{prefix}{i}"] = wav.astype(np.float16)
+        label.append({"audiocap_id": i, "audio_id": f"{prefix}{i}",
+                      "tokens": phrase,
+                      "phrases": [{"phrase": phrase, "start_index": 0,
+                                   "end_index": 1,
+                                   "segments": [[on, off]]}]})
+    return waves, label
+
+
+def _cdur_config(exp_dir: str, train: tuple, val: tuple,
+                 vocabulary: str) -> dict:
+    """``configs/strong/cdur_w2vmean.yaml`` as a dict, cut as ``CDUR_CUTS``
+    lists: ``train`` / ``val`` are (waveforms by audio id, label list)."""
+    def split(data: tuple, batch_size: int) -> dict:
+        return {
+            "dataset": {"type": "AudioPhraseDataset",
+                        "args": {"waveform": data[0], "label": data[1],
+                                 "time_resolution": 0.08}},
+            "collate_fn": {"type": "TextCollate", "args": {
+                "text_key": "phrase", "pad_keys": ["waveform", "label"],
+                "pad_buckets": {"waveform": 32000, "label": 50},
+                "text_bucket": 4,
+                "tokenizer": {"type": "DictTokenizer",
+                              "args": {"vocabulary": vocabulary}}}},
+            "dataloader_args": {"batch_size": batch_size, "num_workers": 2}}
+
+    return {
+        "experiment_path": exp_dir, "seed": 1,
+        "data": {"train": split(train, 32), "val": split(val, 64)},
+        "model": {"type": "BiEncoder",
+                  "args": {"shared_dim": 256, "add_proj": False,
+                           "upsample": False},
+                  "audio_encoder": {"type": "CrnnEncoder",
+                                    "args": {"embed_dim": 256,
+                                             "sample_rate": SR}},
+                  "text_encoder": {"type": "EmbeddingAgg",
+                                   "args": {"embed_dim": 256,
+                                            "vocab_size": 5221,
+                                            "aggregation": "mean"}},
+                  "match_fn": {"type": "ExpNegL2",
+                               "args": {"text_level": "seq"}}},
+        "loss": {"type": "FrameBceLoss", "args": {}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "patience": 3}},
+        "eval_config": {"n_thresholds": 50},
+        "inference_args": {"window_size": 1},
+        "trainer": {"metric_monitor": {"mode": "min", "name": "loss"},
+                    "epochs": CDUR_EPOCHS, "epoch_length": CDUR_STEPS,
+                    "early_stop": 10, "lr_update_interval": "epoch",
+                    "save_interval": 10, "include_optim_in_ckpt": False,
+                    "max_grad_norm": 1.0,
+                    "profile": {"start_step": 2, "num_steps": 2}},
+    }
+
+
+def _trace_gru_kernels(path: Path) -> list:
+    """The cluster GRU kernels that a Chrome trace names; raises unless
+    both row 13's forward and backward are among them."""
+    import json as _json
+    names = {e.get("name", "") for e in _json.loads(
+        path.read_text()).get("traceEvents", [])}
+    found = sorted(n for n in names
+                   if "gru_fwd_cluster" in n or "gru_bwd_cluster" in n)
+    if not any("gru_fwd_cluster" in n for n in found) or not any(
+            "gru_bwd_cluster" in n for n in found):
+        raise AssertionError(f"train_cdur: the trace {path.name} names no "
+                             f"cluster GRU forward and backward: {found}")
+    return found
+
+
+def _op_profile(fn) -> tuple:
+    """PyTorch operators of one profiled call of ``fn`` by name and input
+    shapes: ``(name, shapes, self device ms, total device ms)``, largest
+    self time first, with the count of kernel records the profiler
+    dropped (``_unrecorded``; the profile is taken again, 3 tries, while
+    one is missing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            _profile_markers()
+            fn()
+            torch.cuda.synchronize()
+        unrecorded = _unrecorded(prof.events(), [
+            e for e in prof.events() if e.device_type == cuda])
+        if not unrecorded:
+            break
+    out = []
+    for evt in prof.key_averages(group_by_input_shape=True):
+        self_us = getattr(evt, "self_device_time_total", None)
+        total_us = getattr(evt, "device_time_total", None)
+        if self_us is None:
+            self_us, total_us = evt.self_cuda_time_total, evt.cuda_time_total
+        out.append((evt.key, evt.input_shapes, self_us / 1e3, total_us / 1e3))
+    return sorted(out, key=lambda e: -e[2]), unrecorded
+
+
+def train_cdur_phase(tok, work: Path) -> tuple:
+    """``StrongRunner.train`` on ``_cdur_config`` (CrnnEncoder(256),
+    EmbeddingAgg(5221, 256), ExpNegL2, FrameBceLoss at 0.08 s frames) at
+    full width, 2 epochs of 4 steps of 32 clips x 10 s and 2 validation
+    batches of 64, with the step profiler on steps 2-3; its checks;
+    ``StrongRunner.evaluate`` of the run and ``from_experiment``; then the
+    step timed (CUDA events, 5 steps) and its frontend matmul,
+    convolutions and GRU kernels traced.  Returns (report, the run's
+    directory)."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import GroundingPredictor
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.ops.frontend import (
+        _tables as frontend_tables, frame_waveform, log_mel_spectrogram)
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner, strong_output_transform)
+
+    vocab = str(work / "vocab.pkl")
+    train = _cdur_data("cdur", TRAIN_CLIPS * CDUR_STEPS, 11)
+    val = _cdur_data("cdurval", 64 * CDUR_VAL_BATCHES, 12)
+    config = _cdur_config(str(work / "cdur"), train, val, vocab)
+    runner = StrongRunner(device=DEVICE)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp_dir = runner.train(config)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts()
+    steps = CDUR_EPOCHS * CDUR_STEPS
+    want = _want(gru_fwd=steps + CDUR_EPOCHS * CDUR_VAL_BATCHES,
+                 gru_bwd=steps)
+    if launches != want:
+        raise AssertionError(f"train_cdur: kernel launches {launches}, "
+                             f"expected {want}")
+    for name in ("best.pth", "last.pth", "train.log"):
+        if not (exp_dir / name).is_file():
+            raise AssertionError(f"train_cdur: {name} not written")
+    traces = sorted((exp_dir / "profile").glob("*.json"))
+    if not traces:
+        raise AssertionError("train_cdur: the step profiler wrote no trace")
+    gru_kernels = _trace_gru_kernels(traces[0])
+    log = (exp_dir / "train.log").read_text()
+    if "samples/s" not in log:
+        raise AssertionError("train_cdur: no throughput in the epoch log")
+    report = {"fit_s": fit_s, "fit_launches": launches,
+              "trace_files": [p.name for p in traces],
+              "trace_gru_kernels": gru_kernels,
+              "epoch_log": [ln.split(" - ", 1)[-1] for ln in log.splitlines()
+                            if "train_loss" in ln]}
+
+    # evaluation of the run at 0.08 s frames, and from_experiment on it
+    label = copy.deepcopy(val[1][:EVAL_BATCH])
+    waves = {it["audio_id"]: val[0][it["audio_id"]] for it in label}
+    durations = work / "cdur_duration.tsv"
+    durations.write_text("audio_id\tduration\n" + "".join(
+        f"{it['audio_id']}\t{float(CLIP_S)}\n" for it in label))
+    evaluator = StrongRunner(device=DEVICE)
+    eval_cfg = _eval_config(work, waves, label, output="result.txt")
+    eval_cfg["data"]["test"]["duration"] = str(durations)
+    _reset_counts()
+    metrics = evaluator.evaluate(exp_dir, eval_cfg)
+    report["evaluate"] = {"metrics": metrics, "launches": _counts(),
+                          "host_seconds": dict(evaluator.eval_seconds)}
+    if report["evaluate"]["launches"] != _want(gru_fwd=1):
+        raise AssertionError(f"train_cdur evaluate: kernel launches "
+                             f"{report['evaluate']['launches']}")
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in metrics.values()):
+        raise AssertionError(f"train_cdur evaluate: metrics {metrics}")
+    tracks = _tracks(evaluator)
+    steps_s = {round(float(t["offset"][0] - t["onset"][0]), 6)
+               for t in evaluator.eval_output["score_buffer"].values()}
+    if steps_s != {0.08}:
+        raise AssertionError(f"train_cdur evaluate: frames of {steps_s} s")
+    pred = GroundingPredictor.from_experiment(exp_dir, device=DEVICE)
+    audio = np.stack([waves[it["audio_id"]].astype(np.float32)
+                      for it in label])
+    probs, lengths = pred.predict(
+        audio, [audio.shape[1]] * len(label),
+        [it["phrases"][0]["phrase"] for it in label], return_length=True)
+    gap = max(float(np.max(np.abs(
+        p[:n] - tracks[f"{it['audiocap_id']}_0"])))
+        for it, p, n in zip(label, probs, lengths))
+    if gap > 1e-4:
+        raise AssertionError(f"train_cdur from_experiment: frame_sim {gap} "
+                             "off the evaluated tracks (limit 1e-4)")
+    report["from_experiment_max_abs"] = gap
+    report["time_resolution"] = pred.time_resolution
+    del pred
+
+    # the loss falls over 8 steps on one batch; step time; one traced step
+    model = runner.build_model()
+    runner.restore_state(model, exp_dir, "last")
+    batch = to_device(next(iter(runner.build_dataloader(
+        config["data"]["train"], shuffle=False))), torch.device(DEVICE))
+    loss_fn = runner.build_loss()
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = [float(runner.train_step(model, loss_fn, opt, batch,
+                                      strong_output_transform))
+              for _ in range(8)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_cdur: loss on a fixed batch does not "
+                             f"fall: {losses}")
+
+    def step():
+        runner.train_step(model, loss_fn, opt, batch,
+                          strong_output_transform)
+
+    step_ms = _cuda_ms(step, 5)
+    cfg = model.audio_encoder.mel_config
+    ops, unrecorded = _op_profile(step)
+    # the frontend's DFT: frames [B, T, n_fft] @ basis [n_fft, 2 F]; the
+    # profiler can drop a step's first kernel records (``unrecorded``),
+    # so the matmul is also timed alone with CUDA events
+    frontend_ms = sum(total for key, shapes, _, total in ops
+                      if key == "aten::matmul" and len(shapes) == 2
+                      and shapes[1] == [cfg.n_fft, 2 * cfg.n_freqs])
+    frames = frame_waveform(batch["waveform"], cfg)
+    basis, _ = frontend_tables(cfg, frames.device)
+    report.update(fixed_batch_loss=losses, step_ms=step_ms,
+                  clips_per_s=TRAIN_CLIPS * 1e3 / step_ms,
+                  frontend_matmul_ms=frontend_ms,
+                  frontend_matmul_cuda_ms=_cuda_ms(
+                      lambda: torch.matmul(frames, basis), 5),
+                  frontend_cuda_ms=_cuda_ms(
+                      lambda: log_mel_spectrogram(batch["waveform"], cfg),
+                      5),
+                  op_profile_unrecorded=unrecorded,
+                  top_ops=[{"op": k, "shapes": str(sh)[:120],
+                            "self_ms": ms, "total_ms": tot}
+                           for k, sh, ms, tot in ops[:15]],
+                  trace=_trace(step, step_ms))
+    return report, exp_dir
+
+
+def finetune_frozen_phase(tok, work: Path, weak_exp: Path) -> dict:
+    """Finetune the WSTAG run's best checkpoint for 1 epoch of 4 steps with
+    ``freeze_cnn`` and ``freeze_bn``, saving trainable parameters only:
+    every frozen parameter and BatchNorm statistic bit for bit the same,
+    the GRU and text parameters moved, the checkpoint exactly the
+    trainable parameters and every buffer; then a resume from it starts at
+    the saved epoch + 1."""
+    import tempfile
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.training.optim import (
+        freeze_mask_from_model)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseRunner, weak_output_transform)
+
+    source = torch.load(weak_exp / "best.pth", weights_only=True)["model"]
+
+    def run(name: str, resume: Path, finetune: bool, epochs: int) -> tuple:
+        runner = WeakPhraseRunner(device=DEVICE)
+        cfg = _weak_config(str(work / name), gru_bwd="v2", freeze_cnn=True,
+                           freeze_bn=True)
+        cfg["trainer"].update(epochs=epochs, save_interval=1,
+                              save_trainable_only=True)
+        config = runner.setup({**cfg, "data": _train_data(work, weak=True),
+                               "resume": str(resume), "finetune": finetune})
+        exp_dir = runner.prepare_experiment()
+        with tempfile.TemporaryDirectory() as tmp:
+            train_loader, val_loader = _weak_loaders(tmp, tok,
+                                                     config["seed"])
+            model = runner.build_model()
+            _reset_counts()
+            record = runner.fit(model, runner.build_loss(), train_loader,
+                                val_loader, weak_output_transform, exp_dir)
+        return runner, model, record, exp_dir, _counts()
+
+    runner, model, record, exp_dir, launches = run(
+        "frozen", weak_exp / "best.pth", True, 1)
+    want = _want(gru_fwd=TRAIN_STEPS + VAL_STEPS, gru_bwd_v2=TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"finetune_frozen: kernel launches {launches}, "
+                             f"expected {want}")
+    mask = freeze_mask_from_model(model)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    frozen = sorted(n for n, keep in mask.items() if not keep)
+    trainable = sorted(n for n, keep in mask.items() if keep)
+    stats = sorted(n for n in state if "running_" in n)
+    if not frozen or any(not n.startswith("audio_encoder.rnn.")
+                         and not n.startswith("text_encoder.")
+                         for n in trainable):
+        raise AssertionError(f"finetune_frozen: mask trainable {trainable}")
+    changed = [n for n in frozen + stats
+               if not torch.equal(state[n], source[n])]
+    if changed:
+        raise AssertionError(f"finetune_frozen: frozen entries moved: "
+                             f"{changed[:8]}")
+    still = [n for n in trainable if torch.equal(state[n], source[n])]
+    if still:
+        raise AssertionError(f"finetune_frozen: trainable entries did not "
+                             f"move: {still}")
+    saved = torch.load(exp_dir / "last.pth", weights_only=True)
+    buffers = {n for n, _ in model.named_buffers()}
+    if set(saved["model"]) != set(trainable) | buffers \
+            or not saved["trainables_only"]:
+        raise AssertionError(
+            f"finetune_frozen: the checkpoint holds "
+            f"{sorted(set(saved['model']) ^ (set(trainable) | buffers))[:8]} "
+            "beyond or short of the trainable parameters and buffers")
+    _, _, resumed, _, _ = run("frozen_resumed", exp_dir / "last.pth", False,
+                              saved["epoch"] + 1)
+    if resumed["start_epoch"] != saved["epoch"] + 1:
+        raise AssertionError(f"finetune_frozen: resume started at epoch "
+                             f"{resumed['start_epoch']}, saved "
+                             f"{saved['epoch']}")
+    return {"launches": launches, "frozen_parameters": len(frozen),
+            "trainable_parameters": len(trainable),
+            "running_statistics": len(stats),
+            "checkpoint_entries": len(saved["model"]),
+            "step_loss": record["step_loss"],
+            "resume": {"saved_epoch": saved["epoch"],
+                       "start_epoch": resumed["start_epoch"]}}
+
+
+DESED_CLIPS = 16
+
+
+def desed_phase(weak_exp: Path) -> dict:
+    """Zero-shot DESED scoring (``evaluation/desed.py``) with
+    ``GroundingPredictor.from_experiment`` on the WSTAG run: 16 synthetic
+    10 s clips (noise, a tone over each ground-truth event) x the 10
+    classes, one forward of 10 rows a clip; PSDS1, PSDS2 and macro-F1
+    finite in [0, 1], row 13's forward once a forward; host seconds of
+    scoring and of the metrics."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import GroundingPredictor
+    from texttoaudiogrounding_tpu_torch.evaluation.desed import (
+        DESED_CLASSES, evaluate_desed_macro_f1, evaluate_desed_psds,
+        score_clips_zero_shot)
+
+    rng = np.random.default_rng(19)
+    n = SR * CLIP_S
+    clips, ground_truth = {}, {}
+    for i in range(DESED_CLIPS):
+        wav = rng.normal(0, 0.01, n).astype(np.float32)
+        events = []
+        for j in range(int(rng.integers(1, 4))):
+            cls = DESED_CLASSES[(i + j * 3) % len(DESED_CLASSES)]
+            on = round(float(rng.uniform(0.0, 0.7)) * CLIP_S, 3)
+            off = round(on + float(rng.uniform(0.05, 0.3)) * CLIP_S, 3)
+            idx = np.arange(int(on * SR), min(int(off * SR), n))
+            tone = _TONES[DESED_CLASSES.index(cls) % len(_TONES)]
+            wav[idx] += 0.3 * np.sin(2 * np.pi * tone * idx / SR)
+            events.append((on, min(off, float(CLIP_S)), cls))
+        clips[f"desed{i}"] = wav
+        ground_truth[f"desed{i}"] = events
+    durations = {aid: float(CLIP_S) for aid in clips}
+    pred = GroundingPredictor.from_experiment(weak_exp, device=DEVICE)
+    forwards = len(clips) * len(pred._chunk_plan(len(DESED_CLASSES)))
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = score_clips_zero_shot(pred, clips, pred.time_resolution)
+    scoring_s = time.perf_counter() - t0
+    launches = _counts()
+    if launches != _want(gru_fwd=forwards):
+        raise AssertionError(f"desed: kernel launches {launches}, expected "
+                             f"gru_fwd {forwards}")
+    t0 = time.perf_counter()
+    psds = evaluate_desed_psds(scores, ground_truth, durations)
+    psds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f1 = evaluate_desed_macro_f1(scores, ground_truth, durations,
+                                 time_resolution=pred.time_resolution)
+    f1_s = time.perf_counter() - t0
+    metrics = {**psds, "macro_f1": f1["macro_f1"]}
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in metrics.values()):
+        raise AssertionError(f"desed: metrics out of [0, 1]: {metrics}")
+    frames = {len(t["onset"]) for t in scores.values()}
+    return {"clips": DESED_CLIPS, "classes": len(DESED_CLASSES),
+            "forwards": forwards, "launches": launches, "metrics": metrics,
+            "frames": sorted(frames), "scoring_s": scoring_s,
+            "psds_s": psds_s, "macro_f1_s": f1_s}
+
+
 @functools.lru_cache(maxsize=None)
 def _port_kernel_pattern():
     """A pattern for the port's kernels in a profiled kernel name: each
@@ -3809,6 +4373,21 @@ def _port_kernel_pattern():
 
 
 _CONV_OPS = ("aten::convolution", "aten::convolution_backward")
+
+
+def _profile_markers() -> None:
+    """The first kernels launched under the profiler can go unrecorded on
+    the card's machine (one in a fresh process; three, a traced CDur
+    step's first, late in a whole run): marker kernels take their place,
+    are left out by their name where recorded, and a synchronize ends
+    them (``_unrecorded`` counts the launches after it)."""
+    import torch
+    for _ in range(MARKERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+MARKERS = 8
 
 
 def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
@@ -3831,11 +4410,7 @@ def _trace(fn, request_ms: float, by_launch: bool = False) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # the first kernel launched under the profiler can go
-            # unrecorded on the card's machine: a marker kernel takes
-            # that place, and is left out by its name if it was recorded
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            _profile_markers()
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == cuda]
@@ -4023,6 +4598,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = (kernel_phase(KERNEL_CLIPS, rng)
                + gru_kernel_phase(KERNEL_CLIPS, rng)
+               + gru_cdur_rows(KERNEL_CLIPS, np.random.default_rng(19))
                + pool_kernel_phase(KERNEL_CLIPS))
     print(json.dumps({"phase": "kernels", "card": smi, "kernels": [
         {k: row[k] for k in ("name", "max_abs_err", "rel_rms_err",
@@ -4104,7 +4680,6 @@ def main() -> int:
                    for k, v in weak["routes"].items()}}), flush=True)
 
     evaluation = evaluate_phase(tok, work, strong_exp, weak_exp)
-    work_dir.cleanup()
     report["evaluate"] = evaluation
     print(json.dumps({"phase": "evaluate", "card": smi, **{
         k: evaluation[k] for k in ("forward", "native_vs_numpy", "resume")},
@@ -4114,6 +4689,32 @@ def main() -> int:
             "metrics", "seconds", "host_seconds", "max_abs_vs_kernel",
             "max_abs_vs_f32", "curve_files") if m in evaluation[k]}
            for k in ("f32", "plain_gru", "serving", "weak")}}), flush=True)
+
+    cdur, _ = train_cdur_phase(tok, work)
+    report["train_cdur"] = cdur
+    print(json.dumps({"phase": "train_cdur", "card": smi,
+                      "fit_launches": _nonzero(cdur["fit_launches"]), **{
+        k: cdur[k] for k in ("fit_s", "fixed_batch_loss",
+                             "step_ms", "clips_per_s", "frontend_matmul_ms",
+                             "frontend_matmul_cuda_ms", "frontend_cuda_ms",
+                             "op_profile_unrecorded",
+                             "trace_files", "trace_gru_kernels",
+                             "from_experiment_max_abs", "time_resolution")},
+        "evaluate": {k: cdur["evaluate"][k] for k in ("metrics",
+                                                      "host_seconds")},
+        **{m: cdur["trace"][m] for m in ("conv_ms", "gru_ms", "launches",
+                                         "device_busy_ms",
+                                         "device_idle_share")}}),
+        flush=True)
+    frozen = finetune_frozen_phase(tok, work, weak_exp)
+    report["finetune_frozen"] = frozen
+    print(json.dumps({"phase": "finetune_frozen", "card": smi, **frozen,
+                      "launches": _nonzero(frozen["launches"])}), flush=True)
+    desed = desed_phase(weak_exp)
+    report["desed"] = desed
+    print(json.dumps({"phase": "desed", "card": smi, **desed,
+                      "launches": _nonzero(desed["launches"])}), flush=True)
+    work_dir.cleanup()
 
     # launches on each path, counted from zero just before it
     by_path = {"serving": {**serving["launches"], "gru_fwd_bf16":
@@ -4126,12 +4727,19 @@ def main() -> int:
                **{f"train_weak_{k}": v["launches"]
                   for k, v in weak["fits"].items()},
                **{f"evaluate_{k}": evaluation[k]["launches"]
-                  for k in ("f32", "serving", "weak", "from_experiment")}}
+                  for k in ("f32", "serving", "weak", "from_experiment")},
+               "train_cdur": cdur["fit_launches"],
+               "evaluate_cdur": cdur["evaluate"]["launches"],
+               "finetune_frozen": frozen["launches"],
+               "desed": desed["launches"]}
     for row in kernels:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c.get(counter, 0)
                                    for p, c in by_path.items()}
-        row["launches"] = sum(row["launches_by_path"].values())
+        # a row at one path's shape counts that path's launches
+        row["launches"] = (row["launches_by_path"][row["path"]]
+                           if "path" in row
+                           else sum(row["launches_by_path"].values()))
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on any path")
     report["kernels"] = kernels

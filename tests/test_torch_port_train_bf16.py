@@ -379,8 +379,12 @@ def test_cnn8rnn_dtype_and_conv_mode_combinations():
         rnn = Cnn8Rnn(dtype=dtype, gru_bwd=bwd).rnn      # the f32 train GRU
         assert rnn.route(torch.float32) == (torch.float32, True,
                                             torch.float32, bwd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Cnn8Rnn(freeze_bn=True)
+    # freeze_bn (ported): train mode keeps the running statistics
+    enc = Cnn8Rnn(freeze_bn=True).train()
+    before = enc.bn0.running_mean.clone()
+    with torch.no_grad():
+        enc(batch)
+    assert torch.equal(enc.bn0.running_mean, before)
 
 
 def test_registry_makes_the_bf16_model_from_the_config():

@@ -1,4 +1,7 @@
-from texttoaudiogrounding_tpu_torch.models.audio_encoder import Cnn8Rnn
+from texttoaudiogrounding_tpu_torch.models.audio_encoder import (
+    Cnn8Rnn,
+    CrnnEncoder,
+)
 from texttoaudiogrounding_tpu_torch.models.audio_text_model import (
     BiEncoder,
     MultiTextBiEncoder,
@@ -7,5 +10,5 @@ from texttoaudiogrounding_tpu_torch.models.audio_text_model import (
 from texttoaudiogrounding_tpu_torch.models.match import DotProduct, ExpNegL2
 from texttoaudiogrounding_tpu_torch.models.text_encoder import EmbeddingAgg
 
-__all__ = ["BiEncoder", "Cnn8Rnn", "DotProduct", "EmbeddingAgg", "ExpNegL2",
-           "MultiTextBiEncoder", "flagship_model"]
+__all__ = ["BiEncoder", "Cnn8Rnn", "CrnnEncoder", "DotProduct",
+           "EmbeddingAgg", "ExpNegL2", "MultiTextBiEncoder", "flagship_model"]

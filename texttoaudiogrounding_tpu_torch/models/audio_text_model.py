@@ -9,7 +9,10 @@ model, reference :101-229).  ``BiEncoder`` gives ``{"frame_sim" [B, T],
 match function that has one (``DotProduct``); ``MultiTextBiEncoder``
 gives ``{"frame_sim" [B, T, N], "clip_sim" [B, N], "length" [B]}``.
 ``model.train()`` puts a model in train mode (batch-statistics BN,
-dropout), as the JAX model's ``train=True``.
+dropout), as the JAX model's ``train=True``.  ``freeze_audio_encoder`` /
+``freeze_text_encoder`` are read by the optimizer's freeze mask
+(``training/optim.py:freeze_mask_from_model``), as in the JAX package
+(``audio_text_model.py:110-122``), not by the module.
 """
 
 from __future__ import annotations
@@ -24,11 +27,23 @@ from texttoaudiogrounding_tpu_torch.models.text_encoder import EmbeddingAgg
 from texttoaudiogrounding_tpu_torch.ops.masking import POOLINGS
 
 
+def _check_upsample(upsample: bool) -> None:
+    if upsample:
+        raise NotImplementedError(
+            "upsample=True is not ported yet (ROADMAP.md, Queue 1: the rest "
+            "of WSTAG)")
+
+
 class BiEncoder(nn.Module):
     def __init__(self, audio_encoder: nn.Module, text_encoder: nn.Module,
                  match_fn: nn.Module, shared_dim: int = 512,
-                 add_proj: bool = False, device="cuda"):
+                 add_proj: bool = False, upsample: bool = False,
+                 freeze_audio_encoder: bool = False,
+                 freeze_text_encoder: bool = False, device="cuda"):
         super().__init__()
+        _check_upsample(upsample)
+        self.freeze_audio_encoder = freeze_audio_encoder
+        self.freeze_text_encoder = freeze_text_encoder
         self.audio_encoder = audio_encoder
         self.text_encoder = text_encoder
         self.match_fn = match_fn
@@ -69,10 +84,9 @@ class MultiTextBiEncoder(nn.Module):
     ``text_forward_keys`` (``text_len`` always among them) go through the
     text encoder as ``[B·N, L]``.
 
-    Not ported yet (ROADMAP.md, Queue 1: the rest of WSTAG, and the rest
-    of the training surface for the freeze masks): the broadcast branch
-    (a cross encoder, or a match function without a sequence-level
-    ``pairwise``), ``upsample=True`` and the freeze flags."""
+    Not ported yet (ROADMAP.md, Queue 1: the rest of WSTAG): the broadcast
+    branch (a cross encoder, or a match function without a sequence-level
+    ``pairwise``) and ``upsample=True``."""
 
     def __init__(self, audio_encoder: nn.Module, text_encoder: nn.Module,
                  match_fn: nn.Module, shared_dim: int = 512,
@@ -88,13 +102,11 @@ class MultiTextBiEncoder(nn.Module):
                 "only the pairwise branch (no cross encoder, a sequence-"
                 "level match function with pairwise) is ported (ROADMAP.md, "
                 "Queue 1: the rest of WSTAG)")
-        if upsample or freeze_audio_encoder or freeze_text_encoder:
-            raise NotImplementedError(
-                "upsample and the freeze flags are not ported yet "
-                "(ROADMAP.md, Queue 1: the rest of WSTAG, and the freeze "
-                "masks in the rest of the training surface)")
+        _check_upsample(upsample)
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be one of {sorted(POOLINGS)}")
+        self.freeze_audio_encoder = freeze_audio_encoder
+        self.freeze_text_encoder = freeze_text_encoder
         self.audio_encoder = audio_encoder
         self.text_encoder = text_encoder
         self.match_fn = match_fn

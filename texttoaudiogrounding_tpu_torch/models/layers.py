@@ -1,7 +1,9 @@
-"""Shared building blocks: the PANNs ConvBlock and the grouped-scan BiGRU.
+"""Shared building blocks: the PANNs ConvBlock, the CDur block with its LP
+pool, and the grouped-scan BiGRU.
 
 Ports of ``texttoaudiogrounding_tpu/models/layers.py:21-292``
-(``_FusedBNPool``, ConvBlock) and ``:425-543`` (BiGRU).  Activations are
+(``_FusedBNPool``, ConvBlock), ``:295-325`` (``CDurBlock``,
+``lp_pool_2d``) and ``:425-543`` (BiGRU).  Activations are
 channel-last, ``[B, T, M, C]``, as in the JAX package; parameters and
 state-dict names follow the reference torch modules (``conv1.weight`` is
 ``[Cout, Cin, 3, 3]``, BN keeps running statistics, the GRU is named like
@@ -112,7 +114,7 @@ class ConvBlock(nn.Module):
     package (``layers.py:252-280``):
 
     * ``bn_pool``: train-mode BN2 + ReLU + pool in one custom VJP
-      (``ops/kernels/bn_pool.py``), train mode only; wins over
+      (``ops/kernels/bn_pool.py``), with batch statistics only; wins over
       ``pool_vjp``;
     * ``pool_vjp``: ReLU + pool after BN2 with the mask-recompute backward
       (``ops/kernels/dual_pool.py``), in train and eval mode.
@@ -188,14 +190,17 @@ class ConvBlock(nn.Module):
             return False
         return c % 128 == 0 or (m == 64 and c == 64 and pool == (2, 2))
 
-    def _plain(self, x: torch.Tensor, pool_size) -> torch.Tensor:
-        norm = batch_norm_train if self.training else batch_norm_eval
+    def _plain(self, x: torch.Tensor, pool_size,
+               bn_train: bool | None = None) -> torch.Tensor:
+        if bn_train is None:
+            bn_train = self.training
+        norm = batch_norm_train if bn_train else batch_norm_eval
         dt = x.dtype
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
             y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
                          padding=1).permute(0, 2, 3, 1)
             if bn is self.bn2 and self._pool_kernel_ok(y, pool_size):
-                if self.bn_pool and self.training:
+                if self.bn_pool and bn_train:
                     out, mean, var = bn_relu_dual_pool(
                         y, bn.weight, bn.bias, pool_size, bn.eps)
                     update_running(bn, mean, var)
@@ -219,15 +224,19 @@ class ConvBlock(nn.Module):
             s = s + v[:, :, k // km, :, k % km]
         return s / (kt * km) + mx.permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor, pool_size=(2, 2)) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pool_size=(2, 2),
+                bn_train: bool | None = None) -> torch.Tensor:
         """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``.  In
-        train mode the block runs the plain path with batch statistics (the
-        JAX package runs its train-mode convolutions in XLA), through the
-        pool kernels where they are opted in."""
+        train mode the block runs the plain path (the JAX package runs its
+        train-mode convolutions in XLA), through the pool kernels where
+        they are opted in, with batch statistics unless ``bn_train`` is
+        False (``Cnn8Rnn(freeze_bn=True)``: the running statistics, and no
+        ``bn_pool``, whose kernel computes the batch statistics; JAX routes
+        it on ``bn_train``, ``layers.py:94-100``).  None follows the mode."""
         if self.training and self.conv_mode is not None:
             raise ValueError("train mode runs the plain path: conv_mode=None")
         if self.conv_mode is None:
-            return self._plain(x, tuple(pool_size))
+            return self._plain(x, tuple(pool_size), bn_train)
         quantize = self.conv_mode == "int8"
         x = x.to(torch.bfloat16).contiguous()
         cin, cout = x.shape[3], self.conv1.out_channels
@@ -250,6 +259,43 @@ class ConvBlock(nn.Module):
         *w, prep = self._kernel_weights("direct", quantize)
         return fused_double_conv_pool(x, *w, pool, quantize=quantize,
                                       prepared=prep)
+
+
+class CDurBlock(nn.Module):
+    """CDur block (JAX ``layers.py:295-310``): BN over the *input* channels,
+    then a 3×3 convolution without bias, then LeakyReLU(0.1), channel-last
+    ``[B, T, M, Cin] → [B, T, M, Cout]``.  In train mode the BN takes the
+    batch statistics in flax's arithmetic and moves the running ones
+    (:func:`batch_norm_train`), else it uses the running statistics."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(in_channels)
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1,
+                              bias=False)
+        # the JAX tree's initialiser: kaiming-normal over fan-in
+        nn.init.kaiming_normal_(self.conv.weight, nonlinearity="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = (batch_norm_train if self.training else batch_norm_eval)(
+            x, self.bn)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight, padding=1)
+        return F.leaky_relu(y.permute(0, 2, 3, 1), 0.1)
+
+
+def lp_pool_2d(x: torch.Tensor, norm_type: float, window) -> torch.Tensor:
+    """``nn.LPPool2d`` on channel-last ``[B, T, M, C]`` in the JAX
+    package's formula (``layers.py:313-325``): ``(Σ |x|^p)^(1/p)`` over
+    non-overlapping ``window``s, the spatial axes floor-divided.
+    ``F.lp_pool2d`` computes another formula (an average scaled by the
+    window size, ``sign · relu`` around the root), whose rounding and
+    gradient at a zero sum differ."""
+    kt, km = window
+    b, t, m, c = x.shape
+    p = float(norm_type)
+    xp = torch.pow(torch.abs(x[:, :t // kt * kt, :m // km * km]), p)
+    summed = xp.reshape(b, t // kt, kt, m // km, km, c).sum(dim=(2, 4))
+    return torch.pow(summed, 1.0 / p)
 
 
 class BiGRU(nn.Module):

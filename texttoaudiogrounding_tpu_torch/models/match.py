@@ -31,7 +31,17 @@ def _text(text, text_level: str) -> torch.Tensor:
 class ExpNegL2(nn.Module):
     """``exp(-sqrt(Σ (a - t)² + 1e-12))`` on L2-normalized inputs (the JAX
     default, ``l2norm=True``): ``audio [P, T, D]`` × the sequence-level
-    text ``[P, D]`` → ``[P, T]``."""
+    text ``[P, D]`` → ``[P, T]``.  ``text_level`` is taken as the configs
+    name it; ``"token"`` (the broadcast branch of the cross models) is not
+    ported (ROADMAP.md, Queue 1: the rest of WSTAG)."""
+
+    def __init__(self, text_level: str = "seq"):
+        super().__init__()
+        if text_level != "seq":
+            raise NotImplementedError(
+                "ExpNegL2 takes text_level='seq' only (ROADMAP.md, Queue 1: "
+                "the rest of WSTAG)")
+        self.text_level = text_level
 
     def forward(self, audio: torch.Tensor, text) -> torch.Tensor:
         audio = l2_normalize(audio)

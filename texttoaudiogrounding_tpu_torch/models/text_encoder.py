@@ -1,12 +1,16 @@
 """Word-embedding text encoder (the "w2vmean" tower).
 
 Port of ``texttoaudiogrounding_tpu/models/text_encoder.py:29-97``
-(reference models/text_encoder.py:14-88): token embeddings, then mean or
-attention pooling over the valid tokens.
+(reference models/text_encoder.py:14-88): token embeddings, optionally
+from a word2vec ``.npy`` table (``pretrained_embedding``), then mean or
+attention pooling over the valid tokens.  ``freeze_embedding`` is read by
+the optimizer's freeze mask (``training/optim.py``), as the JAX package
+reads it, and keeps the table where it is.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -18,11 +22,24 @@ from texttoaudiogrounding_tpu_torch.ops.masking import (
 
 class EmbeddingLayer(nn.Module):
     """Token embedding; the table is ``embedding.core.weight`` as in the
-    reference state dict."""
+    reference state dict, loaded from ``pretrained_embedding`` (an ``.npy``
+    of shape ``[vocab_size, embed_dim]``) where one is named."""
 
-    def __init__(self, vocab_size: int, embed_dim: int):
+    def __init__(self, vocab_size: int, embed_dim: int,
+                 pretrained_embedding: str | None = None,
+                 freeze_embedding: bool = False):
         super().__init__()
         self.core = nn.Embedding(vocab_size, embed_dim)
+        self.freeze_embedding = freeze_embedding
+        if pretrained_embedding is not None:
+            weight = np.load(pretrained_embedding)
+            if weight.shape != (vocab_size, embed_dim):
+                raise ValueError(
+                    f"expect embedding with shape {(vocab_size, embed_dim)} "
+                    f"but {weight.shape} is given")
+            with torch.no_grad():
+                self.core.weight.copy_(torch.from_numpy(
+                    np.asarray(weight, np.float32)))
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
         return self.core(text.long())
@@ -45,13 +62,17 @@ class AttentionPooling(nn.Module):
 
 class EmbeddingAgg(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int,
-                 aggregation: str = "mean"):
+                 pretrained_embedding: str | None = None,
+                 freeze_embedding: bool = False, aggregation: str = "mean"):
         super().__init__()
         if aggregation not in ("mean", "attention"):
             raise ValueError(f"{aggregation} not supported")
         self.embed_dim = embed_dim
         self.aggregation = aggregation
-        self.embedding = EmbeddingLayer(vocab_size, embed_dim)
+        self.freeze_embedding = freeze_embedding
+        self.embedding = EmbeddingLayer(vocab_size, embed_dim,
+                                        pretrained_embedding,
+                                        freeze_embedding)
         if aggregation == "attention":
             self.attn = AttentionPooling(embed_dim)
 

@@ -3,7 +3,8 @@
 The port of ``texttoaudiogrounding_tpu/ops/frontend.py``: the torchaudio
 ``MelSpectrogram`` + ``AmplitudeToDB`` semantics of the reference encoders
 (reference models/audio_encoder.py:107-124 — 32 ms window, 10 ms hop, 64
-slaney mels, 50-14000 Hz, ``top_db=None``).  The windowed DFT is one
+slaney mels, 50-14000 Hz, ``top_db=None``; and the CDur encoder's, n_fft
+2048, 40 ms window, 20 ms hop, 64 HTK mels).  The windowed DFT is one
 matrix product of the framed waveform against the window-weighted
 real/imag DFT basis, as the JAX package computes it with a strided
 convolution.  The bf16 serving frontend is the hand-written kernel in
@@ -55,6 +56,17 @@ def cnn8rnn_mel_config(sample_rate: int = 32000) -> LogMelConfig:
         sample_rate=sample_rate, n_fft=win, win_length=win,
         hop_length=int(0.010 * sample_rate), n_mels=64,
         f_min=50.0, f_max=f_max, norm="slaney", mel_scale="slaney",
+    )
+
+
+def cdur_mel_config(sample_rate: int = 32000) -> LogMelConfig:
+    """Frontend of the CDur CRNN encoder (JAX ``ops/frontend.py:68-76``):
+    n_fft 2048, a 40 ms Hann window centred in it, 20 ms hop, the
+    torchaudio defaults otherwise (HTK scale, no norm, full band)."""
+    return LogMelConfig(
+        sample_rate=sample_rate, n_fft=2048,
+        win_length=40 * sample_rate // 1000,
+        hop_length=20 * sample_rate // 1000, n_mels=64,
     )
 
 

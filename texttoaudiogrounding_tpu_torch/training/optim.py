@@ -1,14 +1,20 @@
-"""Optimizer, gradient clipping, learning-rate plateau, early stopping.
+"""Optimizer, freeze masks, gradient clipping, learning-rate plateau, early
+stopping.
 
-Port of ``texttoaudiogrounding_tpu/training/optim.py:76-257``.  The JAX
+Port of ``texttoaudiogrounding_tpu/training/optim.py:33-257``.  The JAX
 package chains ``optax.clip_by_global_norm`` before ``optax.adam``;
 :class:`Optimizer` does the same around ``torch.optim.Adam``, clipping by
 optax's formula: with ``norm = sqrt(Σ g²)`` over every gradient, each
 gradient becomes ``g / norm * max_norm`` when ``norm >= max_norm`` and is
 left as it is otherwise (``torch.nn.utils.clip_grad_norm_`` scales by
-``max_norm / (norm + 1e-6)``).  :class:`ReduceLROnPlateau` and
-:class:`MetricImprover` are copies of the JAX ones, so the two packages
-take the same decisions on the same losses.
+``max_norm / (norm + 1e-6)``).  A model's freeze flags become a mask
+(:func:`freeze_mask_from_model`, JAX ``:33-72``); the JAX package wraps
+the chain in ``optax.masked`` and zeroes the frozen updates, so the norm
+is taken over the trainable parameters only, Adam keeps no state for the
+frozen ones and they never move: here the :class:`Optimizer` gets the
+trainable parameters alone (:func:`trainable_parameters`).
+:class:`ReduceLROnPlateau` and :class:`MetricImprover` are copies of the
+JAX ones, so the two packages take the same decisions on the same losses.
 """
 
 from __future__ import annotations
@@ -17,6 +23,57 @@ import math
 
 import numpy as np
 import torch
+
+
+def freeze_mask_from_model(model: torch.nn.Module) -> dict | None:
+    """``{parameter name: trainable}`` from the model's freeze flags, or
+    None when nothing is frozen (JAX ``optim.py:33-72``, on the port's
+    dotted names):
+
+    * ``freeze_audio_encoder`` / ``freeze_text_encoder`` (the bi-encoders'
+      flags): everything under that tower;
+    * ``audio_encoder.freeze_cnn``: everything under the audio encoder but
+      its ``rnn`` (``bn0`` and ``fc1`` included), the exception winning
+      over every other rule;
+    * ``text_encoder.freeze_embedding``: the embedding table only."""
+    prefixes: list[tuple[str, ...]] = []
+    exceptions: list[tuple[str, ...]] = []
+    if getattr(model, "freeze_audio_encoder", False):
+        prefixes.append(("audio_encoder",))
+    if getattr(model, "freeze_text_encoder", False):
+        prefixes.append(("text_encoder",))
+    audio_enc = getattr(model, "audio_encoder", model)
+    if getattr(audio_enc, "freeze_cnn", False):
+        prefixes.append(("audio_encoder",))
+        exceptions.append(("audio_encoder", "rnn"))
+    text_enc = getattr(model, "text_encoder", None)
+    if text_enc is not None and getattr(text_enc, "freeze_embedding", False):
+        prefixes.append(("text_encoder", "embedding"))
+    if getattr(model, "freeze_embedding", False):
+        prefixes.append(("embedding",))
+    if not prefixes:
+        return None
+
+    def trainable(names: tuple) -> bool:
+        if any(names[:len(exc)] == exc for exc in exceptions):
+            return True
+        return not any(names[:len(pre)] == pre for pre in prefixes)
+
+    return {name: trainable(tuple(name.split(".")))
+            for name, _ in model.named_parameters()}
+
+
+def trainable_parameters(model: torch.nn.Module, mask: dict | None) -> list:
+    """The parameters ``mask`` keeps trainable (all when None); the frozen
+    ones get ``requires_grad = False``, so that no gradient is computed or
+    kept for them."""
+    out = []
+    for name, p in model.named_parameters():
+        if mask is None or mask[name]:
+            out.append(p)
+        else:
+            p.requires_grad_(False)
+    return out
 
 
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:

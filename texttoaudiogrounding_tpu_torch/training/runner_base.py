@@ -18,8 +18,19 @@ plateau scheduler, the metric monitor and ``not_improve_cnt``, from the
 saved epoch + 1; with ``finetune: true`` (top level or under ``trainer``)
 it loads the weights alone and starts at epoch 1, as it does for a
 reference-format ``.pth``.  :meth:`BaseRunner.restore_state` loads an
-experiment's ``best`` or ``last`` weights for evaluation.  Several cards
-and the profiler are not ported.
+experiment's ``best`` or ``last`` weights for evaluation.
+
+The model's freeze flags (``freeze_cnn``, ``freeze_audio_encoder``,
+``freeze_text_encoder``, ``freeze_embedding``) become a mask
+(``optim.freeze_mask_from_model``): the optimizer, its clipping norm
+included, sees the trainable parameters only.  With
+``trainer.save_trainable_only`` (the weak runner's default) a masked run's
+checkpoints leave the frozen parameters out and keep every buffer; resume
+and restore merge them over the parameters the model holds.
+``trainer.profile: {start_step, num_steps}`` traces those steps
+(``profiling.StepProfiler``) and each epoch's log line gives the
+samples/s and steps/s of its training steps (``ThroughputMeter``), as in
+the JAX ``fit``.  Several cards are not ported.
 
 Runs on the card unless ``device="cpu"`` is asked for.  TF32 is off: f32
 convolutions and matrix products run in full f32, as the JAX reference
@@ -43,6 +54,12 @@ from texttoaudiogrounding_tpu_torch.training.optim import (
     MetricImprover,
     Optimizer,
     ReduceLROnPlateau,
+    freeze_mask_from_model,
+    trainable_parameters,
+)
+from texttoaudiogrounding_tpu_torch.training.profiling import (
+    StepProfiler,
+    ThroughputMeter,
 )
 from texttoaudiogrounding_tpu_torch.training.train_state import (
     checkpoint_path,
@@ -75,14 +92,15 @@ def init_logger(filename: Path, level: str = "INFO") -> logging.Logger:
 
 
 class BaseRunner:
-    # recorded in the checkpoints: the port has no freeze masks yet, so
-    # every parameter is trainable and saved either way
+    # leave the frozen parameters out of the checkpoints of a masked run
+    # (``trainer.save_trainable_only`` overrides it)
     save_trainable_only = False
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.config: dict = {}
         self.logger = logging.getLogger(__name__)
+        self._freeze_mask = None
 
     # ------------------------------------------------------------ builders
     def setup(self, config) -> dict:
@@ -149,7 +167,8 @@ class BaseRunner:
         """Epoch loop with plateau LR, early stop, best/last checkpoints
         (reference run_strong.py:712-810).  Returns the run's record:
         ``train_loss`` and ``val_loss`` per epoch, ``step_loss`` (every
-        step's loss) and ``start_epoch``."""
+        step's loss), ``start_epoch`` and ``profile`` (the traces
+        written)."""
         trainer = self.config.get("trainer", {})
         epochs = trainer.get("epochs", 10)
         epoch_length = trainer.get("epoch_length")
@@ -161,20 +180,25 @@ class BaseRunner:
         monitor = trainer.get("metric_monitor",
                               {"mode": "min", "name": "loss"})
         metric_improver = MetricImprover(monitor["mode"])
+        self._freeze_mask = freeze_mask_from_model(model)
+        ckpt_mask = self._freeze_mask if trainable_only else None
         optimizer = Optimizer(
             self.config.get("optimizer", {"type": "Adam",
                                           "args": {"lr": 1e-3}}),
-            model.parameters(), trainer.get("max_grad_norm"))
+            trainable_parameters(model, self._freeze_mask),
+            trainer.get("max_grad_norm"))
         if "lr_scheduler" in self.config:
             scheduler = instantiate(self.config["lr_scheduler"])
         else:
             scheduler = ReduceLROnPlateau(mode=monitor["mode"])
         n_params = sum(p.numel() for p in model.parameters())
+        n_train = sum(p.numel() for p in optimizer.params)
         # f32 parameters; the audio encoder computes in its own dtype
         compute = getattr(getattr(model, "audio_encoder", model), "dtype",
                           torch.float32)
         self.logger.info(
-            f"{n_params} parameters; device {self.device}; compute "
+            f"{n_params} parameters ({n_train} trainable); device "
+            f"{self.device}; compute "
             f"{str(compute).replace('torch.', '')}; TF32 "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 
@@ -190,12 +214,23 @@ class BaseRunner:
 
         record = {"train_loss": [], "val_loss": [], "step_loss": [],
                   "start_epoch": start_epoch}
+        profiler = StepProfiler(trainer.get("profile"), exp_dir, self.device)
+        meter = ThroughputMeter()
+
+        def save(name: str) -> None:
+            save_checkpoint(exp_dir / name, model, optimizer, scheduler,
+                            epoch, metric_improver.state_dict(),
+                            not_improve_cnt, include_optim, trainable_only,
+                            ckpt_mask)
+
+        iteration = 0
         epoch = start_epoch - 1
         train_iter = iter(train_loader)
         for epoch in range(start_epoch, epochs + 1):
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             t0 = time.time()
+            meter.reset()
             steps = epoch_length or len(train_loader)
             losses = []
             for _ in range(steps):
@@ -204,10 +239,15 @@ class BaseRunner:
                 except StopIteration:
                     train_iter = iter(train_loader)
                     batch = next(train_iter)
+                batch = to_device(batch, self.device)
+                profiler.step(iteration)
                 losses.append(self.train_step(
-                    model, loss_fn, optimizer,
-                    to_device(batch, self.device), output_transform))
+                    model, loss_fn, optimizer, batch, output_transform))
+                meter.update(next(iter(batch.values())).shape[0])
+                iteration += 1
+            profiler.close(iteration)
             step_losses = torch.stack(losses).cpu().tolist()
+            throughput = meter.summary()
             record["step_loss"].extend(step_losses)
             train_loss = float(np.mean(step_losses))
 
@@ -225,26 +265,19 @@ class BaseRunner:
             self.logger.info(
                 f"epoch: {epoch}  train_loss: {train_loss:.4g}  "
                 f"val_loss: {val_loss:.4g}  lr: {lr:.2g}  "
-                f"({time.time() - t0:.1f}s)")
+                f"({time.time() - t0:.1f}s, {throughput})")
 
             if metric_improver(val_loss):
                 not_improve_cnt = 0
-                save_checkpoint(exp_dir / "best.pth", model, optimizer,
-                                scheduler, epoch,
-                                metric_improver.state_dict(),
-                                not_improve_cnt, include_optim, trainable_only)
+                save("best.pth")
             else:
                 not_improve_cnt += 1
             if epoch % save_interval == 0:
-                save_checkpoint(exp_dir / "last.pth", model, optimizer,
-                                scheduler, epoch,
-                                metric_improver.state_dict(),
-                                not_improve_cnt, include_optim, trainable_only)
+                save("last.pth")
             if not_improve_cnt == early_stop:
                 break
-        save_checkpoint(exp_dir / "last.pth", model, optimizer, scheduler,
-                        epoch, metric_improver.state_dict(),
-                        not_improve_cnt, include_optim, trainable_only)
+        save("last.pth")
+        record["profile"] = profiler.traces
         return record
 
     # ------------------------------------------------------ checkpoints
@@ -264,6 +297,12 @@ class BaseRunner:
         states and the monitor.  Returns ``{epoch, not_improve_cnt}`` for a
         full resume, else ``{}``."""
         payload = load_checkpoint(ckpt_path)
+        if (payload.get("trainables_only") and not finetune
+                and self._freeze_mask is None):
+            raise ValueError(
+                f"{ckpt_path} is a trainable-only checkpoint but the current "
+                "model freezes nothing: its frozen parameters cannot be "
+                "restored")
         load_weights(model, payload, self.logger.info)
         full = not finetune and "epoch" in payload
         if full:

@@ -5,10 +5,11 @@ Each holds the model's state dict in the reference naming (the layout
 ``weights.from_jax_variables`` produces, which the JAX package's
 ``training/torch_import.py:import_biencoder`` reads), the optimizer and
 learning-rate scheduler state, the epoch, the metric monitor, the
-not-improved count and ``save_trainable_only``, the runner's setting (the
-weak runner's is True, as in the JAX package).  The port has no freeze
-masks yet, so every parameter is trainable and the state dict is whole
-either way.
+not-improved count, ``save_trainable_only`` (the runner's setting: the
+weak runner's is True, as in the JAX package) and ``trainables_only``.
+With a freeze mask (``training/optim.py``) and ``save_trainable_only`` the
+frozen parameters are left out and every buffer kept (JAX
+``train_state.py:55-69``): ``trainables_only`` is then True.
 
 :func:`load_checkpoint` reads them back, and a reference-format ``.pth``
 (``{"model": state_dict}``, the layout of the JAX package's
@@ -26,17 +27,28 @@ from pathlib import Path
 import torch
 
 
+def trainable_state_dict(model: torch.nn.Module,
+                         trainable_mask: dict | None) -> dict:
+    """``model``'s state dict on the CPU, without the parameters that
+    ``trainable_mask`` (``{name: trainable}``) freezes; every buffer kept."""
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()
+            if trainable_mask is None or trainable_mask.get(k, True)}
+
+
 def save_checkpoint(path: str | Path, model: torch.nn.Module, optimizer,
                     scheduler, epoch: int, metric_monitor: dict,
                     not_improve_cnt: int, include_optim: bool = True,
-                    save_trainable_only: bool = False) -> None:
+                    save_trainable_only: bool = False,
+                    trainable_mask: dict | None = None) -> None:
+    """``trainable_mask`` (the freeze mask, passed only with
+    ``save_trainable_only``) prunes the frozen parameters."""
     payload = {
-        "model": {k: v.detach().cpu() for k, v in
-                  model.state_dict().items()},
+        "model": trainable_state_dict(model, trainable_mask),
         "epoch": epoch,
         "metric_monitor": metric_monitor,
         "not_improve_cnt": not_improve_cnt,
         "save_trainable_only": save_trainable_only,
+        "trainables_only": trainable_mask is not None,
     }
     if include_optim:
         payload["optimizer"] = optimizer.state_dict()
@@ -84,8 +96,12 @@ def load_weights(model: torch.nn.Module, payload: dict, log_fn=print) -> None:
     """A checkpoint's weights into ``model`` (in place: ``copy_`` into the
     existing tensors, so the conv blocks' prepared kernel weights are made
     anew).  Trainable-only and reference-format checkpoints merge by name
-    and shape; a whole checkpoint of this package must match exactly."""
-    if payload.get("save_trainable_only") or "epoch" not in payload:
+    and shape over the model's own values (a trainable-only one over the
+    frozen parameters the model already holds: the running model's on
+    resume, its fresh init on restore); a whole checkpoint of this package
+    must match exactly."""
+    if (payload.get("save_trainable_only") or payload.get("trainables_only")
+            or "epoch" not in payload):
         merge_matched_params(model, payload["model"], log_fn)
     else:
         model.load_state_dict(payload["model"])

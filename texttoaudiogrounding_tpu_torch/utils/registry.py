@@ -1,8 +1,9 @@
 """Component registry: config names → builders.
 
 The short names of ``texttoaudiogrounding_tpu/utils/registry.py`` that the
-strong-supervision config (``configs/strong/biencoder_train.yaml``) and
-the phrase-level WSTAG training configs (``configs/weak_phrase/``) use,
+strong-supervision configs (``configs/strong/biencoder_train.yaml``,
+``cdur_w2vmean.yaml``) and the phrase-level WSTAG training configs
+(``configs/weak_phrase/``) use, and every loss class,
 resolved to the port's classes, and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
@@ -29,6 +30,7 @@ def _fill() -> None:
     from texttoaudiogrounding_tpu_torch.models import (
         BiEncoder,
         Cnn8Rnn,
+        CrnnEncoder,
         DotProduct,
         EmbeddingAgg,
         ExpNegL2,
@@ -40,11 +42,11 @@ def _fill() -> None:
     )
     _REGISTRY.update({
         "BiEncoder": BiEncoder, "MultiTextBiEncoder": MultiTextBiEncoder,
-        "Cnn8Rnn": Cnn8Rnn, "Cnn8_Rnn": Cnn8Rnn,
+        "Cnn8Rnn": Cnn8Rnn, "Cnn8_Rnn": Cnn8Rnn, "CrnnEncoder": CrnnEncoder,
         "EmbeddingAgg": EmbeddingAgg, "ExpNegL2": ExpNegL2,
         "MatchExpNegL2": ExpNegL2, "DotProduct": DotProduct,
-        "MatchDotProduct": DotProduct, "FrameBceLoss": losses.FrameBceLoss,
-        "ClipBceLoss": losses.ClipBceLoss,
+        "MatchDotProduct": DotProduct,
+        **{name: getattr(losses, name) for name in losses.__all__},
         "AudioPhraseDataset": datasets.AudioPhraseDataset,
         "AudioPhraseEvalDataset": datasets.AudioPhraseEvalDataset,
         "AudioSamplePhrasesDataset": datasets.AudioSamplePhrasesDataset,

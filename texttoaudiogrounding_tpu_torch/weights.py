@@ -2,7 +2,8 @@
 a numpy seed.
 
 ``from_jax_variables`` maps the JAX ``{"params", "batch_stats"}`` tree of
-a ``BiEncoder(Cnn8Rnn, EmbeddingAgg, …)`` onto the port's state dict,
+a ``BiEncoder`` or ``MultiTextBiEncoder`` (audio tower ``Cnn8Rnn`` or
+``CrnnEncoder``, text tower ``EmbeddingAgg``) onto the port's state dict,
 whose names and layouts are the reference torch ones: conv kernels
 ``[kH, kW, Cin, Cout] → [Cout, Cin, kH, kW]``, dense kernels transposed,
 BatchNorm ``scale`` → ``weight`` with the running statistics as buffers,
@@ -57,6 +58,18 @@ def _gru(sd: dict, prefix: str, cell: dict, suffix: str) -> None:
         np.concatenate([zeros, zeros, cell["hn"]["bias"]]))
 
 
+def _crnn(sd: dict, a: str, ap: dict, ast: dict) -> None:
+    """A ``CrnnEncoder`` tower: flax's auto-named ``CDurBlock_0..4``
+    (``BatchNorm_0``, ``Conv_0``) → ``block1..5`` (``bn``, ``conv``), and
+    the BiGRU ``gru``."""
+    for i in range(5):
+        blk, jblk = f"{a}.block{i + 1}", f"CDurBlock_{i}"
+        _bn(sd, f"{blk}.bn", ap[jblk]["BatchNorm_0"], ast[jblk]["BatchNorm_0"])
+        sd[f"{blk}.conv.weight"] = _conv(ap[jblk]["Conv_0"])
+    _gru(sd, f"{a}.gru", ap["gru"]["GRUCell_0"], "")
+    _gru(sd, f"{a}.gru", ap["gru"]["GRUCell_1"], "_reverse")
+
+
 def from_jax_variables(variables: dict) -> dict:
     """JAX BiEncoder variables (nested dicts of arrays) → the port's
     ``BiEncoder`` state dict of CPU f32 tensors."""
@@ -64,6 +77,10 @@ def from_jax_variables(variables: dict) -> dict:
     ap, ast = params["audio_encoder"], stats["audio_encoder"]
     sd: dict = {}
     a = "audio_encoder"
+    if "CDurBlock_0" in ap:
+        _crnn(sd, a, ap, ast)
+        _text(sd, params)
+        return sd
     _bn(sd, f"{a}.bn0", ap["bn0"], ast["bn0"])
     for i in range(1, 5):
         blk = f"conv_block{i}"
@@ -74,6 +91,12 @@ def from_jax_variables(variables: dict) -> dict:
     _dense(sd, f"{a}.fc1", ap["fc1"])
     _gru(sd, f"{a}.rnn", ap["rnn"]["GRUCell_0"], "")
     _gru(sd, f"{a}.rnn", ap["rnn"]["GRUCell_1"], "_reverse")
+    _text(sd, params)
+    return sd
+
+
+def _text(sd: dict, params: dict) -> None:
+    """The ``EmbeddingAgg`` tower and the projections."""
     text = params["text_encoder"]
     sd["text_encoder.embedding.core.weight"] = _t(
         text["embedding"]["embed"]["embedding"])
@@ -82,15 +105,15 @@ def from_jax_variables(variables: dict) -> dict:
     for proj in ("audio_proj", "text_proj"):
         if proj in params:
             _dense(sd, proj, params[proj])
-    return sd
 
 
 def random_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
     """Random weights for every entry of ``model``'s state dict, made with
     numpy from ``seed``: xavier-uniform convs and dense layers,
     1/sqrt(fan-in) GRU weights (r/z recurrent biases zero, as in the JAX
-    parameter tree), BatchNorm affines near identity, and bn0
-    running statistics at the scale of log-mel dB values."""
+    parameter tree), BatchNorm affines near identity, and the running
+    statistics of the BatchNorms over the log-mel (``bn0``, CDur's
+    ``block1.bn``) at the scale of log-mel dB values."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, ref in model.state_dict().items():
@@ -98,9 +121,10 @@ def random_state_dict(model: torch.nn.Module, seed: int = 0) -> dict:
         if name.endswith("num_batches_tracked"):
             out[name] = torch.tensor(0)
             continue
-        if name.endswith("bn0.running_mean"):
+        # the BatchNorms over the log-mel: Cnn8Rnn's bn0, CDur's block 1
+        if name.endswith(("bn0.running_mean", "block1.bn.running_mean")):
             v = rng.uniform(-40.0, -20.0, shape)
-        elif name.endswith("bn0.running_var"):
+        elif name.endswith(("bn0.running_var", "block1.bn.running_var")):
             v = rng.uniform(100.0, 400.0, shape)
         elif name.endswith("running_mean"):
             v = rng.normal(0.0, 0.1, shape)
