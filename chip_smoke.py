@@ -227,7 +227,42 @@ Phases, each printing one line:
    ``from_experiment`` on the WSTAG run over 16 synthetic 10 s clips x the
    10 DESED classes (one forward of 10 rows a clip, ``gru_fwd`` once a
    forward), PSDS1, PSDS2 and macro-F1 finite in [0, 1], the host seconds
-   of scoring and of the metrics.
+   of scoring and of the metrics;
+12. train_sentence: ``WeakSentenceRunner.train`` on
+   ``configs/weak_sentence/phrase_wise/cnn8rnn_w2vmean_dp_amean_tmean.yaml``
+   as a dict (``AudioTextAlignByPhrase``: Cnn8Rnn f32, EmbeddingAgg(5221,
+   512), ``AlignDotProduct``, ``AudioMeanTextMean``;
+   ``MaxMarginRankingLoss``), cut as ``SENTENCE_CUTS`` lists, over
+   ``AudioCaptionPhrasesDataset`` + ``VarNumTextCollate`` (32 clips x 10 s
+   of 1-6 phrases a batch, made in memory), 2 epochs of 4 steps and 2
+   validation batches: ``gru_fwd`` once a step, ``gru_bwd`` once a train
+   step, checkpoints; gradients within the f32 limits of the all-plain
+   path's, the loss falling over 8 steps on one batch, the step's ms
+   (CUDA events) and one profiled step; then the word-wise config
+   (``AudioTextAlignByWord`` on 8-20 token captions) for 1 epoch and
+   ``WeakSentenceRunner.evaluate`` of it with ``word_wise/eval.yaml``'s
+   keys on phase 8's set (``gru_fwd`` once a batch, metrics finite in
+   [0, 1], every frame of each track), again with ``gru_kernel=False``
+   (tracks within 1e-4);
+13. train_selfsup: ``WeakPhraseSelfSupervisionRunner.train`` on
+   ``configs/weak_phrase/cnn8rnn_w2vmean_clustering_selfsup.yaml`` as a
+   dict, cut as ``SELFSUP_CUTS`` lists (WAV clips written to the work
+   directory, clustering negatives over a seeded 32-cluster map), the
+   teacher loaded from phase 7's (v2) ``best.pth`` through
+   ``teacher.checkpoint``, 2 epochs of 4 steps: ``gru_fwd`` twice a step
+   (student and teacher), ``gru_bwd`` once a train step; the teacher's
+   parameters and buffers bit for bit unchanged, no checkpoint key of it,
+   its ``frame_sim`` on the first batch within 1e-4 of the checkpoint in a
+   fresh plain model, the fused labels at least the batch's; the step's
+   ms;
+14. cross_models: one forward each at full width on 4 clips x 8 phrases
+   of ``MultiTextBiEncoder`` with ``CrossAttentionGating(512)`` + a
+   token-level ``DotProduct``, with ``CrossAttention(512, 8)``, with
+   ``upsample=True``, and of ``AudioTextCrossAlignByPhrase``, each within
+   1e-4 relative RMS of the same weights with ``gru_kernel=False`` and
+   ``gru_fwd`` once; one train step of ``MultiTextBiEncoderWithAlign``
+   under ``ClipBceLoss`` + ``MaxMarginRankingLoss(sim_key=
+   "sentence_sim")``: a finite loss, ``gru_fwd`` and ``gru_bwd`` once.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -4356,6 +4391,623 @@ def desed_phase(weak_exp: Path) -> dict:
             "psds_s": psds_s, "macro_f1_s": f1_s}
 
 
+# ------------------- sentence-level WSTAG, self-supervision, cross models
+SENTENCE_PHRASE_YAML = ("configs/weak_sentence/phrase_wise/"
+                        "cnn8rnn_w2vmean_dp_amean_tmean.yaml")
+SENTENCE_WORD_YAML = ("configs/weak_sentence/word_wise/"
+                      "cnn8rnn_w2v_dp_amean_tmean.yaml")
+SELFSUP_YAML = "configs/weak_phrase/cnn8rnn_w2vmean_clustering_selfsup.yaml"
+SENTENCE_EPOCHS, SENTENCE_STEPS, SENTENCE_VAL_BATCHES = 2, 4, 2
+WORD_EPOCHS = 1
+SELFSUP_CLUSTERS = 32
+# the keys of the three configs that the phases change: the run's directory,
+# the data made in memory (the sentence datasets' waveforms by audio id and
+# label lists; the self-supervision sampler's WAV index, label list and
+# cluster map under the run's work directory) and the tokenizer's
+# vocabulary file, the train loader's worker processes (none), the epochs
+# cut to SENTENCE_EPOCHS (the word-wise run WORD_EPOCHS) of SENTENCE_STEPS
+# (SENTENCE_VAL_BATCHES validation batches), and the teacher's checkpoint
+# for teacher.pretrained, which neither package reads
+_DATA_CUTS = tuple(f"data.{split}.{key}" for split in ("train", "val")
+                   for key in ("dataset.args.label",
+                               "collate_fn.args.tokenizer.args.vocabulary"))
+SENTENCE_CUTS = ("experiment_path", "data.train.dataloader_args.num_workers",
+                 "trainer.epochs", "trainer.epoch_length", *_DATA_CUTS,
+                 "data.train.dataset.args.waveform",
+                 "data.val.dataset.args.waveform")
+SELFSUP_CUTS = ("experiment_path", "data.train.dataloader_args.num_workers",
+                "trainer.epochs", "trainer.epoch_length", *_DATA_CUTS,
+                "data.train.dataset.args.audio",
+                "data.val.dataset.args.audio",
+                "data.train.dataset.args.cluster_map",
+                "data.val.dataset.args.cluster_map", "teacher.pretrained",
+                "teacher.checkpoint")
+CROSS_CLIPS, CROSS_PHRASES = 4, 8
+
+
+def _sentence_model(kind: str) -> dict:
+    """The model of ``configs/weak_sentence/{phrase,word}_wise``: an align
+    model on Cnn8Rnn, ``EmbeddingAgg(5221, 512)``, ``AlignDotProduct``
+    without ``l2norm`` or scaling, ``AudioMeanTextMean``."""
+    return {"type": kind, "args": {"shared_dim": 512, "add_proj": False},
+            "audio_encoder": {"type": "Cnn8Rnn",
+                              "args": {"sample_rate": SR}},
+            "text_encoder": {"type": "EmbeddingAgg",
+                             "args": {"embed_dim": 512, "vocab_size": 5221,
+                                      "aggregation": "mean"}},
+            "match_fn": {"type": "AlignDotProduct",
+                         "args": {"l2norm": False, "scaled": False}},
+            "sim_pooling": {"type": "AudioMeanTextMean", "args": {}}}
+
+
+def _sentence_config(exp_dir: str, kind: str, data: dict, epochs: int
+                     ) -> dict:
+    """``configs/weak_sentence/*/cnn8rnn_*.yaml`` as a dict, cut as
+    ``SENTENCE_CUTS`` lists: ``kind`` is the model, ``data`` the
+    ``data.train`` / ``data.val`` entries."""
+    return {
+        "experiment_path": exp_dir, "seed": 1, "data": data,
+        "model": _sentence_model(kind),
+        "loss": {"type": "MaxMarginRankingLoss", "args": {}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "factor": 0.1,
+                                  "patience": 3, "threshold": 0.001}},
+        "trainer": {"metric_monitor": {"mode": "min", "name": "loss"},
+                    "epochs": epochs, "epoch_length": SENTENCE_STEPS,
+                    "early_stop": 10, "lr_update_interval": "epoch",
+                    "save_interval": 10, "include_optim_in_ckpt": False,
+                    "max_grad_norm": 1.0}}
+
+
+def _sentence_data(work: Path, words: bool) -> dict:
+    """``data.train`` / ``data.val`` over clips made in memory: 10 s of
+    noise (16 distinct clips, float16 as the packed HDF5 files hold) under
+    audio ids, captions of 1-6 phrases of 1-4 words from a seeded pool over
+    the vocabulary (phrase-wise: ``AudioCaptionPhrasesDataset`` +
+    ``VarNumTextCollate``) or of 8-20 words (word-wise:
+    ``AudioCaptionDataset`` + ``TextCollate`` of the caption)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23 if words else 22)
+    noise = [rng.normal(0, 0.01, SR * CLIP_S).astype(np.float16)
+             for _ in range(16)]
+    vocab = np.array([f"w{i}" for i in range(2, 5000)])
+    pool = np.array([" ".join(rng.choice(vocab, int(rng.integers(1, 5))))
+                     for _ in range(WEAK_POOL)])
+
+    def split(prefix: str, clips: int) -> dict:
+        label, waves = [], {}
+        for i in range(clips):
+            aid = f"{prefix}{i}"
+            waves[aid] = noise[i % len(noise)]
+            phrases = [str(p) for p in rng.choice(
+                pool, int(rng.integers(1, 7)), replace=False)]
+            label.append({"audiocap_id": i, "audio_id": aid,
+                          "tokens": " ".join(rng.choice(
+                              vocab, int(rng.integers(8, 21)))),
+                          "phrases": [{"phrase": p} for p in phrases]})
+        collate = {"type": "VarNumTextCollate", "args": {
+            "text_key": "caption" if words else "phrases",
+            "pad_keys": ["waveform"], "pad_buckets": {"waveform": 32000},
+            "text_bucket": 4, "tokenizer": {
+                "type": "DictTokenizer",
+                "args": {"vocabulary": str(work / "vocab.pkl")}}}}
+        if words:
+            collate["type"] = "TextCollate"
+        return {"dataset": {"type": ("AudioCaptionDataset" if words
+                                     else "AudioCaptionPhrasesDataset"),
+                            "args": {"waveform": waves, "label": label}},
+                "collate_fn": collate,
+                "dataloader_args": {"batch_size": TRAIN_CLIPS}}
+
+    data = {"train": split("cap", TRAIN_CLIPS * SENTENCE_STEPS),
+            "val": split("capval", TRAIN_CLIPS * SENTENCE_VAL_BATCHES)}
+    data["train"]["dataloader_args"]["num_workers"] = 0
+    return data
+
+
+def _fit_checked(label: str, train, want: dict) -> tuple:
+    """Run ``train()`` (a runner's ``train``) with the counts set to 0
+    just before and hold it: the counts read just after equal ``want``,
+    the checkpoints and log written, every epoch's losses finite.
+    Returns (experiment directory, seconds, launches)."""
+    import math
+
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp_dir = train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    for name in ("best.pth", "last.pth", "train.log"):
+        if not (exp_dir / name).is_file():
+            raise AssertionError(f"{label}: {name} not written")
+    losses = [float(tok) for ln in (exp_dir / "train.log").read_text(
+    ).splitlines() if "train_loss" in ln
+        for tok in (ln.split("train_loss: ")[1].split()[0],
+                    ln.split("val_loss: ")[1].split()[0])]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: epoch losses {losses}")
+    return exp_dir, seconds, launches
+
+
+def train_sentence_phase(tok, work: Path) -> dict:
+    """Sentence-level WSTAG on the card: ``WeakSentenceRunner.train`` on the
+    phrase-wise config (``AudioTextAlignByPhrase``, ``MaxMarginRankingLoss``)
+    at full width, 2 epochs of 4 steps of 32 clips x 10 s and 2 validation
+    batches, row 13 forward once a step and backward once a train step;
+    its gradients against the all-plain path (f32 limits), the loss on one
+    batch over 8 steps, the step timed (CUDA events) and profiled; then the
+    word-wise config (``AudioTextAlignByWord`` on 8-20 token captions) for
+    1 epoch, and ``WeakSentenceRunner.evaluate`` of it with
+    ``word_wise/eval.yaml``'s keys on the evaluate phase's set, again with
+    ``gru_kernel=False`` (tracks within 1e-4)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        weak_output_transform)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    steps = SENTENCE_EPOCHS * SENTENCE_STEPS
+    vals = SENTENCE_EPOCHS * SENTENCE_VAL_BATCHES
+    runner = WeakSentenceRunner(device=DEVICE)
+    config = _sentence_config(str(work / "sentence_phrase"),
+                              "AudioTextAlignByPhrase",
+                              _sentence_data(work, words=False),
+                              SENTENCE_EPOCHS)
+    exp_dir, fit_s, launches = _fit_checked(
+        "train_sentence phrase-wise", lambda: runner.train(config),
+        _want(gru_fwd=steps + vals, gru_bwd=steps))
+    report = {"clips_per_batch": TRAIN_CLIPS, "clip_s": CLIP_S,
+              "phrase_wise": {"fit_s": fit_s, "launches": launches}}
+
+    # one validation batch; gradients against the all-plain path
+    loader = runner.build_dataloader(config["data"]["val"], shuffle=False)
+    batch = to_device(next(iter(loader)), torch.device(DEVICE))
+    report["phrase_wise"]["phrases_in_batch"] = int(batch["phrases_num"].sum())
+    loss_fn = runner.build_loss()
+    model = runner.build_model()
+    runner.restore_state(model, exp_dir, "last")
+    sd = copy.deepcopy(model.state_dict())
+    plain_cfg = copy.deepcopy(config["model"])
+    plain_cfg["audio_encoder"]["args"].update(gru_kernel=False,
+                                              dropout=[0.0, 0.0])
+    ref_model = instantiate(plain_cfg, device=DEVICE)
+    ref_model.load_state_dict(sd)
+    model.audio_encoder.dropout = (0.0, 0.0)
+    gaps = _gaps(_grads(model, batch, weak_output_transform, loss_fn),
+                 _grads(ref_model, batch, weak_output_transform, loss_fn))
+    worst = _worst(gaps)
+    if worst[0] > 2e-2 or worst[1] > 1e-4:
+        raise AssertionError(
+            f"train_sentence gradients off the plain path: trunk "
+            f"{worst[0]}, rest {worst[1]} (limits 2e-2, 1e-4): "
+            f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:6]}")
+    del ref_model
+    model.audio_encoder.dropout = (0.2, 0.5)
+
+    # the loss falls over 8 steps on the batch; step time; one traced step
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = [float(runner.train_step(model, loss_fn, opt, batch,
+                                      weak_output_transform))
+              for _ in range(8)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_sentence: loss on a fixed batch does "
+                             f"not fall: {losses}")
+
+    def step():
+        runner.train_step(model, loss_fn, opt, batch, weak_output_transform)
+
+    step_ms = _cuda_ms(step, 5)
+    report["phrase_wise"].update(
+        grad_rel_rms_trunk_max=worst[0], grad_rel_rms_rest_max=worst[1],
+        fixed_batch_loss=losses, step_ms=step_ms,
+        clips_per_s=TRAIN_CLIPS * 1e3 / step_ms,
+        trace=_trace(step, step_ms))
+    del model, opt
+
+    # word-wise: 1 epoch, then evaluated with word_wise/eval.yaml's keys
+    words = WeakSentenceRunner(device=DEVICE)
+    wconfig = _sentence_config(str(work / "sentence_word"),
+                               "AudioTextAlignByWord",
+                               _sentence_data(work, words=True), WORD_EPOCHS)
+    wexp, fit_s, launches = _fit_checked(
+        "train_sentence word-wise", lambda: words.train(wconfig),
+        _want(gru_fwd=WORD_EPOCHS * (SENTENCE_STEPS + SENTENCE_VAL_BATCHES),
+              gru_bwd=WORD_EPOCHS * SENTENCE_STEPS))
+    report["word_wise"] = {"fit_s": fit_s, "launches": launches}
+    waves, label = _eval_data(work)
+    batches = -(-2 * EVAL_CLIPS // EVAL_BATCH)
+    n_th = EVAL_KEYS["n_thresholds"]
+    word_keys = {"time_resolution": 0.04, "word_aggregation": "mean"}
+    evaluator = WeakSentenceRunner(device=DEVICE)
+    report["word_wise"]["evaluate"] = _evaluated(
+        "evaluate sentence word-wise", lambda: evaluator.evaluate(
+            wexp, _eval_config(work, waves, label, **word_keys)),
+        _want(gru_fwd=batches), wexp, n_th)
+    tracks = _tracks(evaluator)
+    frames = {len(t) for t in tracks.values()}
+    want_frames = (SR * CLIP_S // 320 + 1) // 4       # every frame, uncut
+    if len(tracks) != 2 * EVAL_CLIPS or frames != {want_frames}:
+        raise AssertionError(f"evaluate sentence: {len(tracks)} tracks of "
+                             f"{frames} frames (expected {2 * EVAL_CLIPS} "
+                             f"of {want_frames})")
+    plain = WeakSentenceRunner(device=DEVICE)
+    _evaluated("evaluate sentence gru_kernel=False", lambda: plain.evaluate(
+        wexp, _eval_config(work, waves, label, **word_keys,
+                           output="result_plain.txt", model_overrides={
+                               "audio_encoder": {"args": {
+                                   "gru_kernel": False}}})),
+        _want(), wexp, n_th)
+    gap = _track_gap(_tracks(plain), tracks)
+    if gap > 1e-4:
+        raise AssertionError(f"evaluate sentence: GRU kernel tracks {gap} "
+                             "off the plain GRU's (limit 1e-4)")
+    report["word_wise"]["evaluate"]["max_abs_vs_plain_gru"] = gap
+    report["word_wise"]["evaluate"]["host_seconds"] = dict(
+        evaluator.eval_seconds)
+    return report
+
+
+def _selfsup_config(work: Path, teacher_ckpt: Path) -> dict:
+    """``configs/weak_phrase/cnn8rnn_w2vmean_clustering_selfsup.yaml`` as a
+    dict, cut as ``SELFSUP_CUTS`` lists, over data written under ``work``:
+    16 WAV clips of 10 s of noise (int16), captions of 2-6 phrases from a
+    seeded pool over the vocabulary, and a seeded map of the captions'
+    phrases into ``SELFSUP_CLUSTERS`` clusters."""
+    import json as _json
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(24)
+    root = work / "selfsup_data"
+    root.mkdir(parents=True, exist_ok=True)
+    wavs = []
+    for i in range(16):
+        path = root / f"noise{i}.wav"
+        wavfile.write(path, SR, (rng.normal(0, 0.01, SR * CLIP_S) * 32767)
+                      .astype(np.int16))
+        wavs.append(path)
+    words = np.array([f"w{i}" for i in range(2, WEAK_VOCAB)])
+    pool = np.array(sorted({" ".join(rng.choice(words,
+                                                int(rng.integers(1, 5))))
+                            for _ in range(WEAK_POOL)}))
+    labels = {prefix: [{"audiocap_id": i, "audio_id": f"{prefix}{i}",
+                        "tokens": "", "phrases": [str(p) for p in rng.choice(
+                            pool, int(rng.integers(2, 7)), replace=False)]}
+                       for i in range(clips)]
+              for prefix, clips in (("ss", TRAIN_CLIPS * SENTENCE_STEPS),
+                                    ("ssval", TRAIN_CLIPS
+                                     * SENTENCE_VAL_BATCHES))}
+    # the captions' phrases in clusters, as k-means over them gives
+    used = sorted({p for label in labels.values() for it in label
+                   for p in it["phrases"]})
+    clusters = rng.integers(0, SELFSUP_CLUSTERS, len(used))
+    (root / "clusters.json").write_text(_json.dumps(
+        {str(c): [p for p, k in zip(used, clusters) if k == c]
+         for c in range(SELFSUP_CLUSTERS)}))
+
+    def split(prefix: str) -> dict:
+        label = labels[prefix]
+        index = root / f"{prefix}.csv"
+        index.write_text("audio_id\tfile_path\n" + "".join(
+            f"{it['audio_id']}\t{wavs[i % len(wavs)]}\n"
+            for i, it in enumerate(label)))
+        return {"dataset": {"type": "AudioSamplePhrasesDataset", "args": {
+                    "label": label, "audio": str(index),
+                    "phrase_num": WEAK_PHRASES,
+                    "neg_samp_stratg": "clustering", "fix_neg": False,
+                    "cluster_map": str(root / "clusters.json"),
+                    "max_audio_length": float(CLIP_S)}},
+                "collate_fn": {"type": "TextCollate", "args": {
+                    "pad_keys": ["waveform"],
+                    "pad_buckets": {"waveform": 32000},
+                    "text_key": "phrases", "text_bucket": 4,
+                    "tokenizer": {"type": "DictTokenizer", "args": {
+                        "vocabulary": str(work / "vocab.pkl")}}}},
+                "dataloader_args": {"batch_size": TRAIN_CLIPS}}
+
+    model = {"type": "MultiTextBiEncoder",
+             "args": {"shared_dim": 512,
+                      "text_forward_keys": ["text", "text_len"],
+                      "add_proj": False, "pooling": "linear_softmax"},
+             "audio_encoder": {"type": "Cnn8Rnn",
+                               "args": {"sample_rate": SR,
+                                        "freeze_cnn": False,
+                                        "freeze_bn": False}},
+             "text_encoder": {"type": "EmbeddingAgg",
+                              "args": {"vocab_size": WEAK_VOCAB,
+                                       "embed_dim": 512}},
+             "match_fn": {"type": "DotProduct", "args": {}}}
+    data = {"train": split("ss"), "val": split("ssval")}
+    data["train"]["dataloader_args"]["num_workers"] = 0
+    return {
+        "experiment_path": str(work / "selfsup"), "seed": 1, "data": data,
+        "model": model,
+        "loss": {"type": "ClipFrameBceLoss",
+                 "args": {"frame_weight": 0.5, "clip_label_key": "label",
+                          "frame_label_key": "frame_label"}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "patience": 3}},
+        "eval_config": {"n_thresholds": 50},
+        "inference_args": {"window_size": 1, "time_resolution": 0.04},
+        "trainer": {"metric_monitor": {"mode": "min", "name": "loss"},
+                    "epochs": SENTENCE_EPOCHS,
+                    "epoch_length": SENTENCE_STEPS, "early_stop": 10,
+                    "lr_update_interval": "epoch", "save_interval": 10,
+                    "include_optim_in_ckpt": False, "max_grad_norm": 1.0},
+        "teacher": {**model, "checkpoint": str(teacher_ckpt)}}
+
+
+def train_selfsup_phase(work: Path, weak_exp: Path) -> dict:
+    """``WeakPhraseSelfSupervisionRunner.train`` on the self-supervision
+    config at full width (2 epochs of 4 steps of 32 clips x 10 s x 32
+    phrases, clustering negatives, 2 validation batches), the teacher
+    loaded from the WSTAG (v2) run's ``best.pth``: row 13's forward twice
+    a step (student and teacher) and backward once a train step; the
+    teacher's parameters and buffers bit for bit unchanged, no checkpoint
+    holding a key of it, its ``frame_sim`` on the first batch within 1e-4
+    of that checkpoint in a fresh model with ``gru_kernel=False``, the
+    fused labels at least the batch's; the step timed (CUDA events)."""
+    import copy
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseSelfSupervisionRunner)
+    from texttoaudiogrounding_tpu_torch.training.train_state import (
+        load_checkpoint, load_weights)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    source = weak_exp / "best.pth"
+    config = _selfsup_config(work, source)
+    runner = WeakPhraseSelfSupervisionRunner(device=DEVICE)
+    built = {}
+    build_teacher = runner.build_teacher
+
+    def recorded_teacher():
+        teacher = build_teacher()
+        built.update({k: v.detach().clone()
+                      for k, v in teacher.state_dict().items()})
+        return teacher
+
+    runner.build_teacher = recorded_teacher
+    steps = SENTENCE_EPOCHS * SENTENCE_STEPS
+    vals = SENTENCE_EPOCHS * SENTENCE_VAL_BATCHES
+    exp_dir, fit_s, launches = _fit_checked(
+        "train_selfsup", lambda: runner.train(config),
+        _want(gru_fwd=2 * (steps + vals), gru_bwd=steps))
+    teacher = runner.teacher
+    moved = [k for k, v in teacher.state_dict().items()
+             if not torch.equal(v, built[k])]
+    if moved or teacher.training or any(p.requires_grad
+                                        for p in teacher.parameters()):
+        raise AssertionError(f"train_selfsup: teacher moved {moved[:6]} or "
+                             "left eval mode or needs gradients")
+    ckpt_source = load_checkpoint(source)["model"]
+    loaded = [k for k, v in teacher.state_dict().items()
+              if k in ckpt_source and torch.equal(v.cpu(), ckpt_source[k])]
+    if len(loaded) != len(ckpt_source):
+        raise AssertionError(f"train_selfsup: {len(loaded)} of "
+                             f"{len(ckpt_source)} checkpoint entries in "
+                             "the teacher")
+    student = runner.build_model()
+    for name in ("best.pth", "last.pth"):
+        keys = set(torch.load(exp_dir / name, weights_only=True)["model"])
+        if keys != set(student.state_dict()) or any(
+                k.startswith("teacher") for k in keys):
+            raise AssertionError(f"train_selfsup: {name} holds "
+                                 f"{sorted(keys ^ set(student.state_dict()))[:6]}")
+
+    # the first batch: the teacher against the checkpoint in a fresh plain
+    # model; the fused labels
+    batch = to_device(next(iter(runner.build_dataloader(
+        config["data"]["train"], shuffle=True))), torch.device(DEVICE))
+    plain_cfg = copy.deepcopy(config["model"])
+    plain_cfg["audio_encoder"]["args"]["gru_kernel"] = False
+    ref_teacher = instantiate(plain_cfg, device=DEVICE)
+    load_weights(ref_teacher, load_checkpoint(source))
+    ref_teacher.eval()
+    with torch.no_grad():
+        gap = float((teacher(batch)["frame_sim"]
+                     - ref_teacher(batch)["frame_sim"]).abs().max())
+    if gap > 1e-4:
+        raise AssertionError(f"train_selfsup: teacher frame_sim {gap} off "
+                             "the checkpoint's plain forward (limit 1e-4)")
+    del ref_teacher
+    runner.restore_state(student, exp_dir, "last")
+    transform = runner.teacher_transform(teacher)
+    with torch.no_grad():
+        fused = transform(student(batch), batch)
+    if not bool((fused["label"] >= batch["label"]).all()) or \
+            fused["frame_label"].shape != fused["frame_sim"].shape:
+        raise AssertionError("train_selfsup: fused labels below the "
+                             "batch's, or frame labels misshapen")
+
+    loss_fn = runner.build_loss()
+    opt = Optimizer(config["optimizer"], student.parameters(), 1.0)
+
+    def step():
+        runner.train_step(student, loss_fn, opt, batch, transform)
+
+    step_ms = _cuda_ms(step, 5)
+    moved = [k for k, v in teacher.state_dict().items()
+             if not torch.equal(v, built[k])]
+    if moved:
+        raise AssertionError(f"train_selfsup: timed steps moved the "
+                             f"teacher: {moved[:6]}")
+    return {"fit_s": fit_s, "launches": launches,
+            "teacher_entries_loaded": len(loaded),
+            "teacher_frame_sim_max_abs_vs_plain": gap,
+            "label_raised_share": float(
+                (fused["label"] > batch["label"]).float().mean()),
+            "step_ms": step_ms, "clips_per_s": TRAIN_CLIPS * 1e3 / step_ms,
+            "trace": _trace(step, step_ms)}
+
+
+def _cross_batch(tok, phrases_flat: bool) -> dict:
+    """``CROSS_CLIPS`` clips of 10 s (noise, a tone each) with
+    ``CROSS_PHRASES`` phrases a clip of 1-4 words, the first half labelled
+    positive: ``text [B, N, L]`` for the multi-text models or, with
+    ``phrases_flat``, ``VarNumTextCollate``'s ``phrases [B·N, L]`` layout;
+    on the card."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.data.collate import (
+        TextCollate, VarNumTextCollate)
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+
+    rng = np.random.default_rng(25)
+    items = []
+    for i in range(CROSS_CLIPS):
+        wav = rng.normal(0, 0.01, SR * CLIP_S).astype(np.float32)
+        k = i % 4                             # a tone over an eighth-to-
+        idx = np.arange(SR * CLIP_S * (k + 1) // 8,   # quarter of the clip
+                        SR * CLIP_S * (k + 3) // 8)
+        wav[idx] += 0.3 * np.sin(2 * np.pi * _TONES[i % len(_TONES)] * idx
+                                 / SR)
+        items.append({"waveform": wav, "phrases": [
+            " ".join(f"w{w}" for w in rng.integers(2, 5000,
+                                                   int(rng.integers(1, 5))))
+            for _ in range(CROSS_PHRASES)],
+            "label": np.array([1.0] * (CROSS_PHRASES // 2)
+                              + [0.0] * (CROSS_PHRASES // 2), np.float32)})
+    make = VarNumTextCollate if phrases_flat else TextCollate
+    batch = make(tok, text_key="phrases", pad_keys=["waveform"],
+                 pad_buckets={"waveform": 32000}, text_bucket=4)(items)
+    return to_device(batch, torch.device(DEVICE))
+
+
+def cross_models_phase(tok) -> dict:
+    """One forward each at full width (Cnn8Rnn, EmbeddingAgg(5221, 512),
+    shared 512, no projections) on 4 clips x 8 phrases of the models the
+    slice adds: ``MultiTextBiEncoder`` with ``CrossAttentionGating(512)`` +
+    a token-level ``DotProduct``, with ``CrossAttention(512, 8)``, with
+    ``upsample=True``, and ``AudioTextCrossAlignByPhrase``; each within
+    1e-4 relative RMS of the same weights with ``gru_kernel=False``, row
+    13's forward once a forward; then one train step of
+    ``MultiTextBiEncoderWithAlign`` under ``MultipleLossSum(ClipBceLoss +
+    MaxMarginRankingLoss(sim_key="sentence_sim"))``: a finite loss, row
+    13's forward and backward once."""
+    import collections
+    import copy
+    import math
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseRunner, weak_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    gating = {"type": "CrossAttentionGating", "args": {"embed_dim": 512}}
+    token_dot = {"type": "DotProduct", "args": {"text_level": "token"}}
+
+    def multi(match, **extra) -> dict:
+        return {"type": "MultiTextBiEncoder",
+                "args": {"shared_dim": 512, "add_proj": False},
+                "audio_encoder": {"type": "Cnn8Rnn",
+                                  "args": {"sample_rate": SR}},
+                "text_encoder": {"type": "EmbeddingAgg",
+                                 "args": {"vocab_size": WEAK_VOCAB,
+                                          "embed_dim": 512}},
+                "match_fn": match, **extra}
+
+    cross_align = {**_sentence_model("AudioTextCrossAlignByPhrase"),
+                   "match_fn": token_dot, "cross_encoder": gating}
+    models = {
+        "gating_dot_token": (multi(token_dot, cross_encoder=gating),
+                             "frame_sim"),
+        "cross_attention": (multi({"type": "CrossAttention", "args": {
+            "embed_dim": 512, "num_heads": 8}}), "frame_sim"),
+        "upsample": ({**multi({"type": "DotProduct", "args": {}}),
+                      "args": {"shared_dim": 512, "add_proj": False,
+                               "upsample": True}}, "frame_sim"),
+        "cross_align_by_phrase": (cross_align, "sim_matrix"),
+    }
+    nested, flat = _cross_batch(tok, False), _cross_batch(tok, True)
+    report: dict = {"clips": CROSS_CLIPS, "phrases": CROSS_PHRASES}
+    total = collections.Counter()
+    for seed, (name, (cfg, key)) in enumerate(models.items(), start=30):
+        batch = flat if name == "cross_align_by_phrase" else nested
+        model = instantiate(cfg, device=DEVICE)
+        sd = random_state_dict(model, seed=seed)
+        model.load_state_dict(sd)
+        plain_cfg = copy.deepcopy(cfg)
+        plain_cfg["audio_encoder"]["args"]["gru_kernel"] = False
+        plain = instantiate(plain_cfg, device=DEVICE)
+        plain.load_state_dict(sd)
+        _reset_counts()
+        with torch.no_grad():
+            out = model(batch)
+            launches = _counts()
+            ref = plain(batch)
+        if launches != _want(gru_fwd=1):
+            raise AssertionError(f"cross_models {name}: kernel launches "
+                                 f"{launches}, expected gru_fwd 1")
+        got, want = out[key].double(), ref[key].double()
+        rel = float(torch.sqrt(((got - want) ** 2).mean()
+                               / (want ** 2).mean()))
+        if not (math.isfinite(rel) and rel <= 1e-4):
+            raise AssertionError(f"cross_models {name}: {key} {rel} "
+                                 "relative RMS off the plain GRU's")
+        with torch.no_grad():
+            ms = _cuda_ms(lambda: model(batch), 3)
+        total.update(launches)
+        report[name] = {"shape": list(out[key].shape), "rel_rms": rel,
+                        "launches": _nonzero(launches), "forward_ms": ms}
+        del model, plain
+
+    # one train step of the sentence branch's model
+    align_cfg = {**multi({"type": "DotProduct", "args": {}}),
+                 "type": "MultiTextBiEncoderWithAlign",
+                 "align_fn": {"type": "AlignDotProduct", "args": {}},
+                 "sentence_pooling": {"type": "AudioMeanTextMean",
+                                      "args": {}}}
+    loss_cfg = {"type": "MultipleLossSum",
+                "args": {"names": ["clip", "sentence"], "weights": [1, 1]},
+                "clip": {"type": "ClipBceLoss", "args": {}},
+                "sentence": {"type": "MaxMarginRankingLoss",
+                             "args": {"sim_key": "sentence_sim"}}}
+    model = instantiate(align_cfg, device=DEVICE)
+    model.load_state_dict(random_state_dict(model, seed=40))
+    runner = WeakPhraseRunner(device=DEVICE)
+    opt = Optimizer({"type": "Adam", "args": {"lr": 0.001}},
+                    model.parameters(), 1.0)
+    _reset_counts()
+    loss = float(runner.train_step(model, instantiate(loss_cfg), opt, nested,
+                                   weak_output_transform))
+    launches = _counts()
+    if launches != _want(gru_fwd=1, gru_bwd=1) or not math.isfinite(loss):
+        raise AssertionError(f"cross_models with_align step: loss {loss}, "
+                             f"kernel launches {launches}")
+    total.update(launches)
+    report["with_align_step"] = {"loss": loss,
+                                 "launches": _nonzero(launches)}
+    report["launches"] = dict(total)
+    return report
+
+
 @functools.lru_cache(maxsize=None)
 def _port_kernel_pattern():
     """A pattern for the port's kernels in a profiled kernel name: each
@@ -4714,6 +5366,38 @@ def main() -> int:
     report["desed"] = desed
     print(json.dumps({"phase": "desed", "card": smi, **desed,
                       "launches": _nonzero(desed["launches"])}), flush=True)
+    sentence = train_sentence_phase(tok, work)
+    report["train_sentence"] = sentence
+    phrase, word = sentence["phrase_wise"], sentence["word_wise"]
+    print(json.dumps({"phase": "train_sentence", "card": smi,
+                      "phrase_wise": {
+                          **{k: phrase[k] for k in (
+                              "fit_s", "phrases_in_batch", "step_ms",
+                              "clips_per_s", "fixed_batch_loss",
+                              "grad_rel_rms_trunk_max",
+                              "grad_rel_rms_rest_max")},
+                          "launches": _nonzero(phrase["launches"]),
+                          **{m: phrase["trace"][m] for m in (
+                              "gru_ms", "conv_ms", "launches",
+                              "device_idle_share")}},
+                      "word_wise": {
+                          "fit_s": word["fit_s"],
+                          "launches": _nonzero(word["launches"]),
+                          "evaluate": {k: word["evaluate"][k] for k in (
+                              "metrics", "seconds", "host_seconds",
+                              "max_abs_vs_plain_gru")}}}), flush=True)
+    selfsup = train_selfsup_phase(work, weak_exp)
+    report["train_selfsup"] = selfsup
+    print(json.dumps({"phase": "train_selfsup", "card": smi, **{
+        k: v for k, v in selfsup.items() if k not in ("launches", "trace")},
+        "launches": _nonzero(selfsup["launches"]),
+        **{m: selfsup["trace"][m] for m in ("gru_ms", "conv_ms", "launches",
+                                            "device_idle_share")}}),
+          flush=True)
+    cross = cross_models_phase(tok)
+    report["cross_models"] = cross
+    print(json.dumps({"phase": "cross_models", "card": smi, **cross}),
+          flush=True)
     work_dir.cleanup()
 
     # launches on each path, counted from zero just before it
@@ -4731,7 +5415,12 @@ def main() -> int:
                "train_cdur": cdur["fit_launches"],
                "evaluate_cdur": cdur["evaluate"]["launches"],
                "finetune_frozen": frozen["launches"],
-               "desed": desed["launches"]}
+               "desed": desed["launches"],
+               "train_sentence_phrase": phrase["launches"],
+               "train_sentence_word": word["launches"],
+               "evaluate_sentence_word": word["evaluate"]["launches"],
+               "train_selfsup": selfsup["launches"],
+               "cross_models": cross["launches"]}
     for row in kernels:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c.get(counter, 0)

@@ -10,7 +10,9 @@ step).  Tolerances:
   rtol 1e-6, atol 1e-7;
 * ``MultiTextBiEncoder``'s f32 forward (``frame_sim [B, T, N]`` and
   ``clip_sim [B, N]``) at the full Cnn8Rnn width on 1 s clips: 1e-4
-  relative RMS, as the strong model's audio embedding is held;
+  relative RMS, as the strong model's audio embedding is held; so too
+  with ``upsample=True`` and with a token-level ``DotProduct`` under a
+  ``CrossAttentionGating`` cross encoder;
 * one whole f32 WSTAG train step (``ClipBceLoss`` through
   ``weak_output_transform``), the port's GRU on the hoisted ``v2``
   backward against the JAX runner's step on the CPU (its GRU a
@@ -60,6 +62,7 @@ import torch
 import yaml
 
 from tests.synthetic import make_grounding_data, make_vocab
+from tests.test_torch_port_align import jax_variables
 from tests.test_torch_port_train import _rel_rms
 from texttoaudiogrounding_tpu.data.collate import TextCollate as JCollate
 from texttoaudiogrounding_tpu.data.datasets import (
@@ -71,6 +74,9 @@ from texttoaudiogrounding_tpu.models import Cnn8Rnn as JCnn8Rnn
 from texttoaudiogrounding_tpu.models import EmbeddingAgg as JEmbeddingAgg
 from texttoaudiogrounding_tpu.models.audio_text_model import (
     MultiTextBiEncoder as JMultiText,
+)
+from texttoaudiogrounding_tpu.models.cross_encoder import (
+    CrossAttentionGating as JCrossGating,
 )
 from texttoaudiogrounding_tpu.models.match import DotProduct as JDotProduct
 from texttoaudiogrounding_tpu.models.match import ExpNegL2 as JExpNegL2
@@ -93,6 +99,7 @@ from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
 from texttoaudiogrounding_tpu_torch.losses import ClipBceLoss
 from texttoaudiogrounding_tpu_torch.models import (
     Cnn8Rnn,
+    CrossAttentionGating,
     DotProduct,
     EmbeddingAgg,
     ExpNegL2,
@@ -303,14 +310,47 @@ def test_whole_wstag_train_step_matches_the_jax_runner():
 
 
 def test_multitext_rejects_what_is_not_ported():
-    args = (Cnn8Rnn(), EmbeddingAgg(_VOCAB, _EMBED), DotProduct())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTextBiEncoder(*args, upsample=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTextBiEncoder(*args[:2], DotProduct(text_level="token"),
-                           device="cpu")
+    """Once the two refusals of what was not ported; now parity: with
+    ``upsample=True`` (``frame_sim`` interpolated to 100 frames, the
+    length ×4), and with a token-level ``DotProduct`` under a
+    ``CrossAttentionGating`` cross encoder (the broadcast branch), each
+    within 1e-4 relative RMS of the JAX model; an unknown pooling still
+    raises."""
+    batch = _batch()
+    cases = {
+        "upsample": (JMultiText(
+            audio_encoder=JCnn8Rnn(sample_rate=32000),
+            text_encoder=JEmbeddingAgg(vocab_size=_VOCAB, embed_dim=_EMBED),
+            match_fn=JDotProduct(), shared_dim=_EMBED, add_proj=True,
+            upsample=True), MultiTextBiEncoder(
+                Cnn8Rnn(), EmbeddingAgg(_VOCAB, _EMBED), DotProduct(),
+                shared_dim=_EMBED, add_proj=True, upsample=True,
+                device="cpu")),
+        "cross_token": (JMultiText(
+            audio_encoder=JCnn8Rnn(sample_rate=32000),
+            text_encoder=JEmbeddingAgg(vocab_size=_VOCAB, embed_dim=512),
+            match_fn=JDotProduct(text_level="token"),
+            cross_encoder=JCrossGating(embed_dim=512)), MultiTextBiEncoder(
+                Cnn8Rnn(), EmbeddingAgg(_VOCAB, 512),
+                DotProduct(text_level="token"),
+                cross_encoder=CrossAttentionGating(512), device="cpu")),
+    }
+    for name, (jmodel, model) in cases.items():
+        variables = jax_variables(jmodel, batch, model, seed=4)
+        ref = jmodel.apply(variables, batch, train=False)
+        with torch.no_grad():
+            out = model(to_device(batch, torch.device("cpu")))
+        t = 100 if name == "upsample" else 25
+        assert out["frame_sim"].shape == ref["frame_sim"].shape == (2, t,
+                                                                    _N)
+        np.testing.assert_array_equal(out["length"].numpy(),
+                                      np.asarray(ref["length"]))
+        for key in ("frame_sim", "clip_sim"):
+            rel = _rel_rms(out[key].numpy(), np.asarray(ref[key]))
+            assert rel <= 1e-4, (name, key, rel)
     with pytest.raises(ValueError, match="pooling"):
-        MultiTextBiEncoder(*args, pooling="attention", device="cpu")
+        MultiTextBiEncoder(Cnn8Rnn(), EmbeddingAgg(_VOCAB, _EMBED),
+                           DotProduct(), pooling="attention", device="cpu")
 
 
 # ------------------------------------------------------------------ dataset

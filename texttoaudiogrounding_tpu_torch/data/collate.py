@@ -3,7 +3,9 @@
 A copy of ``texttoaudiogrounding_tpu/data/collate.py``'s ``TextCollate``
 (reference datasets/collate_function.py:43-84): listed keys are padded
 (their lengths go to ``<key>_len``) up to a bucket multiple, the text
-column is tokenized, numbers are stacked and strings stay lists.
+column is tokenized, numbers are stacked and strings stay lists; and of
+its ``VarNumTextCollate`` (:172-205, reference :87-133) for a variable
+number of phrases an item.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ class TextCollate:
                             + [(0, t - v.shape[-1])])
         return out
 
+    def _text(self, values: list) -> dict:
+        return self._bucket_text(self.tokenizer(values))
+
     def __call__(self, data_batch: list) -> dict:
         gathered: dict = {}
         for data in data_batch:
@@ -68,7 +73,29 @@ class TextCollate:
                 output[key], output[f"{key}_len"] = pad_sequence(
                     values, self.pad_buckets.get(key, 1))
             elif key == self.text_key:
-                output.update(self._bucket_text(self.tokenizer(values)))
+                output.update(self._text(values))
             else:
                 output[key] = _stack_or_list(values)
         return output
+
+
+class VarNumTextCollate(TextCollate):
+    """``TextCollate`` over items whose text column is a list of phrases of
+    any length: the phrases of the batch flattened to ``{key} [ΣN, L]``
+    and ``{key}_len [ΣN]``, with ``{key}_num [B]`` and the gather map
+    ``{key}_pad_index [B, max N]`` (flat row of phrase n of item b, 0 past
+    ``{key}_num``), both int64, under the text column's own name."""
+
+    def _text(self, values: list) -> dict:
+        key = self.text_key
+        nums = np.array([len(x) for x in values])
+        tokens = super()._text([t for phrases in values for t in phrases])
+        pad_index = np.zeros((len(nums), int(nums.max()) if len(nums)
+                              else 1), np.int64)
+        offset = 0
+        for b, n in enumerate(nums):
+            pad_index[b, :n] = np.arange(offset, offset + n)
+            offset += n
+        return {f"{key}_num": nums, key: tokens["text"],
+                f"{key}_len": tokens["text_len"],
+                f"{key}_pad_index": pad_index}

@@ -1,9 +1,13 @@
-"""Datasets for strong supervision and for phrase-level WSTAG.
+"""Datasets for strong supervision and for phrase- and sentence-level
+WSTAG.
 
 Ports of ``texttoaudiogrounding_tpu/data/datasets.py:80-145`` (reference
-datasets/single_phrase_dataset.py:20-88) and ``:148-378``
+datasets/single_phrase_dataset.py:20-88), ``:148-378``
 (``AudioSamplePhrasesDataset``, reference
-datasets/multi_phrase_dataset.py:51-307) over the same files: a waveform
+datasets/multi_phrase_dataset.py:51-307) and ``:381-558`` (the caption
+datasets of sentence-level WSTAG and their evaluation items, reference
+datasets/multi_phrase_dataset.py:310-458, caption_dataset.py:11-61) over
+the same files: a waveform
 index (``audio_id<TAB>hdf5_path`` or ``audio_id<TAB>file_path``), the
 grounding label JSON ``[{audiocap_id, audio_id, tokens, phrases:
 [{phrase, start_index, end_index, segments: [[on, off], ...]}]}]`` and the
@@ -359,3 +363,155 @@ class AudioSamplePhrasesDataset(AudioReadMixin, Dataset):
 
     def __len__(self):
         return len(self.data)
+
+
+class SamplePhrasesCountDataset(AudioSamplePhrasesDataset):
+    """Adds ``counts``, each phrase's count in the ``phrase_count`` JSON
+    (0 where it has none), for the frequency-weighted losses."""
+
+    def __init__(self, *args, **kwargs):
+        phrase_count = kwargs.pop("phrase_count")
+        super().__init__(*args, **kwargs)
+        with open(phrase_count) as f:
+            self.phrase_to_count = json.load(f)
+
+    def __getitem__(self, index):
+        output = super().__getitem__(index)
+        output["counts"] = np.array(
+            [self.phrase_to_count.get(p, 0) for p in output["phrases"]],
+            dtype=np.float32)
+        return output
+
+
+class _CaptionAudio(AudioReadMixin, Dataset):
+    """The caption datasets' waveforms: ``waveform`` is the index TSV
+    (``audio_id<TAB>hdf5_path``, an HDF5 store or a WAV file) or a dict of
+    waveforms in memory by audio id."""
+
+    def __init__(self, waveform, label, sample_rate: int = 32000):
+        AudioReadMixin.__init__(self, sample_rate)
+        self.aid_to_h5 = (waveform if isinstance(waveform, dict)
+                          else load_dict_from_csv(waveform,
+                                                  ("audio_id", "hdf5_path")))
+        self.data = _load_label(label)
+
+    def read(self, audio_id: str) -> np.ndarray:
+        source = self.aid_to_h5[audio_id]
+        if isinstance(source, np.ndarray):
+            return as_wire(source)
+        return self.load_audio(audio_id, source)
+
+
+class _PhraseItems(_CaptionAudio):
+    """One item per (audio, phrase) of the grounding label JSON: the
+    phrase (a list of one, under ``phrase_key``) and its token indices."""
+
+    phrase_key = "phrases"
+
+    def __init__(self, waveform, label, sample_rate: int = 32000):
+        super().__init__(waveform, label, sample_rate)
+        self.idxs = [(ai, pi) for ai, item in enumerate(self.data)
+                     for pi, _ in enumerate(item["phrases"])]
+
+    def __getitem__(self, index):
+        audio_idx, phrase_idx = self.idxs[index]
+        item = self.data[audio_idx]
+        phrase_item = item["phrases"][phrase_idx]
+        return {"audiocap_id": item["audiocap_id"],
+                "waveform": self.read(item["audio_id"]),
+                self.phrase_key: [phrase_item["phrase"]],
+                "start_index": phrase_item["start_index"],
+                "end_index": phrase_item["end_index"]}
+
+    def __len__(self):
+        return len(self.idxs)
+
+
+class AudioCaptionPhrasesEvalDataset(_PhraseItems):
+    """Per-phrase evaluation items, the phrase under ``phrases``
+    (``max_phrase_words`` is taken and unused, as in the JAX class)."""
+
+    def __init__(self, waveform, label, max_phrase_words: int = 10):
+        super().__init__(waveform, label)
+
+
+class SinglePhraseEvalDataset(_PhraseItems):
+    """Per-phrase evaluation items, the phrase under ``phrase``."""
+
+    phrase_key = "phrase"
+
+
+class AudioCaptionPhrasesDataset(_CaptionAudio):
+    """Every phrase of a caption of at most ``max_phrase_words`` words (the
+    captions with none are dropped): ``{audiocap_id, waveform,
+    phrases}``."""
+
+    def __init__(self, waveform, label, max_phrase_words: int = 10):
+        super().__init__(waveform, label)
+        self.max_phrase_words = max_phrase_words
+        self.data = [item for item in self.data
+                     if any(self._short(p) for p in item["phrases"])]
+
+    def _short(self, phrase_item: dict) -> bool:
+        return len(phrase_item["phrase"].split()) <= self.max_phrase_words
+
+    def __getitem__(self, index):
+        item = self.data[index]
+        return {"audiocap_id": item["audiocap_id"],
+                "waveform": self.read(item["audio_id"]),
+                "phrases": [p["phrase"] for p in item["phrases"]
+                            if self._short(p)]}
+
+    def __len__(self):
+        return len(self.data)
+
+
+class AudioCaptionDataset(_CaptionAudio):
+    """A clip and its tokenized caption (``tokens``, cut to
+    ``max_cap_length``): ``{audiocap_id, waveform, caption}``.  A clip
+    longer than ``max_audio_length`` seconds is cropped at a start drawn
+    from ``self.rng`` (``numpy.random.default_rng(seed)``, anew from
+    ``seed + salt`` by ``reseed``), as in the JAX class."""
+
+    def __init__(self, waveform, label,
+                 max_audio_length: Optional[float] = None,
+                 max_cap_length: Optional[int] = None,
+                 sample_rate: int = 32000, seed: int = 0):
+        super().__init__(waveform, label, sample_rate)
+        self.max_audio_len = (int(max_audio_length * sample_rate)
+                              if max_audio_length is not None else None)
+        self.max_cap_length = max_cap_length
+        self.rng = np.random.default_rng(seed)
+        self._seed = seed
+
+    def reseed(self, salt: int) -> None:
+        self.rng = np.random.default_rng(self._seed + salt)
+
+    def __getitem__(self, index):
+        item = self.data[index]
+        waveform = self.read(item["audio_id"])
+        if (self.max_audio_len is not None
+                and waveform.shape[0] > self.max_audio_len):
+            start = int(self.rng.integers(
+                0, waveform.shape[0] - self.max_audio_len + 1))
+            waveform = waveform[start:start + self.max_audio_len]
+        caption = item["tokens"]
+        if self.max_cap_length is not None:
+            caption = caption[:self.max_cap_length]
+        return {"audiocap_id": item["audiocap_id"], "waveform": waveform,
+                "caption": caption}
+
+    def __len__(self):
+        return len(self.data)
+
+
+class AudioCaptionPhraseIndicesDataset(AudioCaptionDataset):
+    """Adds each phrase's ``start_indices`` / ``end_indices`` (token
+    positions in the caption)."""
+
+    def __getitem__(self, index):
+        output = super().__getitem__(index)
+        phrases = self.data[index]["phrases"]
+        output["start_indices"] = [p["start_index"] for p in phrases]
+        output["end_indices"] = [p["end_index"] for p in phrases]
+        return output

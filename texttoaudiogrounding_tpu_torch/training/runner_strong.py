@@ -116,8 +116,13 @@ class StrongRunner(BaseRunner):
         model = self.build_model()
         loss_fn = self.build_loss()
         self.fit(model, loss_fn, train_loader, val_loader,
-                 self.output_transform, exp_dir)
+                 self.train_transform(), exp_dir)
         return exp_dir
+
+    def train_transform(self):
+        """The output transform of ``train``'s steps, built after the
+        model and the loss."""
+        return self.output_transform
 
     # ------------------------------------------------------------ inference
     def eval_batch(self, batch: dict, model) -> dict:
@@ -149,19 +154,14 @@ class StrongRunner(BaseRunner):
         for batch in dataloader:
             t0 = time.perf_counter()
             with torch.no_grad():
-                output = model(self.eval_batch(batch, model))
-            frame_sim = output["frame_sim"].float().cpu().numpy()
-            lengths = output["length"].cpu().numpy()
+                tracks = self.eval_tracks(
+                    model(self.eval_batch(batch, model)), model)
             t1 = time.perf_counter()
-            for idx in range(len(frame_sim)):
+            for idx, scores in enumerate(tracks):
                 fname = (f"{batch['audiocap_id'][idx]}_"
                          f"{batch['start_index'][idx]}")
                 if fname not in valid_fnames:
                     continue
-                scores = frame_sim[idx]
-                if scores.ndim == 2:
-                    scores = scores[:, 0]
-                scores = scores[:max(int(lengths[idx]), 1)]
                 if scores_per_sample is not None:
                     scores = scores_per_sample(scores)
                 timestamps = np.arange(len(scores) + 1) * time_resolution
@@ -178,6 +178,17 @@ class StrongRunner(BaseRunner):
         self.eval_seconds = {"forward": forward_s, "decode": decode_s}
         return {"pred_buffer": detection_tables(segments),
                 "score_buffer": score_buffer, **gt}
+
+    def eval_tracks(self, output: dict, model) -> list:
+        """Each item's score track (numpy, on the host) from the forward's
+        output: ``frame_sim`` (at the first phrase of a multi-phrase one)
+        cut to the item's length."""
+        frame_sim = output["frame_sim"].float().cpu().numpy()
+        lengths = output["length"].cpu().numpy()
+        if frame_sim.ndim == 3:
+            frame_sim = frame_sim[:, :, 0]
+        return [scores[:max(int(n), 1)]
+                for scores, n in zip(frame_sim, lengths)]
 
     def _train_time_resolution(self) -> float:
         try:

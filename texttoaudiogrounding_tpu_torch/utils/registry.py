@@ -2,8 +2,10 @@
 
 The short names of ``texttoaudiogrounding_tpu/utils/registry.py`` that the
 strong-supervision configs (``configs/strong/biencoder_train.yaml``,
-``cdur_w2vmean.yaml``) and the phrase-level WSTAG training configs
-(``configs/weak_phrase/``) use, and every loss class,
+``cdur_w2vmean.yaml``), the WSTAG configs (``configs/weak_phrase/``,
+``configs/weak_sentence/``) and the models, datasets and runners of
+WSTAG (the cross encoder, align functions and sim poolings) use, and every
+loss class,
 resolved to the port's classes, and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
@@ -24,37 +26,44 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _fill() -> None:
-    from texttoaudiogrounding_tpu_torch import losses
+    from texttoaudiogrounding_tpu_torch import losses, models
     from texttoaudiogrounding_tpu_torch.data import collate, datasets
     from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
-    from texttoaudiogrounding_tpu_torch.models import (
-        BiEncoder,
-        Cnn8Rnn,
-        CrnnEncoder,
-        DotProduct,
-        EmbeddingAgg,
-        ExpNegL2,
-        MultiTextBiEncoder,
+    from texttoaudiogrounding_tpu_torch.models.sim_pooling import (
+        MULTI_TEXT_POOLINGS,
+        SIM_POOLINGS,
     )
     from texttoaudiogrounding_tpu_torch.training import optim
     from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
         WeakPhraseRunner,
+        WeakPhraseSelfSupervisionRunner,
+    )
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner,
     )
     _REGISTRY.update({
-        "BiEncoder": BiEncoder, "MultiTextBiEncoder": MultiTextBiEncoder,
-        "Cnn8Rnn": Cnn8Rnn, "Cnn8_Rnn": Cnn8Rnn, "CrnnEncoder": CrnnEncoder,
-        "EmbeddingAgg": EmbeddingAgg, "ExpNegL2": ExpNegL2,
-        "MatchExpNegL2": ExpNegL2, "DotProduct": DotProduct,
-        "MatchDotProduct": DotProduct,
+        **{name: getattr(models, name) for name in models.__all__
+           if name != "flagship_model"},
+        "Cnn8_Rnn": models.Cnn8Rnn, "MatchExpNegL2": models.ExpNegL2,
+        "MatchDotProduct": models.DotProduct,
+        "MatchCrossAttention": models.CrossAttention,
+        **SIM_POOLINGS, **MULTI_TEXT_POOLINGS,
         **{name: getattr(losses, name) for name in losses.__all__},
-        "AudioPhraseDataset": datasets.AudioPhraseDataset,
-        "AudioPhraseEvalDataset": datasets.AudioPhraseEvalDataset,
-        "AudioSamplePhrasesDataset": datasets.AudioSamplePhrasesDataset,
-        "TextCollate": collate.TextCollate, "DictTokenizer": DictTokenizer,
+        **{name: getattr(datasets, name) for name in (
+            "AudioPhraseDataset", "AudioPhraseEvalDataset",
+            "AudioSamplePhrasesDataset", "SamplePhrasesCountDataset",
+            "AudioCaptionPhrasesEvalDataset", "AudioCaptionPhrasesDataset",
+            "SinglePhraseEvalDataset", "AudioCaptionDataset",
+            "AudioCaptionPhraseIndicesDataset")},
+        "TextCollate": collate.TextCollate,
+        "VarNumTextCollate": collate.VarNumTextCollate,
+        "DictTokenizer": DictTokenizer,
         "ReduceLROnPlateau": optim.ReduceLROnPlateau,
         "torch.optim.lr_scheduler.ReduceLROnPlateau":
             optim.ReduceLROnPlateau,
         "WeakPhraseRunner": WeakPhraseRunner,
+        "WeakPhraseSelfSupervisionRunner": WeakPhraseSelfSupervisionRunner,
+        "WeakSentenceRunner": WeakSentenceRunner,
     })
 
 

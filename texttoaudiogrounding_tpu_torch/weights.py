@@ -2,15 +2,20 @@
 a numpy seed.
 
 ``from_jax_variables`` maps the JAX ``{"params", "batch_stats"}`` tree of
-a ``BiEncoder`` or ``MultiTextBiEncoder`` (audio tower ``Cnn8Rnn`` or
-``CrnnEncoder``, text tower ``EmbeddingAgg``) onto the port's state dict,
+a grounding model (``BiEncoder``, ``MultiTextBiEncoder`` and
+``MultiTextBiEncoderWithAlign``, the align models of
+``models/align_models.py``; audio tower ``Cnn8Rnn`` or ``CrnnEncoder``,
+text tower ``EmbeddingAgg``, with a ``CrossAttentionGating`` cross encoder
+or a ``CrossAttention`` match function) onto the port's state dict,
 whose names and layouts are the reference torch ones: conv kernels
 ``[kH, kW, Cin, Cout] → [Cout, Cin, kH, kW]``, dense kernels transposed,
 BatchNorm ``scale`` → ``weight`` with the running statistics as buffers,
 and each GRU direction's six flax gate modules stacked into ``nn.GRU``'s
 ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_ih_l0`` / ``bias_hh_l0``
 (the flax ``hr``/``hz`` gates carry no bias: their biases live in the
-``ir``/``iz`` ones, so ``bias_hh_l0`` is zero there).  The layout logic is
+``ir``/``iz`` ones, so ``bias_hh_l0`` is zero there), and flax's
+attention ``DenseGeneral`` kernels flattened over their heads
+(``[D, H, Dh]`` → ``[H·Dh, D]``, ``[H, Dh, E]`` → ``[E, H·Dh]``).  The layout logic is
 a copy of ``texttoaudiogrounding_tpu/training/torch_import.py:176-294``.
 """
 
@@ -70,13 +75,41 @@ def _crnn(sd: dict, a: str, ap: dict, ast: dict) -> None:
     _gru(sd, f"{a}.gru", ap["gru"]["GRUCell_1"], "_reverse")
 
 
+def _cross(sd: dict, params: dict) -> None:
+    """A ``CrossAttentionGating`` cross encoder and a ``CrossAttention``
+    match function, where the model has them."""
+    if "cross_encoder" in params:
+        c = params["cross_encoder"]
+        _dense(sd, "cross_encoder.attn.h2attn_q", c["attn"]["h2attn_q"])
+        _dense(sd, "cross_encoder.attn.h2attn_k", c["attn"]["h2attn_k"])
+        sd["cross_encoder.attn.v"] = _t(c["attn"]["v"])
+        for fc in ("fc_u", "fc_s"):
+            _dense(sd, f"cross_encoder.gating.{fc}", c["gating"][fc])
+    if "match_fn" in params:
+        m = params["match_fn"]
+        for name in ("query", "key", "value"):
+            kernel = np.asarray(m["attn"][name]["kernel"])     # [D, H, Dh]
+            sd[f"match_fn.attn.{name}.weight"] = _t(
+                kernel.reshape(kernel.shape[0], -1).T)
+            sd[f"match_fn.attn.{name}.bias"] = _t(
+                np.asarray(m["attn"][name]["bias"]).reshape(-1))
+        kernel = np.asarray(m["attn"]["out"]["kernel"])        # [H, Dh, E]
+        sd["match_fn.attn.out.weight"] = _t(
+            kernel.reshape(-1, kernel.shape[-1]).T)
+        sd["match_fn.attn.out.bias"] = _t(m["attn"]["out"]["bias"])
+        sd["match_fn.norm.weight"] = _t(m["norm"]["scale"])
+        sd["match_fn.norm.bias"] = _t(m["norm"]["bias"])
+        _dense(sd, "match_fn.linear", m["linear"])
+
+
 def from_jax_variables(variables: dict) -> dict:
-    """JAX BiEncoder variables (nested dicts of arrays) → the port's
-    ``BiEncoder`` state dict of CPU f32 tensors."""
+    """JAX grounding-model variables (nested dicts of arrays) → the port's
+    state dict of CPU f32 tensors for the same model."""
     params, stats = variables["params"], variables["batch_stats"]
     ap, ast = params["audio_encoder"], stats["audio_encoder"]
     sd: dict = {}
     a = "audio_encoder"
+    _cross(sd, params)
     if "CDurBlock_0" in ap:
         _crnn(sd, a, ap, ast)
         _text(sd, params)
