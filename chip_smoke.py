@@ -53,7 +53,9 @@ Phases, each printing one line:
    and backward also at the CDur path's shape (T = 125, 2B = 64, H = 128
    over an input of 128: 8-CTA clusters, 3 groups of 11 rows), each output
    and gradient within 1e-4 of its plain version, beside ``torch.nn.GRU``
-   and their CUDA launches a call counted (1 and 2); and the training
+   and their CUDA launches a call counted (1 and 2), and so at the weak
+   class-mapping train step's shape (T = 250, 2B = 32, H = 256: mixup
+   halves the batch of 32 before the conv blocks); and the training
    path's pool kernels (``dual_pool_fwd``/``_bwd``, ``bn_pool_fwd``,
    ``bn_pool_bwd`` on its second design, ``bn_pool_v2.cu``, and the batch
    statistics ``bn_pool_stats``) at the four conv blocks' outputs of a
@@ -262,7 +264,31 @@ Phases, each printing one line:
    1e-4 relative RMS of the same weights with ``gru_kernel=False`` and
    ``gru_fwd`` once; one train step of ``MultiTextBiEncoderWithAlign``
    under ``ClipBceLoss`` + ``MaxMarginRankingLoss(sim_key=
-   "sentence_sim")``: a finite loss, ``gru_fwd`` and ``gru_bwd`` once.
+   "sentence_sim")``: a finite loss, ``gru_fwd`` and ``gru_bwd`` once;
+15. class_mapping: ``ClassMappingWeakRunner.train`` on
+   ``configs/class_mapping/kmeans_weak.yaml`` as a dict
+   (``AudioTagging(Cnn8Rnn f32, 32 classes, linear_softmax)``,
+   ``ClipBceLoss``, mixup and SpecAugment), cut as ``CLASS_MAPPING_CUTS``
+   lists, ``KmeansMappingDataset`` items made in memory (weak labels
+   from a seeded phrase → cluster map) through ``VarLenPadCollate``, 2
+   epochs of 4 steps of 32 clips x 10 s and 2 validation batches:
+   ``gru_fwd`` once a step, ``gru_bwd`` once a train step, the train
+   step's BiGRU on 16 clips (mixup halves the batch); gradients within the
+   f32 limits of ``gru_kernel=False``'s on the same mixup coefficients and
+   stripes, the loss falling over 8 steps on one batch with the
+   augmentations held fixed, the step's ms; ``evaluate_tagging`` (AP in
+   [0, 1], the TSV); then ``ClassMappingStrongRunner.train`` on
+   ``kmeans_strong.yaml`` (``MaskedFrameBceLoss``, strong labels at 0.04
+   s) for 1 epoch of 4 steps and ``evaluate`` of it with ``eval.yaml``'s
+   keys on phase 8's clips, each phrase given a class (``gru_fwd`` once a
+   batch, metrics in [0, 1], tracks within 1e-4 of ``gru_kernel=False``);
+16. cli: ``cli.main([..., "--device", "cuda"])`` in this process against
+   phase 5's run: ``inference`` (the segments equal the steps done by
+   hand, ``gru_fwd`` once), ``export`` and ``predictor_from_deployment``
+   (a 3-clip request bit for bit ``from_experiment``'s), ``strong
+   calc_params`` (the flax tree's count), ``strong calc_params_macs`` (its
+   ``SystemExit``), and ``python3 -m texttoaudiogrounding_tpu_torch
+   inference`` in a subprocess (exit 0, the same segments).
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -3890,16 +3916,33 @@ CDUR_CUTS = (
 
 def gru_cdur_rows(clips: int, rng) -> list:
     """Row 13's forward and backward at the CDur path's shape (T = 125, 2B =
-    64, H = 128: 8-CTA clusters, 3 groups of 11 rows a direction) against
-    their plain versions, each output and gradient within 1e-4 relative
-    RMS, timed with CUDA events beside ``torch.nn.GRU`` on the same
-    weights, their CUDA launches a call counted by the profiler (1 and
-    2)."""
+    64, H = 128: 8-CTA clusters, 3 groups of 11 rows a direction): see
+    ``_gru_path_rows``."""
+    return _gru_path_rows("cdur", "train_cdur", CDUR_T, clips, CDUR_H,
+                          CDUR_IN, rng)
+
+
+def gru_mixup_rows(rng) -> list:
+    """Row 13's forward and backward at the weak class-mapping train step's
+    shape: mixup halves the batch before the conv blocks, so the BiGRU
+    runs on 16 clips (T = 250, 2B = 32, H = 256, input 512): see
+    ``_gru_path_rows``."""
+    return _gru_path_rows("mixup", "train_class_mapping_weak", 250,
+                          TRAIN_CLIPS // 2, 256, 512, rng)
+
+
+def _gru_path_rows(label: str, path: str, t: int, b: int, h: int, d: int,
+                   rng) -> list:
+    """Row 13's forward and backward at one path's shape (``b`` clips,
+    ``2b`` rows) against their plain versions, each output and gradient
+    within 1e-4 relative RMS, timed with CUDA events beside
+    ``torch.nn.GRU`` on the same weights, their CUDA launches a call
+    counted by the profiler (1 and 2); the rows ``gru_fwd_<label>`` /
+    ``gru_bwd_<label>`` count ``path``'s launches."""
     import torch
 
     from texttoaudiogrounding_tpu_torch.ops.kernels import gru
 
-    t, b, h, d = CDUR_T, clips, CDUR_H, CDUR_IN
     x, gy, _, proj, wh, bn, lib = _gru_inputs(rng, t, b, h, d)
     dev = x.device
     lib.flatten_parameters()
@@ -3917,7 +3960,7 @@ def gru_cdur_rows(clips: int, rng) -> list:
     lib_gap = float((torch.cat([ys_bf[0], torch.flip(ys_bf[1], dims=(1,))],
                                dim=-1) - lib_out).abs().max())
     if lib_gap > 1e-3:
-        raise AssertionError(f"gru_fwd at CDur's shape: off torch.nn.GRU by "
+        raise AssertionError(f"gru_fwd_{label}: off torch.nn.GRU by "
                              f"{lib_gap}")
     grads = gru.gru_backward(proj, ys_plain, gy, wh, bn)
     grads_plain = gru.gru_backward_plain(proj, ys_plain, gy, wh, bn)
@@ -3928,7 +3971,8 @@ def gru_cdur_rows(clips: int, rng) -> list:
     lib_fwd_ms = _cuda_ms(lambda: lib(x), 10)
     lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, 10)
     rows = [
-        dict(name="gru_fwd_cdur", counter="gru_fwd", got=ys, ref=ys_plain,
+        dict(name=f"gru_fwd_{label}", counter="gru_fwd", got=ys,
+             ref=ys_plain,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:62",
              source="texttoaudiogrounding_tpu_torch/csrc/gru_fwd_sm90.cu",
              kernel=lambda: gru.gru_forward(proj, wh, bn),
@@ -3936,7 +3980,7 @@ def gru_cdur_rows(clips: int, rng) -> list:
              bound=_bound(fwd_bytes, {"f32": fwd_ops}),
              plan=gru.forward_plan(b, h), library_ms=lib_fwd_ms,
              library_max_abs_diff=lib_gap),
-        dict(name="gru_bwd_cdur", counter="gru_bwd", got=grads,
+        dict(name=f"gru_bwd_{label}", counter="gru_bwd", got=grads,
              ref=grads_plain,
              replaces="texttoaudiogrounding_tpu/ops/pallas/gru.py:199",
              source="texttoaudiogrounding_tpu_torch/csrc/gru_bwd_sm90.cu",
@@ -3957,7 +4001,7 @@ def gru_cdur_rows(clips: int, rng) -> list:
         ms = _cuda_ms(row["kernel"], 10)
         out.append({
             "name": row["name"], "counter": row["counter"],
-            "path": "train_cdur", "route": "cuda",
+            "path": path, "route": "cuda",
             "source": row["source"], "replaces": row["replaces"],
             "max_abs_err": max_abs, "rel_rms_err": rel,
             "tolerance": "rel_rms{} <= 1e-4".format(
@@ -3972,7 +4016,7 @@ def gru_cdur_rows(clips: int, rng) -> list:
             "T": t, "rows": 2 * b, "H": h, "plan": row["plan"],
             **{k: row[k] for k in ("library_fwd_bwd_ms",
                                    "library_max_abs_diff") if k in row}})
-    want = {"gru_fwd_cdur": 1, "gru_bwd_cdur": 2}
+    want = {f"gru_fwd_{label}": 1, f"gru_bwd_{label}": 2}
     for row in out:
         if row["cuda_launches_per_call"] != want[row["name"]]:
             raise AssertionError(
@@ -5008,6 +5052,548 @@ def cross_models_phase(tok) -> dict:
     return report
 
 
+CLASS_MAPPING_YAMLS = {"weak": "configs/class_mapping/kmeans_weak.yaml",
+                       "strong": "configs/class_mapping/kmeans_strong.yaml",
+                       "eval": "configs/class_mapping/eval.yaml"}
+CM_CLASSES, CM_PHRASES = 32, 96
+CM_EPOCHS = {"weak": 2, "strong": 1}
+CM_STEPS, CM_VAL_BATCHES = 4, 2
+# the keys of _class_mapping_config that differ from the YAML files: the
+# run's directory, the epochs cut to CM_EPOCHS of CM_STEPS (the training
+# configs), the duration TSV of the evaluation set and its batches of
+# EVAL_BATCH (eval.yaml names no batch size); the datasets' files are not
+# read: their items are made in memory (_memory_loaders)
+CLASS_MAPPING_CUTS = {
+    "weak": ("experiment_path", "trainer.epochs", "trainer.epoch_length"),
+    "strong": ("experiment_path", "trainer.epochs", "trainer.epoch_length"),
+    "eval": ("data.test.duration", "data.test.dataloader_args"),
+}
+
+
+def _class_mapping_config(kind: str, exp_dir: str = "",
+                          duration: str = "") -> dict:
+    """``configs/class_mapping/{kmeans_weak,kmeans_strong,eval}.yaml`` as a
+    dict (``kind`` weak, strong or eval), cut as ``CLASS_MAPPING_CUTS``
+    lists."""
+    collate = {"type": "VarLenPadCollate", "args": {
+        "pad_keys": ["waveform"], "pad_buckets": {"waveform": 32000}}}
+    if kind == "eval":
+        return {
+            "data": {"test": {
+                "dataset": {"type": "KmeansMappingEvalDataset", "args": {
+                    "waveform": "data/audiogrounding/test/waveform.csv",
+                    "label": "data/audiogrounding/test/label.json",
+                    "phrase_embed":
+                        "data/audiocaps/phrase_embedding/clap.pkl",
+                    "cluster_model":
+                        "experiments/audiocaps/clustering/kmeans/32.pkl"}},
+                "collate_fn": collate, "duration": duration,
+                "dataloader_args": {"batch_size": EVAL_BATCH}}},
+            "time_resolution": 0.04, "window_size": 1, "n_thresholds": 50,
+            "resume": "best", "max_efprs": [400, 600, 800, 1000, None],
+            "output": "result.txt"}
+    weak = kind == "weak"
+    if not weak:
+        collate = {"type": "VarLenPadCollate", "args": {
+            "pad_keys": ["waveform", "strong_label"],
+            "pad_buckets": {"waveform": 32000, "strong_label": 100}}}
+
+    def split(name: str, train: bool) -> dict:
+        args = {"waveform": "data/audiocaps/waveform.csv",
+                "label": f"data/audiocaps/{name}.json",
+                "phrase_embed": "data/audiocaps/phrase_embedding/clap.pkl",
+                "cluster_model":
+                    "experiments/audiocaps/clustering/kmeans/32.pkl",
+                "label_type": kind}
+        if not weak:
+            args["time_resolution"] = 0.04
+        return {"dataset": {"type": "KmeansMappingDataset", "args": args},
+                "collate_fn": collate,
+                "dataloader_args": ({"batch_size": 32, "num_workers": 2}
+                                    if train else {"batch_size": 32})}
+
+    return {
+        "experiment_path": exp_dir, "seed": 1, "mixup": weak,
+        "specaug": weak,
+        "data": {"train": split("train", True), "val": split("val", False)},
+        "model": {"type": "AudioTagging",
+                  "args": {"classes_num": CM_CLASSES,
+                           "pooling": "linear_softmax"},
+                  "audio_encoder": {"type": "Cnn8Rnn",
+                                    "args": {"sample_rate": SR}}},
+        "loss": {"type": "ClipBceLoss" if weak else "MaskedFrameBceLoss",
+                 "args": {}},
+        "optimizer": {"type": "Adam", "args": {"lr": 0.001}},
+        "lr_scheduler": {"type": "ReduceLROnPlateau",
+                         "args": {"mode": "min", "patience": 3}},
+        "trainer": {"metric_monitor": {"mode": "min", "name": "loss"},
+                    "epochs": CM_EPOCHS[kind], "epoch_length": CM_STEPS,
+                    "early_stop": 10, "save_interval": 10,
+                    "max_grad_norm": 1.0}}
+
+
+def _cm_clusters() -> tuple:
+    """The seeded phrase → cluster map of the class-mapping data: a pool of
+    ``CM_PHRASES`` two-word phrases, and the clusters of phase 8's eight
+    evaluation phrases."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    pool = {f"w{100 + i} w{300 + i}": int(c) for i, c in enumerate(
+        rng.integers(0, CM_CLASSES, CM_PHRASES))}
+    evaluated = {f"w{2 + k} w{20 + k}": int(c) for k, c in enumerate(
+        rng.integers(0, CM_CLASSES, len(_TONES)))}
+    return pool, evaluated
+
+
+def _cm_items(label_type: str, count: int, seed: int):
+    """A dataset of ``KmeansMappingDataset`` items (``label_type`` weak or
+    strong) made in memory: 10 s of noise with a tone over one segment for
+    each of the clip's 1-3 phrases, at a frequency its cluster sets; the
+    labels from the seeded phrase → cluster map (``_cm_clusters``)."""
+    import math
+
+    import numpy as np
+    from torch.utils.data import Dataset
+
+    pool, _ = _cm_clusters()
+    phrases = list(pool)
+
+    class Items(Dataset):
+        def __len__(self):
+            return count
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng((seed, i))
+            n = SR * CLIP_S
+            wav = rng.normal(0, 0.01, n).astype(np.float32)
+            picked = [phrases[j] for j in rng.choice(
+                len(phrases), int(rng.integers(1, 4)), replace=False)]
+            item = {"audiocap_id": i, "audio_id": f"cm{seed}_{i}",
+                    "text": " ".join(picked)}
+            weak = np.zeros(CM_CLASSES, np.float32)
+            strong = np.zeros((math.floor(n / SR / 0.04) + 1, CM_CLASSES),
+                              np.float32)
+            for phrase in picked:
+                c = pool[phrase]
+                on = round(float(rng.uniform(0.05, 0.7)) * CLIP_S, 3)
+                off = round(on + float(rng.uniform(0.05, 0.25)) * CLIP_S, 3)
+                idx = np.arange(int(on * SR), int(off * SR))
+                wav[idx] += 0.3 * np.sin(2 * np.pi * (200.0 + 150.0 * c)
+                                         * idx / SR)
+                weak[c] = 1
+                strong[round(on / 0.04):round(off / 0.04), c] = 1
+            item["waveform"] = wav
+            if label_type == "weak":
+                item["label"] = weak
+            else:
+                item["weak_label"] = weak
+                item["strong_label"] = strong
+            return item
+
+    return Items()
+
+
+def _cm_eval_items(waves: dict, label: list):
+    """``KmeansMappingEvalDataset`` items over phase 8's evaluation set
+    (one an audio and phrase, ``text_idx`` the phrase's cluster), with the
+    label list as ``data``."""
+    import numpy as np
+    from torch.utils.data import Dataset
+
+    _, clusters = _cm_clusters()
+    idxs = [(a, p) for a, it in enumerate(label)
+            for p in range(len(it["phrases"]))]
+
+    class Items(Dataset):
+        data = label
+
+        def __len__(self):
+            return len(idxs)
+
+        def __getitem__(self, index):
+            a, p = idxs[index]
+            item, phrase = label[a], label[a]["phrases"][p]
+            return {"audiocap_id": item["audiocap_id"],
+                    "audio_id": item["audio_id"], "text": item["tokens"],
+                    "waveform": np.asarray(waves[item["audio_id"]],
+                                           np.float32),
+                    "text_idx": clusters[phrase["phrase"]],
+                    "start_index": phrase["start_index"],
+                    "end_index": phrase["end_index"]}
+
+    return Items()
+
+
+def _memory_loaders(runner, items: dict) -> None:
+    """``runner.build_dataloader`` over ``items`` (by the stem of the split's
+    label file: train, val, label) in place of the class-mapping datasets'
+    files, with the config's collate and loader arguments."""
+    from texttoaudiogrounding_tpu_torch.data.loader import build_loader
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    def build(cfg: dict, shuffle: bool):
+        kwargs = dict(cfg.get("dataloader_args", {}))
+        kwargs.setdefault("shuffle", shuffle)
+        kwargs.setdefault("drop_last", shuffle)
+        return build_loader(items[Path(cfg["dataset"]["args"]["label"]).stem],
+                            instantiate(cfg["collate_fn"]),
+                            seed=runner.config.get("seed", 1), **kwargs)
+
+    runner.build_dataloader = build
+
+
+class _GruBatches:
+    """Record each BiGRU call's (train mode, clips) while open."""
+
+    def __enter__(self):
+        from texttoaudiogrounding_tpu_torch.models import layers
+        self.calls, self._orig = [], layers.BiGRU.forward
+        orig, calls = self._orig, self.calls
+
+        def forward(gru, x, dtype=None):
+            calls.append((gru.training, int(x.shape[0])))
+            return orig(gru, x, dtype)
+
+        layers.BiGRU.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from texttoaudiogrounding_tpu_torch.models import layers
+        layers.BiGRU.forward = self._orig
+
+
+def class_mapping_phase(work: Path) -> dict:
+    """Class mapping on the card, the models at full width
+    (``AudioTagging(Cnn8Rnn f32, classes_num 32, linear_softmax)``, 10 s
+    clips at 32 kHz), data made in memory in the datasets' items through
+    ``VarLenPadCollate`` with the configs' collate arguments:
+
+    * ``ClassMappingWeakRunner.train`` on ``kmeans_weak.yaml`` (mixup and
+      SpecAugment, ``ClipBceLoss``), 2 epochs of 4 steps of 32 clips and 2
+      validation batches: ``gru_fwd`` once a step and a validation batch,
+      ``gru_bwd`` once a train step, the train step's BiGRU on 16 clips
+      (mixup), checkpoints; the loss falling over 8 steps on one batch
+      with the augmentations held fixed (the same λ, and the generator of
+      the stripes and dropout masks reseeded before each step); the
+      gradients within 2e-2 (trunk) / 1e-4 (after it) of the same step
+      with ``gru_kernel=False`` on the same λ and stripes; the step's ms
+      (CUDA events, 5 steps); ``evaluate_tagging`` of the run (every AP in
+      [0, 1], the TSV written);
+    * ``ClassMappingStrongRunner.train`` on ``kmeans_strong.yaml``
+      (``MaskedFrameBceLoss``, strong labels at 0.04 s, ``strong_label``
+      bucket 100), 1 epoch of 4 steps; ``evaluate`` of it with
+      ``eval.yaml``'s keys on phase 8's clips, each phrase given a class
+      (``gru_fwd`` once a batch, metrics in [0, 1], ``result.txt``),
+      again with ``gru_kernel=False`` (tracks within 1e-4)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingStrongRunner, ClassMappingWeakRunner, _mixup_lambdas,
+        mapping_strong_output_transform, mixup_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    report: dict = {"classes": CM_CLASSES, "clips_per_batch": TRAIN_CLIPS}
+    root = work / "class_mapping"
+    steps = CM_EPOCHS["weak"] * CM_STEPS
+    vals = CM_EPOCHS["weak"] * CM_VAL_BATCHES
+    weak_items = {"train": _cm_items("weak", TRAIN_CLIPS * CM_STEPS, 31),
+                  "val": _cm_items("weak", TRAIN_CLIPS * CM_VAL_BATCHES, 32)}
+    config = _class_mapping_config("weak", str(root / "weak"))
+    runner = ClassMappingWeakRunner(device=DEVICE)
+    _memory_loaders(runner, weak_items)
+    with _GruBatches() as grus:
+        exp_dir, fit_s, launches = _fit_checked(
+            "class_mapping weak fit", lambda: runner.train(config),
+            _want(gru_fwd=steps + vals, gru_bwd=steps))
+    clips = sorted({(train, n) for train, n in grus.calls})
+    if clips != [(False, TRAIN_CLIPS), (True, TRAIN_CLIPS // 2)]:
+        raise AssertionError(f"class_mapping weak fit: the BiGRU ran on "
+                             f"(train mode, clips) {clips}")
+    weak = {"fit_s": fit_s, "launches": launches,
+            "gru_batches": {"train": TRAIN_CLIPS // 2, "val": TRAIN_CLIPS}}
+
+    # one batch with fixed mixup coefficients and the SpecAugment flag
+    loss_fn = runner.build_loss()
+    batch = to_device(next(iter(runner.build_dataloader(
+        config["data"]["train"], shuffle=False))), torch.device(DEVICE))
+    batch["mixup_lambda"] = torch.from_numpy(_mixup_lambdas(
+        np.random.RandomState(7), TRAIN_CLIPS)).to(DEVICE)
+    aug = {**batch, "specaug": True}
+    model = runner.build_model()
+    runner.restore_state(model, exp_dir, "last")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def same_draws(m):
+        """The stripes (and dropout masks) drawn anew from one seed."""
+        m.audio_encoder._generator = None
+        torch.manual_seed(11)
+
+    plain_cfg = json.loads(json.dumps(config["model"]))
+    plain_cfg["audio_encoder"]["args"].update(gru_kernel=False,
+                                              dropout=[0.0, 0.0])
+    ref_model = instantiate(plain_cfg, device=DEVICE)
+    ref_model.load_state_dict(sd)
+    model.audio_encoder.dropout = (0.0, 0.0)
+    same_draws(ref_model)
+    ref = _grads(ref_model, aug, mixup_output_transform, loss_fn)
+    same_draws(model)
+    gaps = _gaps(_grads(model, aug, mixup_output_transform, loss_fn), ref)
+    worst_trunk, worst_rest = _worst(gaps)
+    if worst_trunk > 2e-2 or worst_rest > 1e-4:
+        raise AssertionError(
+            f"class_mapping weak gradients off the plain path: trunk "
+            f"{worst_trunk}, rest {worst_rest} (limits 2e-2, 1e-4): "
+            f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:6]}")
+    del ref_model, ref
+    model.audio_encoder.dropout = (0.2, 0.5)
+    model.load_state_dict(sd)
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    losses = []
+    for _ in range(8):
+        same_draws(model)
+        losses.append(float(runner.train_step(
+            model, loss_fn, opt, batch, mixup_output_transform)))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"class_mapping weak: loss on a fixed batch "
+                             f"with fixed augmentations does not fall: "
+                             f"{losses}")
+
+    def step():
+        runner.train_step(model, loss_fn, opt, batch, mixup_output_transform)
+
+    step_ms = _cuda_ms(step, 5)
+    del model, opt
+    weak.update(grad_rel_rms_trunk_max=worst_trunk,
+                grad_rel_rms_rest_max=worst_rest, fixed_batch_loss=losses,
+                step_ms=step_ms, clips_per_s=TRAIN_CLIPS * 1e3 / step_ms)
+
+    tagger = ClassMappingWeakRunner(device=DEVICE)
+    _memory_loaders(tagger, weak_items)
+    _reset_counts()
+    result = tagger.evaluate_tagging(exp_dir, {"resume": "best",
+                                               "output": "tagging.tsv"})
+    tag_launches = _counts()
+    if tag_launches != _want(gru_fwd=CM_VAL_BATCHES):
+        raise AssertionError(f"evaluate_tagging: kernel launches "
+                             f"{tag_launches}")
+    ap = result["ap"]
+    if ap.shape != (CM_CLASSES,) or not all(
+            math.isfinite(v) and 0.0 <= v <= 1.0 for v in ap):
+        raise AssertionError(f"evaluate_tagging: AP {ap}")
+    rows = (exp_dir / "tagging.tsv").read_text().splitlines()
+    if len(rows) != CM_CLASSES + 1 or rows[0] != "label_index\tap":
+        raise AssertionError("evaluate_tagging: the TSV is not written")
+    weak["evaluate_tagging"] = {"mean_ap": float(ap.mean()),
+                                "launches": tag_launches}
+    report["weak"] = weak
+
+    # the strong fit and its evaluation on phase 8's clips
+    strong_items = {
+        "train": _cm_items("strong", TRAIN_CLIPS * CM_STEPS, 33),
+        "val": _cm_items("strong", TRAIN_CLIPS * CM_VAL_BATCHES, 34)}
+    config = _class_mapping_config("strong", str(root / "strong"))
+    runner = ClassMappingStrongRunner(device=DEVICE)
+    _memory_loaders(runner, strong_items)
+    steps = CM_EPOCHS["strong"] * CM_STEPS
+    exp_dir, fit_s, launches = _fit_checked(
+        "class_mapping strong fit", lambda: runner.train(config),
+        _want(gru_fwd=steps + CM_EPOCHS["strong"] * CM_VAL_BATCHES,
+              gru_bwd=steps))
+    model = runner.build_model()
+    runner.restore_state(model, exp_dir, "last")
+    batch = to_device(next(iter(runner.build_dataloader(
+        config["data"]["train"], shuffle=False))), torch.device(DEVICE))
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    loss_fn = runner.build_loss()
+    strong_ms = _cuda_ms(lambda: runner.train_step(
+        model, loss_fn, opt, batch, mapping_strong_output_transform), 5)
+    del model, opt
+    waves, label = _eval_data(work)
+    eval_items = {"label": _cm_eval_items(waves, label)}
+    out = {}
+    for name, overrides in (("kernel", None), ("plain_gru", {
+            "audio_encoder": {"args": {"gru_kernel": False}}})):
+        evaluator = ClassMappingStrongRunner(device=DEVICE)
+        _memory_loaders(evaluator, eval_items)
+        eval_cfg = _class_mapping_config("eval",
+                                         duration=str(work / "duration.tsv"))
+        if overrides:
+            eval_cfg["model_overrides"] = overrides
+        want = _want(gru_fwd=math.ceil(len(eval_items["label"])
+                                       / EVAL_BATCH)) if overrides is None \
+            else _want()
+        out[name] = _evaluated(
+            f"class_mapping evaluate ({name})",
+            lambda: evaluator.evaluate(exp_dir, eval_cfg), want, exp_dir,
+            eval_cfg["n_thresholds"])
+        out[name]["host_seconds"] = dict(evaluator.eval_seconds)
+        out[name]["tracks"] = _tracks(evaluator)
+    gap = _track_gap(out["kernel"].pop("tracks"),
+                     out["plain_gru"].pop("tracks"))
+    if gap > 1e-4:
+        raise AssertionError(f"class_mapping evaluate: tracks {gap} off the "
+                             "plain GRU's (limit 1e-4)")
+    report["strong"] = {"fit_s": fit_s, "launches": launches,
+                        "step_ms": strong_ms,
+                        "clips_per_s": TRAIN_CLIPS * 1e3 / strong_ms,
+                        "evaluate": out["kernel"],
+                        "evaluate_plain_gru": out["plain_gru"],
+                        "max_abs_vs_plain_gru": gap,
+                        "phrases": len(eval_items["label"])}
+    return report
+
+
+def cli_phase(work: Path, strong_exp: Path) -> dict:
+    """The command line on the card, in this process
+    (``cli.main([..., "--device", "cuda"])``) against phase 5's strong
+    run: ``inference`` on a WAV file written here (the segments those of
+    ``from_experiment`` + ``median_filter`` + ``find_contiguous_regions``
+    done by hand, ``gru_fwd`` once; ``run_inference`` at the track's
+    median as the threshold likewise); ``export`` of the run, then
+    ``predictor_from_deployment`` on the directory (a request of 3 clips:
+    ``frame_sim`` bit for bit ``from_experiment``'s); ``strong
+    calc_params`` (the flax tree's count: every parameter but the GRU's
+    r/z recurrent biases); ``strong calc_params_macs`` (its
+    ``SystemExit``); then ``python3 -m texttoaudiogrounding_tpu_torch
+    inference`` in a subprocess (exit 0, the same segments).  The commands
+    that take ``key=value`` overrides need PyYAML and run on the CPU
+    only."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from texttoaudiogrounding_tpu_torch import GroundingPredictor, cli
+    from texttoaudiogrounding_tpu_torch.data.h5io import load_wav
+    from texttoaudiogrounding_tpu_torch.deployment import (
+        predictor_from_deployment)
+    from texttoaudiogrounding_tpu_torch.evaluation.decode import (
+        find_contiguous_regions, median_filter)
+    from texttoaudiogrounding_tpu_torch.inference import run_inference
+    from texttoaudiogrounding_tpu_torch.models.layers import BiGRU
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        CALC_PARAMS_MACS_MESSAGE)
+    from texttoaudiogrounding_tpu_torch.utils.config import load_config
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    waves, label = _eval_data(work)
+    wav_path = work / "clip.wav"
+    wavfile.write(wav_path, SR, waves["eval0"].astype(np.float32))
+    phrase = label[0]["phrases"][0]["phrase"]
+    exp = str(strong_exp)
+    report: dict = {}
+
+    # inference: the command against the same steps by hand
+    _reset_counts()
+    t0 = time.perf_counter()
+    segments = cli.main(["inference", "--experiment_path", exp, "--audio",
+                         str(wav_path), "--phrase", phrase, "--device",
+                         DEVICE])
+    report["inference_s"] = time.perf_counter() - t0
+    launches = _counts()
+    if launches != _want(gru_fwd=1):
+        raise AssertionError(f"cli inference: kernel launches {launches}")
+    pred = GroundingPredictor.from_experiment(exp, device=DEVICE)
+    wave = load_wav(str(wav_path), SR)
+    probs, lengths = pred.predict(wave[None], [wave.shape[0]], [phrase],
+                                  return_length=True)
+    prob = probs[0][:max(int(lengths[0]), 1)]
+    filtered = median_filter(prob[None], window_size=1, threshold=0.5)[0]
+    by_hand = [[row[0] * pred.time_resolution, row[1] * pred.time_resolution]
+               for row in find_contiguous_regions(filtered)]
+    if segments != by_hand:
+        raise AssertionError(f"cli inference: {segments} != {by_hand}")
+    # and at the track's median, where the frames over the threshold make
+    # segments whatever the run learnt
+    mid = float(np.median(prob))
+    filtered = median_filter(prob[None], window_size=1, threshold=mid)[0]
+    by_hand_mid = [[row[0] * pred.time_resolution,
+                    row[1] * pred.time_resolution]
+                   for row in find_contiguous_regions(filtered)]
+    segments_mid = run_inference(exp, str(wav_path), phrase, threshold=mid,
+                                 device=DEVICE)
+    if not by_hand_mid or segments_mid != by_hand_mid:
+        raise AssertionError(f"run_inference at {mid}: {segments_mid} != "
+                             f"{by_hand_mid}")
+    report.update(inference_launches=launches, segments=len(segments),
+                  prob_max=float(prob.max()), median_threshold=mid,
+                  segments_at_median=len(segments_mid))
+
+    # export, then serve the directory
+    deploy_dir = work / "deploy"
+    cli.main(["export", "--experiment_path", exp, "--output",
+              str(deploy_dir), "--device", DEVICE])
+    files = sorted(p.name for p in deploy_dir.iterdir())
+    if files != ["config.json", "deploy.json", "model.pth",
+                 "modeling_grounding.py", "pytorch_model.bin",
+                 "vocabulary.pkl"]:
+        raise AssertionError(f"cli export: files {files}")
+    deployed = predictor_from_deployment(deploy_dir, device=DEVICE)
+    audio = np.stack([waves[f"eval{i}"].astype(np.float32)
+                      for i in (1, 2, 3)])
+    lens = [SR * CLIP_S, 250000, 160000]
+    text = [label[i]["phrases"][0]["phrase"] for i in (1, 2, 3)]
+    _reset_counts()
+    got = deployed.predict(audio, lens, text)
+    served = _counts()
+    ref = pred.predict(audio, lens, text)
+    if served != _want(gru_fwd=1) or not np.array_equal(got, ref):
+        raise AssertionError(
+            f"cli export: the deployed predictor's frame_sim is "
+            f"{float(np.abs(got - ref).max())} off from_experiment's "
+            f"(launches {served})")
+    report.update(export_files=files, deployed_launches=served,
+                  deployed_max_abs_vs_experiment=float(np.abs(
+                      got - ref).max()))
+    del pred, deployed
+
+    # calc_params and calc_params_macs
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        n = cli.main(["strong", "calc_params", "--config",
+                      str(strong_exp / "config.json"), "--device", DEVICE])
+    model = instantiate(load_config(strong_exp / "config.json")["model"],
+                        device=DEVICE)
+    want = sum(p.numel() for p in model.parameters()) - sum(
+        4 * m.hidden for m in model.modules() if isinstance(m, BiGRU))
+    del model
+    if n != want or printed.getvalue().strip() != f"params: {want}":
+        raise AssertionError(f"cli calc_params: {n} / {printed.getvalue()!r}"
+                             f", expected {want}")
+    try:
+        cli.main(["strong", "calc_params_macs", "--config",
+                  str(strong_exp / "config.json"), "--device", DEVICE])
+    except SystemExit as exc:
+        if str(exc) != CALC_PARAMS_MACS_MESSAGE:
+            raise AssertionError(f"cli calc_params_macs: {exc}") from None
+    else:
+        raise AssertionError("cli calc_params_macs did not exit")
+    report["calc_params"] = n
+
+    # python3 -m in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "texttoaudiogrounding_tpu_torch",
+         "inference", "--experiment_path", exp, "--audio", str(wav_path),
+         "--phrase", phrase, "--device", DEVICE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=600)
+    report["subprocess_s"] = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or lines[-1] != str(segments):
+        raise AssertionError(f"python3 -m inference: rc {proc.returncode}, "
+                             f"stdout {proc.stdout[-500:]!r}, stderr "
+                             f"{proc.stderr[-1500:]!r}")
+    torch.cuda.synchronize()
+    return report
+
+
 @functools.lru_cache(maxsize=None)
 def _port_kernel_pattern():
     """A pattern for the port's kernels in a profiled kernel name: each
@@ -5251,6 +5837,7 @@ def main() -> int:
     kernels = (kernel_phase(KERNEL_CLIPS, rng)
                + gru_kernel_phase(KERNEL_CLIPS, rng)
                + gru_cdur_rows(KERNEL_CLIPS, np.random.default_rng(19))
+               + gru_mixup_rows(np.random.default_rng(21))
                + pool_kernel_phase(KERNEL_CLIPS))
     print(json.dumps({"phase": "kernels", "card": smi, "kernels": [
         {k: row[k] for k in ("name", "max_abs_err", "rel_rms_err",
@@ -5398,6 +5985,32 @@ def main() -> int:
     report["cross_models"] = cross
     print(json.dumps({"phase": "cross_models", "card": smi, **cross}),
           flush=True)
+    t0 = time.perf_counter()
+    mapping = class_mapping_phase(work)
+    mapping["phase_s"] = time.perf_counter() - t0
+    report["class_mapping"] = mapping
+    mweak, mstrong = mapping["weak"], mapping["strong"]
+    print(json.dumps({"phase": "class_mapping", "card": smi,
+                      "phase_s": mapping["phase_s"], "weak": {
+        **{k: mweak[k] for k in (
+            "fit_s", "gru_batches", "step_ms", "clips_per_s",
+            "fixed_batch_loss", "grad_rel_rms_trunk_max",
+            "grad_rel_rms_rest_max", "evaluate_tagging")},
+        "launches": _nonzero(mweak["launches"])}, "strong": {
+        **{k: mstrong[k] for k in ("fit_s", "step_ms", "clips_per_s",
+                                   "phrases", "max_abs_vs_plain_gru")},
+        "launches": _nonzero(mstrong["launches"]),
+        "evaluate": {k: mstrong["evaluate"][k] for k in (
+            "metrics", "seconds", "host_seconds")},
+        "evaluate_launches": _nonzero(mstrong["evaluate"]["launches"])}}),
+        flush=True)
+    t0 = time.perf_counter()
+    cli_report = cli_phase(work, strong_exp)
+    cli_report["phase_s"] = time.perf_counter() - t0
+    report["cli"] = cli_report
+    print(json.dumps({"phase": "cli", "card": smi, **{
+        k: (_nonzero(v) if k.endswith("launches") else v)
+        for k, v in cli_report.items()}}), flush=True)
     work_dir.cleanup()
 
     # launches on each path, counted from zero just before it
@@ -5420,7 +6033,13 @@ def main() -> int:
                "train_sentence_word": word["launches"],
                "evaluate_sentence_word": word["evaluate"]["launches"],
                "train_selfsup": selfsup["launches"],
-               "cross_models": cross["launches"]}
+               "cross_models": cross["launches"],
+               "train_class_mapping_weak": mweak["launches"],
+               "evaluate_tagging": mweak["evaluate_tagging"]["launches"],
+               "train_class_mapping_strong": mstrong["launches"],
+               "evaluate_class_mapping": mstrong["evaluate"]["launches"],
+               "cli_inference": cli_report["inference_launches"],
+               "cli_deployed": cli_report["deployed_launches"]}
     for row in kernels:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c.get(counter, 0)

@@ -1,5 +1,6 @@
 """Evaluation without pandas: decoding, PSDS, th-AUC, sed_eval metrics and
-F-score curves on tables (``tables.py``: dicts of column arrays)."""
+F-score curves on tables (``tables.py``: dicts of column arrays), and the
+tagging average precision without scikit-learn (``tagging.py``)."""
 
 from texttoaudiogrounding_tpu_torch.evaluation.decode import (
     binarize,
@@ -21,6 +22,9 @@ from texttoaudiogrounding_tpu_torch.evaluation.sed_metrics import (
     event_based_metrics,
     segment_based_metrics,
 )
+from texttoaudiogrounding_tpu_torch.evaluation.tagging import (
+    average_precision,
+)
 from texttoaudiogrounding_tpu_torch.evaluation.th_auc import (
     GroundingPrecisionRecall,
     compute_th_auc,
@@ -32,5 +36,5 @@ __all__ = [
     "decode_multi_threshold", "PSDSEvaluator", "compute_psds",
     "compute_psds_sed_scores", "staircase_auc", "GroundingPrecisionRecall",
     "compute_th_auc", "compute_sed_eval", "event_based_metrics",
-    "segment_based_metrics",
+    "segment_based_metrics", "average_precision",
 ]

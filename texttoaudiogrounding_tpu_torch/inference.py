@@ -9,13 +9,16 @@ of ``text_bucket``, and the batch split into bucket-sized sub-batches
 (padded by repeating the last clip, trimmed afterwards); padded frames
 are zeroed.  The model runs on its own device (the card by default).
 ``GroundingPredictor.from_experiment`` builds one from a training run's
-directory (``config.json`` and a checkpoint).
+directory (``config.json`` and a checkpoint).  :func:`run_inference` is
+the command line's single-clip inference (JAX ``inference.py:238-278``):
+a WAV file and a phrase → segments, printed, and a probability plot where
+matplotlib imports.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -174,3 +177,55 @@ class GroundingPredictor:
             segs = find_contiguous_regions(filtered) * self.time_resolution
             results.append([tuple(map(float, row)) for row in segs])
         return results
+
+
+def run_inference(experiment_path, audio: str, phrase: str,
+                  output: Optional[str] = None, sample_rate: int = 32000,
+                  threshold: float = 0.5, which: str = "best",
+                  device="cuda") -> list:
+    """Single-clip inference (reference python_scripts/inference/
+    inference.py:90-163): the WAV file ``audio`` at ``sample_rate``
+    against ``phrase`` through the run's ``which`` checkpoint on
+    ``device`` (the card unless the CPU is asked for); the frames
+    thresholded at ``threshold`` and decoded into ``[onset, offset]``
+    seconds, printed and returned.  ``output`` names a PNG of the
+    probabilities, written where matplotlib imports (else it says so)."""
+    from texttoaudiogrounding_tpu_torch.data.h5io import load_wav
+
+    predictor = GroundingPredictor.from_experiment(experiment_path,
+                                                   which=which, device=device)
+    waveform = load_wav(audio, sample_rate)
+    duration = waveform.shape[0] / sample_rate
+    probs, lengths = predictor.predict(waveform[None], [waveform.shape[0]],
+                                       [phrase], return_length=True)
+    prob = probs[0][:max(int(lengths[0]), 1)]
+
+    filtered = median_filter(prob[None, :], window_size=1,
+                             threshold=threshold)[0]
+    segments = [[row[0] * predictor.time_resolution,
+                 row[1] * predictor.time_resolution]
+                for row in find_contiguous_regions(filtered)]
+    print(segments)
+
+    if output is not None:
+        try:
+            import matplotlib
+        except ImportError:
+            print(f"matplotlib does not import: {output} not written")
+            return segments
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        plt.figure(figsize=(14, 5))
+        plt.plot(prob)
+        plt.axhline(y=threshold, color="r", linestyle="--")
+        xlabels = [f"{x:.2f}" for x in np.arange(0, duration, duration / 5)]
+        plt.xticks(ticks=np.arange(0, len(prob), len(prob) / 5),
+                   labels=xlabels, fontsize=15)
+        plt.xlabel("Time / second", fontsize=14)
+        plt.ylabel("Probability", fontsize=14)
+        plt.ylim(0, 1)
+        out_path = Path(output)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        plt.savefig(out_path, bbox_inches="tight", dpi=150)
+        plt.close()
+    return segments

@@ -12,6 +12,7 @@ from texttoaudiogrounding_tpu_torch.models.audio_encoder import (
     CrnnEncoder,
 )
 from texttoaudiogrounding_tpu_torch.models.audio_text_model import (
+    AudioTagging,
     BiEncoder,
     MultiTextBiEncoder,
     MultiTextBiEncoderWithAlign,
@@ -27,7 +28,8 @@ from texttoaudiogrounding_tpu_torch.models.match import (
 )
 from texttoaudiogrounding_tpu_torch.models.text_encoder import EmbeddingAgg
 
-__all__ = ["AlignDotProduct", "AlignExpNegL2", "AudioTextAlignByPhrase",
+__all__ = ["AlignDotProduct", "AlignExpNegL2", "AudioTagging",
+           "AudioTextAlignByPhrase",
            "AudioTextAlignByWord", "AudioTextCrossAlignByPhrase", "BiEncoder",
            "Cnn8Rnn", "CrnnEncoder", "CrossAttention", "CrossAttentionGating",
            "DotProduct", "EmbeddingAgg", "ExpNegL2", "MultiTextBiEncoder",

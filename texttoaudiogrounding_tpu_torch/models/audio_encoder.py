@@ -42,7 +42,14 @@ In train mode (``audio_encoder.py:85-144``) bn0 and the blocks'
 BatchNorms use batch statistics, ``Dropout(0.2)`` follows each block and
 ``Dropout(0.5)`` the mel mean, with masks drawn from the module's own
 ``torch.Generator`` (seeded, when first used, from the torch seed: the
-trainer's config seed).  Spec-augment and mixup are not ported.
+trainer's config seed).  In train mode ``Cnn8Rnn`` also takes the
+class-mapping augmentations of JAX ``:98-103, 138-143``: with ``specaug``
+true in the input, SpecAugment after bn0 (``layers.spec_augment``, its
+stripes drawn from the same generator), and with ``mixup_lambda [B]`` in
+the input, mixup of the log-mel after it (``layers.do_mixup``: the batch
+halves before the conv blocks) and of the length, which stays float
+(``λ·l0 + (1-λ)·l1``: a length of 12.6 keeps 13 frames through
+``generate_length_mask``).
 """
 
 from __future__ import annotations
@@ -57,7 +64,10 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     ConvBlock,
     batch_norm_eval,
     batch_norm_train,
+    do_mixup,
     lp_pool_2d,
+    spec_augment,
+    spec_augment_stripes,
 )
 from texttoaudiogrounding_tpu_torch.ops.frontend import (
     cdur_mel_config,
@@ -144,8 +154,13 @@ class Cnn8Rnn(_Encoder):
             x = log_mel_spectrogram(waveform, cfg)
         # bn0 over the mel axis: f32, per mel
         x = (batch_norm_train if bn_train else batch_norm_eval)(x, self.bn0)
-        x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
         gen = self._dropout_generator(x.device) if train else None
+        if train and input_dict.get("specaug", False):
+            x = spec_augment(x, spec_augment_stripes(gen, *x.shape))
+        mixup_lambda = input_dict.get("mixup_lambda") if train else None
+        if mixup_lambda is not None:
+            x = do_mixup(x, mixup_lambda)
+        x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
         p_block, p_mean = self.dropout if train else (0.0, 0.0)
         for i, (_, _, pool) in enumerate(_BLOCKS, start=1):
             x = dropout(getattr(self, f"conv_block{i}")(x, pool, bn_train),
@@ -155,8 +170,11 @@ class Cnn8Rnn(_Encoder):
         x = dropout(x, p_mean, gen)
         x = torch.relu(F.linear(x.float(), self.fc1.weight, self.fc1.bias))
         x = self.rnn(x, dtype=torch.float32 if train else self.dtype)
-        length = input_dict["waveform_len"] // cfg.hop_length + 1
-        return {"embedding": x, "length": length // self.downsample_ratio}
+        length = (input_dict["waveform_len"] // cfg.hop_length + 1
+                  ) // self.downsample_ratio
+        if mixup_lambda is not None:
+            length = do_mixup(length.float(), mixup_lambda)
+        return {"embedding": x, "length": length}
 
 
 # CDur's blocks: (in, out) channels, then the LP pool after the block

@@ -4,8 +4,9 @@ projections + match.
 Ports of ``texttoaudiogrounding_tpu/models/audio_text_model.py:105-154``
 (``BiEncoder``, reference models/audio_text_model.py:16-98), ``:57-102,
 157-214`` (``MultiTextBiEncoder``, the phrase-level WSTAG model, reference
-:101-229) and ``:217-297`` (``MultiTextBiEncoderWithAlign``, reference
-:232-402).  ``BiEncoder`` gives ``{"frame_sim" [B, T], "length" [B]}``,
+:101-229), ``:217-297`` (``MultiTextBiEncoderWithAlign``, reference
+:232-402) and ``:301-317`` (``AudioTagging``, the class-mapping
+model).  ``BiEncoder`` gives ``{"frame_sim" [B, T], "length" [B]}``,
 and ``"logit" [B, T]``, the pre-sigmoid score, for a match function that
 has one (``DotProduct``) when nothing is upsampled;
 ``MultiTextBiEncoder`` gives ``{"frame_sim" [B, T, N], "clip_sim" [B, N],
@@ -239,6 +240,34 @@ class MultiTextBiEncoderWithAlign(MultiTextBiEncoder):
         if input_dict.get("output_matrix", False):
             output["sim_matrix"] = sim_matrix
         return output
+
+
+class AudioTagging(nn.Module):
+    """The class-mapping model (JAX ``audio_text_model.py:301-317``,
+    reference models/audio_text_model.py:405-458): the audio encoder, a
+    ``Linear(embed_dim, classes_num)`` (``fc_output``), the sigmoid, and
+    the MIL pooling ``pooling`` over the valid length: ``{"frame_sim"
+    [B, T, C], "clip_sim" [B, C], "length" [B]}`` (under mixup in train
+    mode B is half the input's and the length is float)."""
+
+    def __init__(self, audio_encoder: nn.Module, classes_num: int,
+                 pooling: str = "linear_softmax", device="cuda"):
+        super().__init__()
+        if pooling not in POOLINGS:
+            raise ValueError(f"pooling must be one of {sorted(POOLINGS)}")
+        self.audio_encoder = audio_encoder
+        self.classes_num = classes_num
+        self.pooling = pooling
+        self.fc_output = nn.Linear(audio_encoder.embed_dim, classes_num)
+        self.to(resolve_device(device))
+        self.eval()
+
+    def forward(self, input_dict: dict) -> dict:
+        output = self.audio_encoder(input_dict)
+        prob = torch.sigmoid(self.fc_output(output["embedding"]))
+        return {"frame_sim": prob,
+                "clip_sim": POOLINGS[self.pooling](prob, output["length"]),
+                "length": output["length"]}
 
 
 def flagship_model(serving: bool = True, device="cuda",

@@ -1,9 +1,10 @@
 """Shared building blocks: the PANNs ConvBlock, the CDur block with its LP
-pool, and the grouped-scan BiGRU.
+pool, the grouped-scan BiGRU, SpecAugment and mixup.
 
 Ports of ``texttoaudiogrounding_tpu/models/layers.py:21-292``
 (``_FusedBNPool``, ConvBlock), ``:295-325`` (``CDurBlock``,
-``lp_pool_2d``) and ``:425-543`` (BiGRU).  Activations are
+``lp_pool_2d``), ``:425-543`` (BiGRU) and ``:635-670`` (``spec_augment``,
+here split into the draws and their masks, and ``do_mixup``).  Activations are
 channel-last, ``[B, T, M, C]``, as in the JAX package; parameters and
 state-dict names follow the reference torch modules (``conv1.weight`` is
 ``[Cout, Cin, 3, 3]``, BN keeps running statistics, the GRU is named like
@@ -296,6 +297,58 @@ def lp_pool_2d(x: torch.Tensor, norm_type: float, window) -> torch.Tensor:
     xp = torch.pow(torch.abs(x[:, :t // kt * kt, :m // km * km]), p)
     summed = xp.reshape(b, t // kt, kt, m // km, km, c).sum(dim=(2, 4))
     return torch.pow(summed, 1.0 / p)
+
+
+def _stripes(generator: torch.Generator, batch: int, num: int,
+             drop_width: int, total: int, device) -> tuple:
+    """``num`` stripes a row: width ~ U[0, drop_width), begin ~ U[0,
+    max(total - width, 1))."""
+    width = torch.randint(0, drop_width, (batch, num), generator=generator,
+                          device=device)
+    span = torch.clamp_min(total - width, 1)
+    begin = (torch.rand((batch, num), generator=generator, device=device)
+             * span).long().clamp_max(span - 1)
+    return begin, width
+
+
+def spec_augment_stripes(generator: torch.Generator, batch: int,
+                         frames: int, mels: int, time_drop_width: int = 64,
+                         time_stripes_num: int = 2, freq_drop_width: int = 8,
+                         freq_stripes_num: int = 2, device=None) -> dict:
+    """The random part of SpecAugment (JAX ``layers.py:635-660``,
+    torchlibrosa's ``SpecAugmentation`` law): ``{"time": (begin, width),
+    "freq": (begin, width)}``, each ``[batch, stripes]`` int64, drawn from
+    ``generator``."""
+    device = generator.device if device is None else device
+    return {"time": _stripes(generator, batch, time_stripes_num,
+                             time_drop_width, frames, device),
+            "freq": _stripes(generator, batch, freq_stripes_num,
+                             freq_drop_width, mels, device)}
+
+
+def stripe_keep(begin: torch.Tensor, width: torch.Tensor,
+                total: int) -> torch.Tensor:
+    """``[B, total]`` bool, False inside any of a row's stripes."""
+    idx = torch.arange(total, device=begin.device)[None, None, :]
+    hit = (idx >= begin[..., None]) & (idx < (begin + width)[..., None])
+    return ~hit.any(dim=1)
+
+
+def spec_augment(x: torch.Tensor, stripes: dict) -> torch.Tensor:
+    """Zero the ``stripes`` (:func:`spec_augment_stripes`) of a log-mel
+    ``x [B, T, M]``: ``x · time_keep · freq_keep``."""
+    _, t, m = x.shape
+    tkeep = stripe_keep(*stripes["time"], t).to(x.dtype)
+    fkeep = stripe_keep(*stripes["freq"], m).to(x.dtype)
+    return x * tkeep[:, :, None] * fkeep[:, None, :]
+
+
+def do_mixup(x: torch.Tensor, mixup_lambda: torch.Tensor) -> torch.Tensor:
+    """Even rows mixed with odd ones, ``x[0::2]·λ[0::2] + x[1::2]·λ[1::2]``
+    in ``x``'s dtype; halves the batch (JAX ``layers.py:663-670``)."""
+    lam = mixup_lambda.to(x.dtype)
+    lam = lam.reshape(lam.shape + (1,) * (x.dim() - 1))
+    return x[0::2] * lam[0::2] + x[1::2] * lam[1::2]
 
 
 class BiGRU(nn.Module):

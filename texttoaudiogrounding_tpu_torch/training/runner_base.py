@@ -9,8 +9,10 @@ forward in train mode (batch-statistics BN, which moves the running
 statistics, and dropout), the loss, the backward, global-norm clipping and
 Adam, and :meth:`BaseRunner.fit` runs the epochs with a validation loss,
 the plateau learning rate, early stopping and the best/last checkpoints.
-Between the backward and the clipping, :meth:`BaseRunner.post_grad_hook`
-may change the gradients (the weak runner's NaN guard); each epoch starts
+``static_train_inputs`` are added to the model's input in the train steps
+and never in validation.  Between the backward and the clipping,
+:meth:`BaseRunner.post_grad_hook` may change the gradients (the weak
+runner's NaN guard); each epoch starts
 with the train loader's ``set_epoch`` where it has one (the datasets that
 sample draw anew).  ``resume: <checkpoint>`` in the config continues a run
 (JAX ``runner_base.py:368-381, 534``): the weights, Adam's state, the
@@ -101,6 +103,10 @@ class BaseRunner:
         self.config: dict = {}
         self.logger = logging.getLogger(__name__)
         self._freeze_mask = None
+        # flags added to the model's input in train steps only, never in
+        # validation (JAX ``_static_train_inputs``, ``runner_base.py:
+        # 178-193``): the class-mapping runner's ``{"specaug": True}``
+        self.static_train_inputs: dict = {}
 
     # ------------------------------------------------------------ builders
     def setup(self, config) -> dict:
@@ -146,7 +152,8 @@ class BaseRunner:
         """One optimizer step on ``batch`` (tensors on the device); returns
         the loss, still on the device."""
         model.train()
-        output = output_transform(model(batch), batch)
+        output = output_transform(
+            model({**batch, **self.static_train_inputs}), batch)
         loss = loss_fn(output)
         optimizer.zero_grad()
         loss.backward()

@@ -9,8 +9,9 @@ through the model in batches (one host copy of ``frame_sim`` and
 (``evaluation/tables.py``) without pandas.  ``model_overrides`` in the
 eval config evaluates a checkpoint in another configuration of the same
 weights, e.g. the serving one, ``{audio_encoder: {args: {dtype: bfloat16,
-conv_mode: int8}}}``.  ``calc_params`` counts parameters as PyTorch does;
-the MAC count (``calc_params_macs``) is not ported.
+conv_mode: int8}}}``.  ``calc_params`` counts the parameters of the JAX
+package's flax tree; the MAC count (``calc_params_macs``) is not ported
+and exits with :data:`CALC_PARAMS_MACS_MESSAGE`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from texttoaudiogrounding_tpu_torch.evaluation.tables import (
     write_tsv,
 )
 from texttoaudiogrounding_tpu_torch.evaluation.th_auc import compute_th_auc
+from texttoaudiogrounding_tpu_torch.models.layers import BiGRU
 from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
 from texttoaudiogrounding_tpu_torch.training.runner_base import BaseRunner
 from texttoaudiogrounding_tpu_torch.utils.config import (
@@ -44,6 +46,12 @@ from texttoaudiogrounding_tpu_torch.utils.config import (
     parse_config_or_kwargs,
 )
 from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+CALC_PARAMS_MACS_MESSAGE = (
+    "calc_params_macs is not ported: the JAX package counts the forward's "
+    "FLOPs with XLA's cost_analysis() of the compiled program, and PyTorch "
+    "has no counter of the same operations; calc_params gives the "
+    "parameter count")
 
 
 def strong_output_transform(output: dict, batch: dict) -> dict:
@@ -155,7 +163,7 @@ class StrongRunner(BaseRunner):
             t0 = time.perf_counter()
             with torch.no_grad():
                 tracks = self.eval_tracks(
-                    model(self.eval_batch(batch, model)), model)
+                    model(self.eval_batch(batch, model)), model, batch)
             t1 = time.perf_counter()
             for idx, scores in enumerate(tracks):
                 fname = (f"{batch['audiocap_id'][idx]}_"
@@ -179,10 +187,10 @@ class StrongRunner(BaseRunner):
         return {"pred_buffer": detection_tables(segments),
                 "score_buffer": score_buffer, **gt}
 
-    def eval_tracks(self, output: dict, model) -> list:
+    def eval_tracks(self, output: dict, model, batch: dict) -> list:
         """Each item's score track (numpy, on the host) from the forward's
-        output: ``frame_sim`` (at the first phrase of a multi-phrase one)
-        cut to the item's length."""
+        output on the loader's ``batch``: ``frame_sim`` (at the first
+        phrase of a multi-phrase one) cut to the item's length."""
         frame_sim = output["frame_sim"].float().cpu().numpy()
         lengths = output["length"].cpu().numpy()
         if frame_sim.ndim == 3:
@@ -482,10 +490,18 @@ class StrongRunner(BaseRunner):
         return losses
 
     def calc_params(self, config, overrides=None, **kwargs) -> int:
-        """The model's parameter count, as PyTorch counts them (the GRU's
-        ``bias_hh`` included, which the JAX package's flax cells have only
-        for the new gate)."""
+        """The model's parameter count as the JAX package counts its flax
+        tree (``runner_strong.py:468-469``): every parameter but each GRU
+        direction's r/z recurrent biases (``bias_hh[:2H]``), which the flax
+        cells lack and the port keeps detached (``models/layers.py``
+        ``BiGRU``)."""
         self.setup(parse_config_or_kwargs(config, overrides, **kwargs))
-        n = sum(p.numel() for p in self.build_model().parameters())
+        model = self.build_model()
+        n = sum(p.numel() for p in model.parameters()) - sum(
+            2 * m.hidden * 2 for m in model.modules() if isinstance(m, BiGRU))
         print(f"params: {n}")
         return n
+
+    def calc_params_macs(self, config, overrides=None, **kwargs):
+        """Not ported: see :data:`CALC_PARAMS_MACS_MESSAGE`."""
+        raise SystemExit(CALC_PARAMS_MACS_MESSAGE)

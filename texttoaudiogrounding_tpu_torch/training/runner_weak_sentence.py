@@ -36,7 +36,7 @@ class WeakSentenceRunner(WeakPhraseRunner):
     def eval_batch(self, batch: dict, model) -> dict:
         return {**to_device(batch, self.device), "output_matrix": True}
 
-    def eval_tracks(self, output: dict, model) -> list:
+    def eval_tracks(self, output: dict, model, batch: dict) -> list:
         diag = torch.diagonal(output["sim_matrix"].float(), dim1=0, dim2=1)
         diag = diag.permute(2, 0, 1).cpu().numpy()            # [B, T, N]
         if type(model).__name__ in _PHRASE_MODELS:

@@ -4,8 +4,10 @@ The short names of ``texttoaudiogrounding_tpu/utils/registry.py`` that the
 strong-supervision configs (``configs/strong/biencoder_train.yaml``,
 ``cdur_w2vmean.yaml``), the WSTAG configs (``configs/weak_phrase/``,
 ``configs/weak_sentence/``) and the models, datasets and runners of
-WSTAG (the cross encoder, align functions and sim poolings) use, and every
-loss class,
+WSTAG (the cross encoder, align functions and sim poolings) and the
+class-mapping configs (``configs/class_mapping/``: ``AudioTagging``, the
+eight class-mapping datasets, ``VarLenPadCollate``, both runners) use, and
+every loss class,
 resolved to the port's classes, and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
@@ -27,13 +29,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _fill() -> None:
     from texttoaudiogrounding_tpu_torch import losses, models
-    from texttoaudiogrounding_tpu_torch.data import collate, datasets
+    from texttoaudiogrounding_tpu_torch.data import (
+        class_mapping,
+        collate,
+        datasets,
+    )
     from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
     from texttoaudiogrounding_tpu_torch.models.sim_pooling import (
         MULTI_TEXT_POOLINGS,
         SIM_POOLINGS,
     )
     from texttoaudiogrounding_tpu_torch.training import optim
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingStrongRunner,
+        ClassMappingWeakRunner,
+    )
     from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
         WeakPhraseRunner,
         WeakPhraseSelfSupervisionRunner,
@@ -55,6 +65,12 @@ def _fill() -> None:
             "AudioCaptionPhrasesEvalDataset", "AudioCaptionPhrasesDataset",
             "SinglePhraseEvalDataset", "AudioCaptionDataset",
             "AudioCaptionPhraseIndicesDataset")},
+        **{name: getattr(class_mapping, name) for name in (
+            "ASMappingEvalDataset", "ASMappingWeakDataset",
+            "ASMappingEvalLabelSimDataset", "ASMappingStrongDataset",
+            "KmeansMappingEvalDataset", "KmeansMappingDataset",
+            "SpectralMappingEvalDataset", "SpectralMappingDataset")},
+        "VarLenPadCollate": collate.VarLenPadCollate,
         "TextCollate": collate.TextCollate,
         "VarNumTextCollate": collate.VarNumTextCollate,
         "DictTokenizer": DictTokenizer,
@@ -64,6 +80,8 @@ def _fill() -> None:
         "WeakPhraseRunner": WeakPhraseRunner,
         "WeakPhraseSelfSupervisionRunner": WeakPhraseSelfSupervisionRunner,
         "WeakSentenceRunner": WeakSentenceRunner,
+        "ClassMappingStrongRunner": ClassMappingStrongRunner,
+        "ClassMappingWeakRunner": ClassMappingWeakRunner,
     })
 
 

@@ -4,8 +4,10 @@ a numpy seed.
 ``from_jax_variables`` maps the JAX ``{"params", "batch_stats"}`` tree of
 a grounding model (``BiEncoder``, ``MultiTextBiEncoder`` and
 ``MultiTextBiEncoderWithAlign``, the align models of
-``models/align_models.py``; audio tower ``Cnn8Rnn`` or ``CrnnEncoder``,
-text tower ``EmbeddingAgg``, with a ``CrossAttentionGating`` cross encoder
+``models/align_models.py``, and the class-mapping ``AudioTagging``, whose
+tree is ``audio_encoder`` and ``fc_output``; audio tower ``Cnn8Rnn`` or
+``CrnnEncoder``, text tower ``EmbeddingAgg``, with a
+``CrossAttentionGating`` cross encoder
 or a ``CrossAttention`` match function) onto the port's state dict,
 whose names and layouts are the reference torch ones: conv kernels
 ``[kH, kW, Cin, Cout] → [Cout, Cin, kH, kW]``, dense kernels transposed,
@@ -129,7 +131,11 @@ def from_jax_variables(variables: dict) -> dict:
 
 
 def _text(sd: dict, params: dict) -> None:
-    """The ``EmbeddingAgg`` tower and the projections."""
+    """The ``EmbeddingAgg`` tower and the projections, or the tagging
+    head ``fc_output`` of a model without a text tower."""
+    if "text_encoder" not in params:
+        _dense(sd, "fc_output", params["fc_output"])
+        return
     text = params["text_encoder"]
     sd["text_encoder.embedding.core.weight"] = _t(
         text["embedding"]["embed"]["embedding"])
