@@ -55,7 +55,8 @@ Phases, each printing one line:
    and gradient within 1e-4 of its plain version, beside ``torch.nn.GRU``
    and their CUDA launches a call counted (1 and 2), and so at the weak
    class-mapping train step's shape (T = 250, 2B = 32, H = 256: mixup
-   halves the batch of 32 before the conv blocks); and the training
+   halves the batch of 32 before the conv blocks) and at the zoo's text
+   shape (T = 20, 2B = 160, H = 256 over 300); and the training
    path's pool kernels (``dual_pool_fwd``/``_bwd``, ``bn_pool_fwd``,
    ``bn_pool_bwd`` on its second design, ``bn_pool_v2.cu``, and the batch
    statistics ``bn_pool_stats``) at the four conv blocks' outputs of a
@@ -289,7 +290,35 @@ Phases, each printing one line:
    calc_params`` (the flax tree's count), ``strong calc_params_macs`` (its
    ``SystemExit``), and ``python3 -m texttoaudiogrounding_tpu_torch
    inference`` in a subprocess (exit 0, the same segments);
-17. multi_device: the strong fit of phase 5 (the config's keys at full
+17. released_model: the released grounding model at full width
+   (``models/hf_api.py``: Cnn8Rnn + the RoBERTa-base CLAP text tower,
+   512-d projections, ``DotProduct``): a reference-format deployment
+   checkpoint from a numpy seed through ``import_hf_grounding`` into the
+   serving model (bf16, int8 blocks), the f32 model, the all-plain f32
+   model and the serving model with the bf16 GRU kernel; 32 clips x 10 s
+   (10 / 7.8 / 5 s) with a 4-16 token phrase each, through the model's
+   forward: rows 1-4 launched their serving counts a forward (and
+   ``gru_fwd_bf16`` once with the GRU kernel), the lengths, ``frame_sim``
+   finite in (0, 1] with padded frames zeroed, within 0.05 of the
+   all-plain path and its audio embedding within 5 % relative RMS, the
+   text tower's ``seq_emb`` within 1e-4 of the same tower on the CPU; the
+   forward's, the text tower's and the audio tower's ms (CUDA events) and
+   the peak device memory;
+18. zoo: ``CrossCnn8Rnn`` (8 steps) and ``CrossCDur`` (4 steps) in f32 with
+   ``FrameBceLoss`` and Adam on one batch of 32 x 10 s (the first step's
+   gradients within 1e-4 / 2e-2 of the all-plain path's, row 13 once each
+   way a step, the loss falling); ``RnnEncoder`` (bidirectional GRU over
+   160 rows of 20 tokens) one step at H = 256 (the cluster designs) and at
+   H = 300 (the first design, ``gru.route``), gradients within 1e-4 of the
+   plain GRU's; ``IntraAttention`` / ``SelfAttention`` forward and
+   backward finite; ``Cnn14``, ``ResNet38``, ``WavegramLogmelCnn14`` and
+   the AST at full width on 32 x 10 s (shapes, finite, 2 clips within 1e-4
+   of the CPU); an ``AudioTextClip(Cnn14, RetrievalBert at BERT-base
+   width)`` step of ``InfoNceLoss(tau=1)`` whose encoder gradients with
+   ``gradient_clip=0.5`` are 0.5x those with 1.0, and its step time; and
+   the encode loop of ``extract_phrase_embeddings`` over 1,000 phrases on
+   a CLAP tower (host seconds);
+19. multi_device: the strong fit of phase 5 (the config's keys at full
    width, ``MULTI_DEVICE_CUTS``) on ranks of ``torch.distributed``, all on
    ``cuda:0``, the cuDNN algorithms deterministic: (a) on an NCCL group of
    one rank with ``parallel.mesh {data: 1}``, its step losses within 1e-6
@@ -3960,6 +3989,14 @@ def gru_mixup_rows(rng) -> list:
                           TRAIN_CLIPS // 2, 256, 512, rng)
 
 
+def gru_text_rows(rng) -> list:
+    """Row 13's forward and backward at ``RnnEncoder``'s text shape in the
+    zoo phase (T = 20, 2B = 160 phrases, H = 256 over word2vec's 300): see
+    ``_gru_path_rows``."""
+    return _gru_path_rows("text", "zoo_rnn_encoder", ZOO_TEXT_T,
+                          ZOO_TEXT_ROWS, 256, 300, rng)
+
+
 def _gru_path_rows(label: str, path: str, t: int, b: int, h: int, d: int,
                    rng) -> list:
     """Row 13's forward and backward at one path's shape (``b`` clips,
@@ -5626,6 +5663,589 @@ def cli_phase(work: Path, strong_exp: Path) -> dict:
 # ------------------------------------------------------------ multi_device
 # The strong config's ranks: configs/strong/biencoder_train.yaml's keys at
 # full width (``_strong_config``), with these cuts.
+RELEASED_LENS_S = (10.0, 7.8, 5.0)    # clip lengths (of 10 s), in turn
+RELEASED_TOKENS = (4, 16)             # phrase lengths with <s> and </s>
+
+
+def _released_batch(rng, vocab: int) -> dict:
+    """KERNEL_CLIPS clips of CLIP_S s (noise and a tone, the lengths
+    ``RELEASED_LENS_S`` in turn, zero after each) and one phrase a clip of
+    4-16 token ids (``<s>`` = 0 first, ``</s>`` = 2 last, the rest drawn in
+    the vocabulary, padded with 1), on the card."""
+    import numpy as np
+    import torch
+
+    b, n = KERNEL_CLIPS, SR * CLIP_S
+    wave = np.zeros((b, n), np.float32)
+    lens = np.array([int(RELEASED_LENS_S[i % 3] * n / 10) for i in range(b)])
+    ids = np.ones((b, RELEASED_TOKENS[1]), np.int64)
+    mask = np.zeros_like(ids)
+    for i in range(b):
+        t = np.arange(lens[i])
+        wave[i, :lens[i]] = rng.normal(0, 0.05, lens[i]) + 0.2 * np.sin(
+            2 * np.pi * _TONES[i % len(_TONES)] * t / SR)
+        k = int(rng.integers(RELEASED_TOKENS[0], RELEASED_TOKENS[1] + 1))
+        ids[i, 0], ids[i, k - 1] = 0, 2
+        ids[i, 1:k - 1] = rng.integers(3, vocab, k - 2)
+        mask[i, :k] = 1
+    dev = torch.device(DEVICE)
+    return {"waveform": torch.from_numpy(wave).to(dev),
+            "waveform_len": torch.from_numpy(lens).to(dev),
+            "input_ids": torch.from_numpy(ids).to(dev),
+            "attention_mask": torch.from_numpy(mask).to(dev)}
+
+
+def _masked_frames(out: dict):
+    """``frame_sim`` with the frames past each clip's length zeroed, as
+    ``GroundingPredictor.predict`` serves it."""
+    import torch
+    fs = out["frame_sim"]
+    valid = torch.arange(fs.shape[1], device=fs.device)[None] \
+        < out["length"][:, None]
+    return fs * valid, valid
+
+
+def released_model_phase(rng) -> dict:
+    """The released grounding model at full width (Cnn8Rnn + the RoBERTa-
+    base CLAP text tower, 512-d projections, DotProduct): a reference-
+    format checkpoint from a numpy seed through ``import_hf_grounding``
+    into the serving model (bf16, int8 blocks), the f32 model, the
+    all-plain f32 model (``gru_kernel=False``) and the serving model with
+    the bf16 GRU kernel; KERNEL_CLIPS clips x 10 s (10 / 7.8 / 5 s) with a
+    4-16 token phrase each, served through the model's forward."""
+    import copy
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.models.hf_api import (
+        clap_text_config,
+        cnn8rnn_laionclap_grounding_model,
+        import_hf_grounding,
+        random_reference_checkpoint,
+    )
+
+    cfg = clap_text_config()
+    t0 = time.perf_counter()
+    models = {
+        "serving": cnn8rnn_laionclap_grounding_model(serving=True,
+                                                     device=DEVICE),
+        "f32": cnn8rnn_laionclap_grounding_model(device=DEVICE),
+        "plain": cnn8rnn_laionclap_grounding_model(gru_kernel=False,
+                                                   device=DEVICE),
+        "gru_kernel": cnn8rnn_laionclap_grounding_model(
+            serving=True, gru_kernel=True, device=DEVICE)}
+    sd = import_hf_grounding(random_reference_checkpoint(models["serving"],
+                                                         50), cfg)
+    for model in models.values():
+        model.load_state_dict(sd)                               # strict
+    setup_s = time.perf_counter() - t0
+    batch = _released_batch(rng, cfg.vocab_size)
+    report: dict = {"clips": KERNEL_CLIPS, "setup_s": setup_s,
+                    "text_params": sum(p.numel() for p in models[
+                        "serving"].text_encoder.parameters()),
+                    "audio_params": sum(p.numel() for p in models[
+                        "serving"].audio_encoder.parameters())}
+    launches = {}
+    outs = {}
+    with torch.no_grad():
+        for name, per_forward in (
+                ("serving", SERVING_PER_FORWARD),
+                ("gru_kernel", {**SERVING_PER_FORWARD, "gru_fwd_bf16": 1})):
+            _reset_counts()
+            outs[name] = models[name](batch)
+            launches[name] = _counts()
+            if launches[name] != _want(**per_forward):
+                raise AssertionError(
+                    f"released_model {name}: launches "
+                    f"{_nonzero(launches[name])}, expected {per_forward}")
+        outs["plain"] = models["plain"](batch)
+        want_len = (batch["waveform_len"] // 320 + 1) // 4
+        for name in ("serving", "gru_kernel"):
+            out = outs[name]
+            if not torch.equal(out["length"], want_len):
+                raise AssertionError(f"released_model {name}: lengths")
+            fs, valid = _masked_frames(out)
+            if not (torch.isfinite(fs).all() and (fs[valid] > 0).all()
+                    and (fs[valid] <= 1).all() and not fs[~valid].any()):
+                raise AssertionError(f"released_model {name}: frame_sim "
+                                     "out of (0, 1]")
+            delta = float((fs - _masked_frames(outs["plain"])[0]).abs()
+                          .max())
+            emb = models[name].audio_encoder(batch)["embedding"].double()
+            ref = models["plain"].audio_encoder(batch)["embedding"].double()
+            emb_rel = float(torch.sqrt(((emb - ref) ** 2).mean()
+                                       / (ref ** 2).mean()))
+            if delta >= 0.05 or emb_rel >= 0.05:
+                raise AssertionError(
+                    f"released_model {name}: |frame_sim - plain f32| "
+                    f"{delta}, audio embedding rel RMS {emb_rel}")
+            report[name] = {"max_abs_vs_plain_f32": delta,
+                            "embedding_rel_rms_vs_plain_f32": emb_rel,
+                            "launches": _nonzero(launches[name])}
+        f32 = models["f32"](batch)
+        delta = float((_masked_frames(f32)[0]
+                       - _masked_frames(outs["plain"])[0]).abs().max())
+        if delta > 1e-4:
+            raise AssertionError(f"released_model f32: {delta} off the "
+                                 "plain GRU's")
+        report["f32_max_abs_vs_plain"] = delta
+        # the text tower on the card against the same tower on the CPU
+        text = models["serving"].text_encoder
+        cpu_text = copy.deepcopy(text).cpu()
+        seq = text(batch)["seq_emb"]
+        seq_cpu = cpu_text({k: v.cpu() for k, v in batch.items()})[
+            "seq_emb"]
+        text_gap = float((seq.cpu() - seq_cpu).abs().max())
+        if text_gap > 1e-4:
+            raise AssertionError(f"released_model: text seq_emb {text_gap} "
+                                 "off the CPU's")
+        report["text_seq_emb_max_abs_vs_cpu"] = text_gap
+        serving = models["serving"]
+        torch.cuda.reset_peak_memory_stats()
+        report["forward_ms"] = _cuda_ms(lambda: serving(batch), 10)
+        report["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report["text_tower_ms"] = _cuda_ms(
+            lambda: serving.text_encoder(batch), 10)
+        report["audio_tower_ms"] = _cuda_ms(
+            lambda: serving.audio_encoder(batch), 10)
+        report["forward_ms_gru_kernel"] = _cuda_ms(
+            lambda: models["gru_kernel"](batch), 10)
+        report["forward_ms_f32"] = _cuda_ms(lambda: models["f32"](batch), 3)
+        for name, fn, ms in (
+                ("text_tower", lambda: serving.text_encoder(batch),
+                 report["text_tower_ms"]),
+                ("forward_gru_kernel", lambda: models["gru_kernel"](batch),
+                 report["forward_ms_gru_kernel"])):
+            trace = _trace(fn, ms)
+            report[f"trace_{name}"] = {
+                k: trace[k] for k in ("device_busy_ms", "device_idle_share",
+                                      "port_kernels_ms", "launches")}
+            report[f"trace_{name}"]["top"] = trace["top"][:4]
+    report["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+    report["launches"] = {k: _nonzero(v) for k, v in launches.items()}
+    del models, cpu_text
+    torch.cuda.empty_cache()
+    return report
+
+
+ZOO_CROSS_STEPS = {"CrossCnn8Rnn": 8, "CrossCDur": 4}
+ZOO_TEXT_ROWS, ZOO_TEXT_T = 80, 20      # RnnEncoder: 2B = 160 rows of T
+
+
+def _strong_labels(b: int, t: int, lens):
+    """Frame labels ``[b, t]``: each clip's tone over its eighth-to-quarter
+    (``_TONES``' segments) in frames of ``t``."""
+    import torch
+    label = torch.zeros(b, t, device=lens.device)
+    for i in range(b):
+        k = i % 4
+        label[i, t * (k + 1) // 8:t * (k + 3) // 8] = 1.0
+    return label
+
+
+def _zoo_audio(rng, clips: int, vocab: int) -> dict:
+    """``clips`` clips of CLIP_S s, each of noise with a tone over an
+    eighth-to-quarter of it, and a 1-4 word phrase, on the card."""
+    import numpy as np
+    import torch
+
+    n = SR * CLIP_S
+    wave = rng.normal(0, 0.01, (clips, n)).astype(np.float32)
+    for i in range(clips):
+        k = i % 4
+        idx = np.arange(n * (k + 1) // 8, n * (k + 3) // 8)
+        wave[i, idx] += 0.3 * np.sin(2 * np.pi * _TONES[i % len(_TONES)]
+                                     * idx / SR)
+    text_len = rng.integers(1, 5, clips)
+    text = np.zeros((clips, 4), np.int64)
+    for i in range(clips):
+        text[i, :text_len[i]] = rng.integers(2, vocab, text_len[i])
+    dev = torch.device(DEVICE)
+    return {"waveform": torch.from_numpy(wave).to(dev),
+            "waveform_len": torch.full((clips,), n, device=dev),
+            "text": torch.from_numpy(text).to(dev),
+            "text_len": torch.from_numpy(text_len).to(dev)}
+
+
+def _trunk(name: str) -> bool:
+    """The cross models' conv trunk, with the text tower, whose gradient
+    comes back through every block's ``fc_text``."""
+    return name.startswith(("conv_block", "block", "bn0", "text_encoder"))
+
+
+def _zoo_cross(kind: str, batch: dict) -> dict:
+    """``kind`` (Cnn8Rnn or CDur trunk, EmbeddingAgg(5000, 512)) in f32,
+    train mode (batch statistics) with dropout off: the first step's
+    gradients against the all-plain path's, then ZOO_CROSS_STEPS[kind]
+    Adam steps of ``FrameBceLoss`` on the batch: row 13's forward and
+    backward once a step, the loss falling."""
+    import math
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.losses import FrameBceLoss
+    from texttoaudiogrounding_tpu_torch.models import EmbeddingAgg
+    from texttoaudiogrounding_tpu_torch.models import cross_models
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+
+    cls = getattr(cross_models, kind)
+
+    def make(**kw):
+        return cls(SR, EmbeddingAgg(5000, 512), device=DEVICE, **kw)
+    model, plain = make(), make(gru_kernel=False)
+    sd = random_state_dict(model, seed=60)
+    loss_fn = FrameBceLoss()
+
+    def loss_of(m):
+        out = m(batch)
+        return loss_fn({**out, "label": _strong_labels(
+            out["frame_sim"].shape[0], out["frame_sim"].shape[1],
+            batch["waveform_len"])})
+
+    grads = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.load_state_dict(sd)
+        m.dropout = 0.0 if kind == "CrossCDur" else (0.0, 0.0)
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss_of(m).backward()
+        grads[name] = {n: p.grad.double() for n, p in m.named_parameters()
+                       if p.grad is not None}
+    gaps = _gaps(grads["kernel"], grads["plain"])
+    trunk = max(g for n, g in gaps.items() if _trunk(n))
+    rest = max(g for n, g in gaps.items() if not _trunk(n))
+    if not (trunk <= 2e-2 and rest <= 1e-4):
+        raise AssertionError(f"zoo {kind}: first-step gradients {trunk} "
+                             f"(trunk) / {rest} off the plain path's")
+    model.load_state_dict(sd)
+    model.train()
+    opt = Optimizer({"type": "Adam", "args": {"lr": 1e-3}},
+                    model.parameters(), 1.0)
+    losses = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_CROSS_STEPS[kind]):
+        opt.zero_grad()
+        loss = loss_of(model)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = _counts()
+    steps = ZOO_CROSS_STEPS[kind]
+    if launches != _want(gru_fwd=steps, gru_bwd=steps):
+        raise AssertionError(f"zoo {kind}: launches {_nonzero(launches)}, "
+                             f"expected gru_fwd / gru_bwd {steps}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"zoo {kind}: losses {losses}")
+
+    def step():
+        opt.zero_grad()
+        loss_of(model).backward()
+        opt.step()
+
+    step_ms = _cuda_ms(step, 3)
+    model.eval()
+    return {"losses": losses, "grad_rel_rms_trunk_max": trunk,
+            "grad_rel_rms_rest_max": rest, "step_ms": step_ms,
+            "fit_ms_a_step_host": steps_s / steps * 1e3,
+            "frames": int(model(batch)["frame_sim"].shape[1]),
+            "launches": _nonzero(launches)}
+
+
+def _zoo_rnn_encoder(rng, hidden: int) -> dict:
+    """One step of ``RnnEncoder(5000, 300, hidden, bidirectional)`` on
+    ZOO_TEXT_ROWS phrases of up to ZOO_TEXT_T tokens (2B = 160 rows): its
+    gradients within 1e-4 relative RMS of the plain GRU's, row 13 once
+    each way (the cluster designs at H = 256, the first design at H =
+    300, ``gru.route``)."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.models import RnnEncoder
+
+    dev = torch.device(DEVICE)
+    lens = rng.integers(1, ZOO_TEXT_T + 1, ZOO_TEXT_ROWS)
+    lens[0] = ZOO_TEXT_T
+    text = np.zeros((ZOO_TEXT_ROWS, ZOO_TEXT_T), np.int64)
+    for i, n in enumerate(lens):
+        text[i, :n] = rng.integers(2, 5000, n)
+    batch = {"text": torch.from_numpy(text).to(dev),
+             "text_len": torch.from_numpy(lens).to(dev)}
+    target = torch.randn(ZOO_TEXT_ROWS, 2 * hidden, device=dev,
+                         generator=torch.Generator(dev).manual_seed(3))
+    grads, launches = {}, {}
+    for name, kernel in (("kernel", None), ("plain", False)):
+        enc = RnnEncoder(5000, 300, hidden, bidirectional=True,
+                         gru_kernel=kernel).to(dev)
+        enc.load_state_dict(random_state_dict(enc, seed=61))
+        _reset_counts()
+        loss = ((enc(batch)["seq_emb"] - target) ** 2).mean()
+        loss.backward()
+        launches[name] = _counts()
+        grads[name] = {n: p.grad.double() for n, p in enc.named_parameters()
+                       if p.grad is not None}
+        if name == "kernel":
+            def step():
+                enc.zero_grad()
+                ((enc(batch)["seq_emb"] - target) ** 2).mean().backward()
+            step_ms = _cuda_ms(step, 3)
+    gaps = _gaps(grads["kernel"], grads["plain"])
+    suffix = "" if hidden <= 256 else "_per_step"
+    want = _want(**{f"gru_fwd{suffix}": 1, f"gru_bwd{suffix}": 1})
+    if launches["kernel"] != want or max(gaps.values()) > 1e-4:
+        raise AssertionError(f"zoo RnnEncoder H={hidden}: launches "
+                             f"{_nonzero(launches['kernel'])}, gradient "
+                             f"gap {max(gaps.values())}")
+    return {"H": hidden, "rows": 2 * ZOO_TEXT_ROWS, "T": ZOO_TEXT_T,
+            "grad_rel_rms_max": max(gaps.values()), "step_ms": step_ms,
+            "launches": _nonzero(launches["kernel"])}
+
+
+def _zoo_attention() -> dict:
+    """``IntraAttention(5000, 512, 2)`` and ``SelfAttention(5000, 512, 8)``
+    in train mode on 80 phrases of up to 20 tokens: forward and backward
+    finite."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.models import (
+        IntraAttention,
+        SelfAttention,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(5)
+    lens = torch.randint(1, ZOO_TEXT_T + 1, (ZOO_TEXT_ROWS,), device=dev,
+                         generator=gen)
+    batch = {"text": torch.randint(2, 5000, (ZOO_TEXT_ROWS, ZOO_TEXT_T),
+                                   device=dev, generator=gen),
+             "text_len": lens}
+    out = {}
+    for enc in (IntraAttention(5000, 512, 2), SelfAttention(5000, 512, 8)):
+        enc = enc.to(dev)
+        enc.load_state_dict(random_state_dict(enc, seed=62))
+        enc.train()
+        emb = enc(batch)
+        (emb["seq_emb"].square().mean()
+         + emb["token_emb"].square().mean()).backward()
+        finite = all(torch.isfinite(p.grad).all() for p in enc.parameters()
+                     if p.grad is not None) and all(
+            torch.isfinite(v).all() for v in emb.values())
+        if not finite:
+            raise AssertionError(f"zoo {type(enc).__name__}: not finite")
+        out[type(enc).__name__] = {"seq_emb": list(emb["seq_emb"].shape)}
+    return out
+
+
+def _zoo_towers(batch: dict) -> dict:
+    """``Cnn14``, ``ResNet38``, ``WavegramLogmelCnn14`` and the AST at full
+    width in eval mode on the batch: shapes, finite values, the forward's
+    ms, and the first 2 clips within 1e-4 relative RMS of the same tower
+    on the CPU (TF32 off)."""
+    import copy
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.models import (
+        AudioSpectrogramTransformer,
+        Cnn14,
+        ResNet38,
+        WavegramLogmelCnn14,
+    )
+
+    audio = {k: batch[k] for k in ("waveform", "waveform_len")}
+    two = {k: v[:2].cpu() for k, v in audio.items()}
+    out = {}
+    for seed, cls in enumerate((Cnn14, ResNet38, WavegramLogmelCnn14,
+                                AudioSpectrogramTransformer), start=70):
+        tower = cls(SR, device=DEVICE)
+        tower.load_state_dict(random_state_dict(tower, seed=seed))
+        with torch.no_grad():
+            got = tower(audio)
+            ms = _cuda_ms(lambda: tower(audio), 3)
+            ref = copy.deepcopy(tower).cpu()(two)
+        b = KERNEL_CLIPS
+        shapes = {k: list(v.shape) for k, v in got.items()}
+        if got["clip_emb"].shape != (b, tower.embed_dim) or not all(
+                torch.isfinite(v.float()).all() for v in got.values()):
+            raise AssertionError(f"zoo {cls.__name__}: {shapes}, finite?")
+        gaps = {}
+        for key in ("clip_emb", "time_emb"):
+            d = got[key][:2].cpu().double() - ref[key].double()
+            gaps[key] = float(torch.sqrt((d ** 2).mean()
+                                         / (ref[key].double() ** 2).mean()))
+        if max(gaps.values()) > 1e-4:
+            raise AssertionError(f"zoo {cls.__name__}: {gaps} off the CPU")
+        out[cls.__name__] = {"shapes": shapes, "forward_ms": ms,
+                             "rel_rms_vs_cpu": gaps}
+        del tower
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_clip(batch: dict) -> dict:
+    """``AudioTextClip(Cnn14, RetrievalBert at BERT-base width)``: one train
+    step of ``InfoNceLoss(tau=1)`` on ``logit_scale · audio_emb @
+    text_emb[:, 0]ᵀ`` with ``gradient_clip`` 1.0 and 0.5 from the same
+    weights and dropout generator state: the encoders' gradients of the
+    second 0.5× the first's within 1e-6 relative, the rest the same.  The
+    step (forward, loss, backward) is then timed with CUDA events over 3
+    calls after a warm-up, with the default (not the deterministic)
+    algorithms, as a user's step runs."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.losses import InfoNceLoss
+    from texttoaudiogrounding_tpu_torch.models import AudioTextClip, Cnn14
+    from texttoaudiogrounding_tpu_torch.models.layers import Seeded
+    from texttoaudiogrounding_tpu_torch.models.pretrained_text import (
+        TextTowerConfig,
+    )
+    from texttoaudiogrounding_tpu_torch.models.retrieval import RetrievalBert
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(7)
+    b = KERNEL_CLIPS
+    feed = {"waveform": batch["waveform"], "waveform_len":
+            batch["waveform_len"],
+            "input_ids": torch.randint(1000, 30000, (b, 1, 16), device=dev,
+                                       generator=gen),
+            "attention_mask": torch.ones(b, 1, 16, dtype=torch.long,
+                                         device=dev)}
+    bert = RetrievalBert(TextTowerConfig(), device=DEVICE)
+    model = AudioTextClip(Cnn14(SR, device=DEVICE), bert, 2048,
+                          bert.embed_dim, 512, device=DEVICE)
+    sd = random_state_dict(model, seed=80)
+    loss_fn = InfoNceLoss(tau=1.0)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(feed)
+        sim = out["logit_scale"] * out["audio_emb"] @ out["text_emb"][:, 0].T
+        loss = loss_fn({"sim": sim})
+        loss.backward()
+        return loss
+
+    grads = {}
+    # deterministic algorithms: atomics in a backward (cuDNN's, the
+    # embedding's) would sum in another order each run
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for clip in (1.0, 0.5):
+        model.load_state_dict(sd)
+        model.gradient_clip = clip
+        for m in model.modules():              # the same dropout masks
+            if isinstance(m, Seeded):
+                m._generator = torch.Generator(dev).manual_seed(11)
+        model.train()
+        loss = step()
+        grads[clip] = {n: p.grad.double() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = cudnn_det
+    step_ms = _cuda_ms(step, 3)
+    model.eval()
+    gaps = {}
+    for name, g in grads[1.0].items():
+        scale = 0.5 if name.startswith(("audio_encoder", "text_encoder")) \
+            else 1.0
+        ref = scale * g
+        d = grads[0.5][name] - ref
+        gaps[name] = float(torch.sqrt((d ** 2).mean()
+                                      / (ref ** 2).mean().clamp_min(1e-30)))
+    worst = max(gaps.values())
+    if not (worst <= 1e-6 and torch.isfinite(loss)):
+        raise AssertionError(
+            f"zoo AudioTextClip: gradient_clip 0.5 off 0.5x by {worst}: "
+            f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:4]}")
+    return {"loss": float(loss.detach()), "grad_scale_rel_err_max": worst,
+            "step_ms": step_ms}
+
+
+def _roberta_framed(vocab: int):
+    """A stand-in for RoBERTa's tokenizer (no tokenizer files here): each
+    word one id in [3, ``vocab``) by its CRC-32, framed by ``<s>`` = 0 and
+    ``</s>`` = 2, padded with 1, with the attention mask."""
+    import zlib
+
+    import numpy as np
+
+    def tokenize(batch: list) -> dict:
+        ids = [[0] + [zlib.crc32(w.encode()) % (vocab - 3) + 3
+                      for w in p.split()] + [2] for p in batch]
+        width = max(len(x) for x in ids)
+        out = np.ones((len(ids), width), np.int64)
+        mask = np.zeros_like(out)
+        for i, x in enumerate(ids):
+            out[i, :len(x)], mask[i, :len(x)] = x, 1
+        return {"input_ids": out, "attention_mask": mask}
+    return tokenize
+
+
+def _zoo_phrases(text_encoder, vocab: int) -> dict:
+    """The encode loop of ``tools.embeddings.extract_phrase_embeddings``
+    (``encode_phrases``, 64 phrases a call) over 1,000 phrases of 1-5
+    words on the released model's CLAP tower, tokenized as RoBERTa frames
+    them: the host seconds."""
+    import numpy as np
+
+    from texttoaudiogrounding_tpu_torch.tools.embeddings import (
+        encode_phrases,
+    )
+
+    rng = np.random.default_rng(90)
+    words = [f"w{i}" for i in range(2000)]
+    phrases = sorted({" ".join(rng.choice(words, int(rng.integers(1, 6))))
+                      for _ in range(1200)})[:1000]
+    t0 = time.perf_counter()
+    embs = encode_phrases(text_encoder, _roberta_framed(vocab), phrases)
+    seconds = time.perf_counter() - t0
+    vals = np.stack(list(embs.values()))
+    if len(embs) != len(phrases) or not np.isfinite(vals).all():
+        raise AssertionError("zoo phrase embeddings")
+    return {"phrases": len(embs), "host_s": seconds}
+
+
+def zoo_phase() -> dict:
+    """The rest of the model zoo on the card: the cross models' f32 steps,
+    ``RnnEncoder`` at H = 256 and 300, the attention text encoders, the
+    four retrieval towers, an ``AudioTextClip`` step and the phrase
+    embeddings of 1,000 phrases."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.models.hf_api import (
+        clap_text_config,
+    )
+    from texttoaudiogrounding_tpu_torch.models.pretrained_text import (
+        ClapTextEncoder,
+    )
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+
+    rng = np.random.default_rng(59)
+    t0 = time.perf_counter()
+    batch = _zoo_audio(rng, KERNEL_CLIPS, 5000)
+    report: dict = {"cross": {k: _zoo_cross(k, batch)
+                              for k in ZOO_CROSS_STEPS}}
+    report["rnn_encoder"] = {h: _zoo_rnn_encoder(rng, h) for h in (256, 300)}
+    report["attention"] = _zoo_attention()
+    report["towers"] = _zoo_towers(batch)
+    report["clip"] = _zoo_clip(batch)
+    clap = ClapTextEncoder(clap_text_config(), device=DEVICE)
+    clap.load_state_dict(random_state_dict(clap, seed=91))
+    report["phrase_embeddings"] = _zoo_phrases(
+        clap, clap_text_config().vocab_size)
+    report["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return report
+
+
 MULTI_DEVICE_CUTS = (
     "trainer.epochs: TRAIN_EPOCHS (2) of epoch_length TRAIN_STEPS (4)",
     "data: 32 clips of 10 s at 32 kHz a batch made in memory from a seed "
@@ -6588,6 +7208,7 @@ def main() -> int:
                + gru_kernel_phase(KERNEL_CLIPS, rng)
                + gru_cdur_rows(KERNEL_CLIPS, np.random.default_rng(19))
                + gru_mixup_rows(np.random.default_rng(21))
+               + gru_text_rows(np.random.default_rng(23))
                + pool_kernel_phase(KERNEL_CLIPS))
     print(json.dumps({"phase": "kernels", "card": smi, "kernels": [
         {k: row[k] for k in ("name", "max_abs_err", "rel_rms_err",
@@ -6761,6 +7382,14 @@ def main() -> int:
     print(json.dumps({"phase": "cli", "card": smi, **{
         k: (_nonzero(v) if k.endswith("launches") else v)
         for k, v in cli_report.items()}}), flush=True)
+    released = released_model_phase(np.random.default_rng(49))
+    report["released_model"] = released
+    print(json.dumps({"phase": "released_model", "card": smi,
+                      **released}), flush=True)
+    zoo = zoo_phase()
+    report["zoo"] = zoo
+    print(json.dumps({"phase": "zoo", "card": smi, **zoo}, default=str),
+          flush=True)
     t0 = time.perf_counter()
     multi, multi_paths, split_row = multi_device_phase(tok, work)
     multi["phase_s"] = time.perf_counter() - t0
@@ -6806,6 +7435,12 @@ def main() -> int:
                "evaluate_class_mapping": mstrong["evaluate"]["launches"],
                "cli_inference": cli_report["inference_launches"],
                "cli_deployed": cli_report["deployed_launches"],
+               **{f"released_model_{k}": v
+                  for k, v in released["launches"].items()},
+               **{f"zoo_{k}": v["launches"]
+                  for k, v in zoo["cross"].items()},
+               "zoo_rnn_encoder": zoo["rnn_encoder"][256]["launches"],
+               "zoo_rnn_encoder_h300": zoo["rnn_encoder"][300]["launches"],
                **multi_paths}
     for row in kernels:
         counter = row.get("counter", row["name"])

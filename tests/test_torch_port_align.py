@@ -105,7 +105,8 @@ def jax_variables(jmodel, jbatch: dict, port_model, seed: int) -> dict:
         return np.asarray(node, np.float32)
 
     variables = jax.tree_util.tree_map_with_path(fill, shapes)
-    port_model.load_state_dict(from_jax_variables(variables))   # strict
+    port_model.load_state_dict(from_jax_variables(variables,   # strict
+                                                  port_model))
     return variables
 
 

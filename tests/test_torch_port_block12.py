@@ -403,7 +403,7 @@ def test_block1_int8_serving_matches_jax(variables, monkeypatch):
                               block1_quant="int8"),
                       EmbeddingAgg(_VOCAB, _EMBED), DotProduct(),
                       shared_dim=_EMBED, add_proj=True, device="cpu")
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     seen = []
     blk = model.audio_encoder.conv_block1
     blk.register_forward_hook(lambda mod, args, out: seen.append(

@@ -225,7 +225,7 @@ def cdur_variables():
     sd = {k: v.numpy() for k, v in random_state_dict(
         _port_bi_encoder(), seed=4).items()}
     variables = jax_cdur_variables(sd)
-    back = from_jax_variables(variables)
+    back = from_jax_variables(variables, _port_bi_encoder())
     assert set(back) == set(sd)
     for name, value in back.items():
         np.testing.assert_array_equal(value.numpy(), sd[name], err_msg=name)
@@ -239,15 +239,8 @@ def crnn_variables(cdur_variables):
 
 
 def _encoder_sd(variables):
-    """The CrnnEncoder entries of ``from_jax_variables`` on a model tree
-    with this tower, without their ``audio_encoder.`` prefix."""
-    full = {"params": {"audio_encoder": variables["params"],
-                       "text_encoder": {"embedding": {"embed": {
-                           "embedding": np.zeros((2, 2), np.float32)}}}},
-            "batch_stats": {"audio_encoder": variables["batch_stats"]}}
-    return {k[len("audio_encoder."):]: v
-            for k, v in from_jax_variables(full).items()
-            if k.startswith("audio_encoder.")}
+    """``from_jax_variables`` of this tower's tree onto a CrnnEncoder."""
+    return from_jax_variables(variables, CrnnEncoder(embed_dim=_EMBED))
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -310,7 +303,7 @@ def _port_step(variables, batch):
     model = _port_bi_encoder()
     model.audio_encoder.dropout = 0.0
     assert not model.needs_proj
-    model.load_state_dict(from_jax_variables(variables))        # strict
+    model.load_state_dict(from_jax_variables(variables, model))  # strict
     model.train()
     tb = to_device(batch, torch.device("cpu"))
     loss = FrameBceLoss()(strong_output_transform(model(tb), tb))
@@ -337,8 +330,8 @@ def test_cdur_strong_step_matches_the_jax_runner(cdur_variables):
         _, grads_s = step(variables["params"], variables["batch_stats"],
                           _scaled(batch, 1 + 1e-6))
     ref, ref_s = (from_jax_variables(jax.tree.map(
-        np.asarray, {"params": g, "batch_stats": mut["batch_stats"]}))
-        for g in (grads, grads_s))
+        np.asarray, {"params": g, "batch_stats": mut["batch_stats"]}),
+        _port_bi_encoder()) for g in (grads, grads_s))
     model, loss = _port_step(variables, batch)
     model_s, _ = _port_step(variables, _scaled(batch, 1 + 1e-6))
     assert loss == pytest.approx(float(jloss), rel=1e-5)

@@ -386,7 +386,7 @@ def tagging_variables(model, seed: int) -> dict:
                    "fc_output": {"kernel": sd["fc_output.weight"].T.copy(),
                                  "bias": sd["fc_output.bias"]}},
         "batch_stats": {"audio_encoder": tower["batch_stats"]}})
-    model.load_state_dict(from_jax_variables(variables))     # strict
+    model.load_state_dict(from_jax_variables(variables, model))  # strict
     return variables
 
 
@@ -405,7 +405,7 @@ def test_audio_tagging_forward_matches_jax(tagging):
     for key in ("frame_sim", "clip_sim"):
         rel = _rel_rms(out[key].numpy(), np.asarray(ref[key]))
         assert rel <= 1e-4, (key, rel)
-    sd = from_jax_variables(variables)
+    sd = from_jax_variables(variables, model)
     assert sorted(sd) == sorted(model.state_dict())
     assert sd["fc_output.weight"].shape == (_CLASSES, 512)
 
@@ -456,7 +456,7 @@ def _step_batch(scale: float = 1.0) -> dict:
     return batch
 
 
-def _jax_weak_step(jmodel, variables: dict, batches: list) -> list:
+def _jax_weak_step(jmodel, variables: dict, batches: list, model) -> list:
     """JAX's weak class-mapping step (dropout the identity, SpecAugment
     on ``_STRIPES``, the runner's label mixing), jitted once over the
     weights and the batch: (loss, port-named gradients and running
@@ -489,7 +489,7 @@ def _jax_weak_step(jmodel, variables: dict, batches: list) -> list:
                                     variables["batch_stats"], batch)
             out.append((float(loss), from_jax_variables(jax.tree.map(
                 np.asarray, {"params": grads,
-                             "batch_stats": mut["batch_stats"]}))))
+                             "batch_stats": mut["batch_stats"]}), model)))
     return out
 
 
@@ -520,7 +520,8 @@ def test_weak_class_mapping_step_matches_jax(tagging):
     jmodel, variables, model = tagging
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     batches = [_step_batch(), _step_batch(1 + 1e-6)]
-    (jloss, ref), (_, ref_s) = _jax_weak_step(jmodel, variables, batches)
+    (jloss, ref), (_, ref_s) = _jax_weak_step(jmodel, variables, batches,
+                                              model)
     loss_s, model_s = _port_weak_step(model, sd, batches[1])
     grads_s = {n: p.grad.clone() for n, p in model_s.named_parameters()}
     loss, model = _port_weak_step(model, sd, batches[0])
@@ -574,13 +575,13 @@ def _experiments(tagging, f: dict, root, label_type: str) -> tuple:
     """The same weights as a port run's directory (``config.json``,
     ``best.pth``) and a JAX run's ``config.yaml``; the JAX runner is given
     the weights by its ``restore_state`` (no orbax checkpoint)."""
-    _, variables, _ = tagging
+    _, variables, model = tagging
     port_dir, jax_dir = root / "port", root / "jax"
     for d in (port_dir, jax_dir):
         d.mkdir()
     config = _config(f, port_dir, label_type)
     (port_dir / "config.json").write_text(json.dumps(config))
-    torch.save({"model": from_jax_variables(variables)},
+    torch.save({"model": from_jax_variables(variables, model)},
                port_dir / "best.pth")
     with open(jax_dir / "config.yaml", "w") as w:
         yaml.safe_dump({**config, "experiment_path": str(jax_dir)}, w)

@@ -79,12 +79,11 @@ def _np_tree(shapes, seed: int) -> dict:
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def _port_weights(module, params: dict, key: str) -> None:
-    """The module's weights from its flax tree (``from_jax_variables``'s
-    mapping of the model's ``key`` entry), loaded strictly."""
-    sd: dict = {}
-    weights._cross(sd, {key: params})
-    module.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+def _port_weights(module, params: dict) -> None:
+    """The module's weights from its flax tree, loaded strictly through
+    ``from_jax_variables``."""
+    module.load_state_dict(weights.from_jax_variables({"params": params},
+                                                      module))
 
 
 def _lens_rows(rng, p: int, t: int, d: int) -> tuple:
@@ -120,7 +119,7 @@ def test_cross_attention_matches_jax():
         jax.random.PRNGKey(0), feed))["params"], 3)
     ref = np.asarray(jax.jit(jfn.apply)({"params": params}, feed))
     fn = CrossAttention(16, 4)
-    _port_weights(fn, params, "match_fn")
+    _port_weights(fn, params)
     got = fn(torch.from_numpy(audio), {"token_emb": torch.from_numpy(tokens)},
              torch.from_numpy(text_len))
     assert got.shape == (4, 7)
@@ -139,7 +138,7 @@ def test_cross_attention_gating_matches_jax():
         jax.random.PRNGKey(0), feed))["params"], 5)
     ref = jax.jit(jfn.apply)({"params": params}, feed)
     fn = CrossAttentionGating(16)
-    _port_weights(fn, params, "cross_encoder")
+    _port_weights(fn, params)
     got = fn({k: (to_device(v, CPU) if isinstance(v, dict)
                   else torch.from_numpy(v)) for k, v in feed.items()})
     for out, want in ((got["audio_emb"], ref["audio_emb"]),

@@ -156,7 +156,8 @@ def test_freeze_mask_matches_jax(wstag_variables, port_models, kind, bits):
         lambda m, p: np.full(np.shape(p), float(m), np.float32), jmask,
         params)
     ref = from_jax_variables({"params": as_arrays,
-                              "batch_stats": wstag_variables["batch_stats"]})
+                              "batch_stats": wstag_variables["batch_stats"]},
+                             model)
     assert set(mask) == {n for n in ref if n in mask}
     for name, trainable in mask.items():
         value = ref[name]
@@ -210,7 +211,7 @@ def test_frozen_step_matches_the_jax_masked_step(wstag_variables):
     flags = {**dict.fromkeys(_FLAGS, False), "freeze_cnn": True}
     model = _port_model("multi", flags, freeze_bn=True, dropout=(0.0, 0.0),
                         bn_pool=(64, 128, 256, 512))
-    model.load_state_dict(from_jax_variables(wstag_variables))
+    model.load_state_dict(from_jax_variables(wstag_variables, model))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     mask = freeze_mask_from_model(model)
     opt = Optimizer({"type": "Adam", "args": {"lr": 1e-3}},
@@ -238,7 +239,7 @@ def test_frozen_step_matches_the_jax_masked_step(wstag_variables):
     assert loss.item() == pytest.approx(jloss, rel=1e-5)
     assert float(norm) == pytest.approx(jnorm, rel=1e-5)
     new = from_jax_variables({"params": jnew,
-                              "batch_stats": jmut["batch_stats"]})
+                              "batch_stats": jmut["batch_stats"]}, model)
     frozen = [n for n, keep in mask.items() if not keep]
     assert len(frozen) == 28 and all(
         n.startswith("audio_encoder.") and ".rnn." not in n for n in frozen)

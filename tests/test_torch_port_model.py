@@ -113,8 +113,8 @@ def _rel_rms(got, ref):
 
 
 def test_from_jax_variables_round_trip(variables):
-    sd = from_jax_variables(variables)
     model = _port_model(serving=False)
+    sd = from_jax_variables(variables, model)
     model.load_state_dict(sd, strict=True)
     ref = export_biencoder(variables)
     assert set(ref) <= set(sd)
@@ -135,7 +135,7 @@ def test_f32_biencoder_matches_jax(variables):
     j_emb, j_logit, j_sim, j_len = _jax_outputs(
         _jax_model(jnp.float32), variables, batch)
     model = _port_model(serving=False)
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     emb, logit, sim, length = _port_outputs(model, batch)
     assert emb.shape == j_emb.shape == (2, 25, 512)
     np.testing.assert_array_equal(length, j_len)
@@ -151,7 +151,7 @@ def test_int8_serving_matches_jax(variables, monkeypatch):
     j_emb, j_logit, j_sim, _ = _jax_outputs(
         _jax_model(jnp.bfloat16), variables, batch)
     model = _port_model(serving=True)
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     emb, logit, sim, _ = _port_outputs(model, batch)
     assert _rel_rms(emb, j_emb) <= 2e-2
     assert _rel_rms(logit, j_logit) <= 2e-2

@@ -335,7 +335,7 @@ def jax_dp2tp2_step():
         mp.undo()
     from texttoaudiogrounding_tpu_torch import from_jax_variables
     ref = from_jax_variables(jax.tree.map(
-        np.asarray, {"params": grads, "batch_stats": stats}))
+        np.asarray, {"params": grads, "batch_stats": stats}), port)
     return float(loss), ref
 
 

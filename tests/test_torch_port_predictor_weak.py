@@ -58,7 +58,7 @@ def test_predictor_serves_a_wstag_model_as_jax_does():
         Cnn8Rnn(), EmbeddingAgg(_VOCAB, _EMBED), DotProduct(),
         shared_dim=_EMBED, add_proj=True, pooling="linear_softmax",
         device="cpu")
-    model.load_state_dict(from_jax_variables(variables))      # strict
+    model.load_state_dict(from_jax_variables(variables, model))  # strict
 
     jv, tv = JVocab(), Vocabulary()
     for w in _WORDS:

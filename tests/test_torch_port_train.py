@@ -191,7 +191,7 @@ def _port_model(vocab_size, dropout=(0.2, 0.5)):
 
 def _step_model(variables):
     model = _port_model(_VOCAB, dropout=(0.0, 0.0))
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     return model
 
 
@@ -229,7 +229,8 @@ def jax_step():
     finally:
         mp.undo()
     ref = from_jax_variables(jax.tree.map(
-        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}))
+        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}),
+        _port_model(_VOCAB))
     return variables, batch, float(loss), ref
 
 

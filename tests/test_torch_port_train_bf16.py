@@ -201,7 +201,8 @@ def _jax_step(dtype, pin_trunk=False):
     finally:
         mp.undo()
     ref = from_jax_variables(jax.tree.map(
-        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}))
+        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}),
+        _port_model(torch.float32))
     ref["trunk"] = torch.from_numpy(np.array(dz, np.float32))
     return variables, batch, float(loss), ref, pins
 
@@ -212,7 +213,7 @@ def _port_step(variables, batch, dtype, pins=None, **opts):
     model's ``trunk``, and the BiGRU's input takes the value
     ``pins["rnn"]`` with the gradient passed straight through."""
     model = _port_model(dtype, dropout=(0.0, 0.0), **_ROUTES, **opts)
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     model.train()
     if pins is not None:
         model.trunk = torch.from_numpy(np.asarray(
@@ -330,7 +331,7 @@ def test_bf16_eval_forward_matches_jax(monkeypatch):
     monkeypatch.setenv("TTG_POOL_VJP", "256,512")
     ref = np.asarray(jmodel.apply(variables, batch, train=False)["frame_sim"])
     model = _port_model(torch.bfloat16, **_ROUTES, gru_bwd="bf16")
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     rnn = model.audio_encoder.rnn
     assert rnn.route() == (torch.bfloat16, False, torch.bfloat16, None)
     assert rnn.route(torch.float32) == (torch.float32, True, torch.bfloat16,
@@ -344,8 +345,8 @@ def test_bf16_model_takes_the_jax_variables_unchanged():
     jmodel = _jax_model(jnp.bfloat16)
     variables = jax.tree.map(np.asarray, jmodel.init(
         {"params": jax.random.PRNGKey(0)}, _step_batch(), train=False))
-    sd = from_jax_variables(variables)
     model = _port_model(torch.bfloat16, **_ROUTES, gru_bwd="bf16")
+    sd = from_jax_variables(variables, model)
     model.load_state_dict(sd)                        # strict
     assert set(model.state_dict()) == set(_port_model(torch.float32)
                                           .state_dict()) == set(sd)

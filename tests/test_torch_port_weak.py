@@ -208,7 +208,7 @@ def test_multitext_forward_matches_jax(case):
         {"params": jax.random.PRNGKey(1)}, batch, train=False))
     ref = jmodel.apply(variables, batch, train=False)
     model = _port_model(*_MODELS[case])
-    model.load_state_dict(from_jax_variables(variables))      # strict
+    model.load_state_dict(from_jax_variables(variables, model))  # strict
     assert model.needs_proj == (case == "dot_linear_softmax")
     with torch.no_grad():
         out = model(to_device(batch, torch.device("cpu")))
@@ -255,7 +255,8 @@ def _jax_wstag_step(jmodel, variables, batch):
         (loss, (mut, trunk)), grads = jax.value_and_grad(
             loss_of, has_aux=True)(variables["params"])
     ref = from_jax_variables(jax.tree.map(
-        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}))
+        np.asarray, {"params": grads, "batch_stats": mut["batch_stats"]}),
+        _port_model(*_MODELS["dot_linear_softmax"]))
     return float(loss), ref, np.array(trunk, np.float32)
 
 
@@ -264,7 +265,7 @@ def _port_wstag_step(variables, batch, trunk=None):
     output is replaced by it."""
     model = _port_model(*_MODELS["dot_linear_softmax"], dropout=(0.0, 0.0),
                         gru_bwd="v2")
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, model))
     model.train()
     if trunk is not None:
         model.audio_encoder.conv_block4.register_forward_hook(

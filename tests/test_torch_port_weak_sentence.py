@@ -323,7 +323,7 @@ def _jax_trunk_step(params, stats, waves, cotangent):
     return out, mut["batch_stats"], vjp(cotangent)[0]
 
 
-def _jax_step(jmodel, variables, batch, loss_of):
+def _jax_step(jmodel, model, variables, batch, loss_of):
     """JAX's train step in two jitted parts: the tower, then the rest over
     its output, whose gradient to the embedding goes back through the
     tower.  Returns (loss, the port-named gradients and running
@@ -352,7 +352,7 @@ def _jax_step(jmodel, variables, batch, loss_of):
     _, _, g_trunk = _jax_trunk_step(trunk_p, stats, waves, g_emb)
     grads = {**g_head, "audio_encoder": g_trunk}
     ref = from_jax_variables(jax.tree.map(np.asarray, {
-        "params": grads, "batch_stats": {"audio_encoder": new_stats}}))
+        "params": grads, "batch_stats": {"audio_encoder": new_stats}}), model)
     return float(loss), ref
 
 
@@ -371,8 +371,8 @@ def _scaled(batch: dict) -> dict:
 
 
 def _held(jmodel, model, variables, batch, jloss_of, loss_of) -> None:
-    jloss, ref = _jax_step(jmodel, variables, batch, jloss_of)
-    _, ref_s = _jax_step(jmodel, variables, _scaled(batch), jloss_of)
+    jloss, ref = _jax_step(jmodel, model, variables, batch, jloss_of)
+    _, ref_s = _jax_step(jmodel, model, variables, _scaled(batch), jloss_of)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     loss, grads = _port_step(model, batch, loss_of)
     stats = {k: v.clone() for k, v in model.state_dict().items()

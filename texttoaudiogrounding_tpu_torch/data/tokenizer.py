@@ -64,3 +64,39 @@ class DictTokenizer:
                 words.append(self.vocabulary.idx2word[int(idx)])
             output.append(" ".join(words))
         return output
+
+
+class HuggingFaceTokenizer:
+    """HF ``AutoTokenizer`` wrapper, a copy of the JAX one
+    (``texttoaudiogrounding_tpu/data/tokenizer.py:74-107``, reference
+    datasets/text_tokenizer.py:61-96): ``input_ids`` / ``attention_mask``
+    (and ``token_type_ids`` where the tokenizer gives them) as NumPy, plus
+    ``text_len`` from the attention mask; ``List[List[str]]`` (equal N a
+    sample) → ``[B, N, L]``.  The tokenizer files must be on disk;
+    ``transformers`` is imported when one is built."""
+
+    def __init__(self, model_name: str = "laion/clap-htsat-fused"):
+        from transformers import AutoTokenizer
+        self.core = AutoTokenizer.from_pretrained(model_name)
+
+    def __call__(self, texts) -> dict:
+        if not isinstance(texts, list):
+            raise TypeError("input must be List[str] or List[List[str]]")
+        nested = isinstance(texts[0], list)
+        if nested:
+            text_num = len(texts[0])
+            for tl in texts:
+                if len(tl) != text_num:
+                    raise ValueError(
+                        "each sample must have the same text number")
+            flat = [t for tl in texts for t in tl]
+        else:
+            flat = texts
+        token_dict = self.core(flat, padding=True, truncation=True,
+                               return_tensors="np")
+        out = {k: np.asarray(v) for k, v in token_dict.items()}
+        if nested:
+            out = {k: v.reshape(len(texts), text_num, *v.shape[1:])
+                   for k, v in out.items()}
+        out["text_len"] = out["attention_mask"].sum(axis=-1)
+        return out

@@ -175,7 +175,7 @@ def load_deployment(deploy_dir, device="cuda") -> tuple:
     if (root / "weights.npz").is_file():
         with np.load(root / "weights.npz") as z:
             variables = _unflatten({k: z[k] for k in z.files})
-        state_dict = from_jax_variables(variables)
+        state_dict = from_jax_variables(variables, model)
     else:
         state_dict = load_checkpoint(
             root / deploy.get("torch_checkpoint", "model.pth"))["model"]

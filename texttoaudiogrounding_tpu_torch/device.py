@@ -30,3 +30,13 @@ def resolve_device(device="cuda") -> torch.device:
             device = torch.device("cuda", int(rank))
             torch.cuda.set_device(device)
     return device
+
+
+def place(module: torch.nn.Module, device="cuda") -> torch.nn.Module:
+    """``module`` moved to :func:`resolve_device`'s device and put in eval
+    mode, as every entry point of the port starts; ``device=None`` leaves
+    it where it is (a submodule that its model places)."""
+    if device is not None:
+        module.to(resolve_device(device))
+        module.eval()
+    return module

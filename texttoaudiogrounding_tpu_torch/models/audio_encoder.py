@@ -61,9 +61,11 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     BiGRU,
     CDurBlock,
     ConvBlock,
+    Seeded as _Encoder,
     batch_norm_eval,
     batch_norm_train,
     do_mixup,
+    dropout,
     lp_pool_2d,
     spec_augment,
     spec_augment_stripes,
@@ -76,36 +78,9 @@ from texttoaudiogrounding_tpu_torch.ops.frontend import (
 from texttoaudiogrounding_tpu_torch.ops.kernels.logmel import (
     fused_log_mel_spectrogram,
 )
-from texttoaudiogrounding_tpu_torch.parallel import kernel_shard
 
 _BLOCKS = ((1, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (1, 2)),
            (256, 512, (1, 2)))
-
-
-def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability ``1 - p``, scale kept
-    values by ``1 / (1 - p)``; the mask comes from ``generator``, drawn
-    for the global batch under an active ``data`` axis and cut to the
-    rank's rows."""
-    if p == 0.0:
-        return x
-    keep = kernel_shard.local_rows(kernel_shard.global_like(x).bernoulli_(
-        1.0 - p, generator=generator))
-    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
-
-
-class _Encoder(nn.Module):
-    """The dropout masks' ``torch.Generator``, seeded, when first used on a
-    device, from the torch seed (the trainer's config seed)."""
-
-    _generator = None
-
-    def _dropout_generator(self, device: torch.device) -> torch.Generator:
-        if self._generator is None or self._generator.device != device:
-            self._generator = torch.Generator(device=device)
-            self._generator.manual_seed(torch.initial_seed())
-        return self._generator
 
 
 class Cnn8Rnn(_Encoder):

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from texttoaudiogrounding_tpu_torch.device import resolve_device
+from texttoaudiogrounding_tpu_torch.device import place
 from texttoaudiogrounding_tpu_torch.models.audio_encoder import Cnn8Rnn
 from texttoaudiogrounding_tpu_torch.models.match import DotProduct
 from texttoaudiogrounding_tpu_torch.models.text_encoder import EmbeddingAgg
@@ -78,8 +78,7 @@ class _Grounding(nn.Module):
             self.text_proj = nn.Linear(text_encoder.embed_dim, shared_dim)
 
     def _place(self, device) -> None:
-        self.to(resolve_device(device))
-        self.eval()
+        place(self, device)
 
     @property
     def device(self) -> torch.device:
@@ -259,8 +258,7 @@ class AudioTagging(nn.Module):
         self.classes_num = classes_num
         self.pooling = pooling
         self.fc_output = nn.Linear(audio_encoder.embed_dim, classes_num)
-        self.to(resolve_device(device))
-        self.eval()
+        place(self, device)
 
     def forward(self, input_dict: dict) -> dict:
         output = self.audio_encoder(input_dict)
@@ -268,6 +266,23 @@ class AudioTagging(nn.Module):
         return {"frame_sim": prob,
                 "clip_sim": POOLINGS[self.pooling](prob, output["length"]),
                 "length": output["length"]}
+
+
+def grounding_cnn8rnn(serving: bool, sample_rate: int = 32000,
+                      gru_kernel: bool | None = None,
+                      block1_quant: str = "conv1", block1_tc: int = 48,
+                      block1_mode: str = "triple") -> Cnn8Rnn:
+    """The grounding models' ``Cnn8Rnn`` audio tower: with ``serving`` the
+    int8 serving path (bf16 dtype, int8 conv blocks, the JAX recipe's
+    ``TTG_FUSED_CONV=int8``), else the f32 path; ``gru_kernel`` as in
+    ``BiGRU``; ``block1_quant``, ``block1_tc`` and ``block1_mode`` as in
+    ``Cnn8Rnn`` (the JAX ``TTG_B1_QUANT`` / ``TTG_B1_TC`` /
+    ``TTG_B1_MODE``, read only by the serving path)."""
+    if serving:
+        return Cnn8Rnn(sample_rate, dtype=torch.bfloat16, conv_mode="int8",
+                       gru_kernel=gru_kernel, block1_quant=block1_quant,
+                       block1_tc=block1_tc, block1_mode=block1_mode)
+    return Cnn8Rnn(sample_rate, gru_kernel=gru_kernel)
 
 
 def flagship_model(serving: bool = True, device="cuda",
@@ -280,17 +295,12 @@ def flagship_model(serving: bool = True, device="cuda",
     """The flagship grounding model (the JAX package's
     ``__graft_entry__._flagship_model``): ``BiEncoder(Cnn8Rnn,
     EmbeddingAgg(5000, 512), DotProduct, shared_dim=512, add_proj=True)``.
-    ``serving=True`` is the int8 serving path (bf16 dtype, int8 conv
-    blocks), ``False`` the f32 path; ``gru_kernel`` as in ``BiGRU``
-    (``False`` with ``serving=False`` is the all-plain path);
-    ``block1_quant``, ``block1_tc`` and ``block1_mode`` as in ``Cnn8Rnn``
-    (the JAX ``TTG_B1_QUANT`` / ``TTG_B1_TC`` / ``TTG_B1_MODE``, read only
-    by the serving path)."""
-    audio = (Cnn8Rnn(dtype=torch.bfloat16, conv_mode="int8",
-                     gru_kernel=gru_kernel, block1_quant=block1_quant,
-                     block1_tc=block1_tc, block1_mode=block1_mode)
-             if serving
-             else Cnn8Rnn(gru_kernel=gru_kernel))
+    The audio tower is :func:`grounding_cnn8rnn`'s, whose arguments
+    ``serving``, ``gru_kernel`` and ``block1_*`` are (``gru_kernel=False``
+    with ``serving=False`` is the all-plain path)."""
+    audio = grounding_cnn8rnn(serving, gru_kernel=gru_kernel,
+                              block1_quant=block1_quant,
+                              block1_tc=block1_tc, block1_mode=block1_mode)
     return BiEncoder(audio, EmbeddingAgg(vocab_size, embed_dim),
                      DotProduct(), shared_dim=shared_dim, add_proj=True,
                      device=device)

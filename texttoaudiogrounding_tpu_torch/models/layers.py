@@ -1,5 +1,7 @@
 """Shared building blocks: the PANNs ConvBlock, the CDur block with its LP
-pool, the grouped-scan BiGRU, SpecAugment and mixup.
+pool, the grouped-scan BiGRU, SpecAugment and mixup, dropout from a
+module's generator, and the text encoders' recurrent layers (``GRU``,
+``RNN``, ``LSTM``, JAX ``layers.py:344-632``) and ``PositionalEncoding``.
 
 Ports of ``texttoaudiogrounding_tpu/models/layers.py:21-292``
 (``_FusedBNPool``, ConvBlock), ``:295-325`` (``CDurBlock``,
@@ -47,10 +49,44 @@ CONV_MODES = (None, "bf16", "int8")
 # "conv1", "1", "0") → fused_block1_pair's quantize
 BLOCK1_QUANT = {"conv1": "conv1", "int8": True, "bf16": False}
 GRU_BWD = (None, "bf16", "v2", "v3")
+# ConvBlock's pools (JAX ``layers.py:285-294``)
+POOL_TYPES = ("avg+max", "avg", "max")
 # The type the train-mode BatchNorms sum their statistics in: f32, as flax
 # does.  A comparison of two orders of summation (N ranks against one) may
 # set float64 to take the sums' rounding out of it.
 STATS_DTYPE = torch.float32
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - p``, scale kept
+    values by ``1 / (1 - p)``; the mask comes from ``generator``, drawn
+    for the global batch under an active ``data`` axis and cut to the
+    rank's rows."""
+    if p == 0.0:
+        return x
+    keep = kernel_shard.local_rows(kernel_shard.global_like(x).bernoulli_(
+        1.0 - p, generator=generator))
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
+class Seeded(nn.Module):
+    """The dropout masks' ``torch.Generator``, seeded, when first used on a
+    device, from the torch seed (the trainer's config seed)."""
+
+    _generator = None
+
+    def _dropout_generator(self, device: torch.device) -> torch.Generator:
+        if self._generator is None or self._generator.device != device:
+            self._generator = torch.Generator(device=device)
+            self._generator.manual_seed(torch.initial_seed())
+        return self._generator
+
+    def _drop(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """:func:`dropout` at rate ``p`` in train mode, else ``x``."""
+        if not self.training:
+            return x
+        return dropout(x, p, self._dropout_generator(x.device))
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
@@ -209,7 +245,8 @@ class ConvBlock(nn.Module):
         return c % 128 == 0 or (m == 64 and c == 64 and pool == (2, 2))
 
     def _plain(self, x: torch.Tensor, pool_size,
-               bn_train: bool | None = None) -> torch.Tensor:
+               bn_train: bool | None = None,
+               pool_type: str = "avg+max") -> torch.Tensor:
         if bn_train is None:
             bn_train = self.training
         norm = batch_norm_train if bn_train else batch_norm_eval
@@ -217,7 +254,8 @@ class ConvBlock(nn.Module):
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
             y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
                          padding=1).permute(0, 2, 3, 1)
-            if bn is self.bn2 and self._pool_kernel_ok(y, pool_size):
+            if (bn is self.bn2 and pool_type == "avg+max"
+                    and self._pool_kernel_ok(y, pool_size)):
                 if self.bn_pool and bn_train:
                     out, mean, var = bn_relu_dual_pool(
                         y, bn.weight, bn.bias, pool_size, bn.eps)
@@ -226,39 +264,12 @@ class ConvBlock(nn.Module):
                 if self.pool_vjp:
                     return dual_pool_relu(norm(y, bn).to(dt), pool_size)
             x = torch.relu(norm(y, bn).to(dt))
-        mx = F.max_pool2d(x.permute(0, 3, 1, 2), pool_size)
-        if dt == torch.float32:
-            avg = F.avg_pool2d(x.permute(0, 3, 1, 2), pool_size)
-            return (avg + mx).permute(0, 2, 3, 1)
-        # flax's avg_pool in bf16 is XLA's reduce_window: the window sum
-        # rounds after every add, in window order (F.avg_pool2d would sum
-        # in f32 and round once)
-        kt, km = pool_size
-        b, t, m, c = x.shape
-        v = x[:, :t // kt * kt, :m // km * km].reshape(
-            b, t // kt, kt, m // km, km, c)
-        s = v[:, :, 0, :, 0]
-        for k in range(1, kt * km):
-            s = s + v[:, :, k // km, :, k % km]
-        return s / (kt * km) + mx.permute(0, 2, 3, 1)
+        return pool_2d(x, pool_size, pool_type)
 
-    def forward(self, x: torch.Tensor, pool_size=(2, 2),
-                bn_train: bool | None = None) -> torch.Tensor:
-        """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``.  In
-        train mode the block runs the plain path (the JAX package runs its
-        train-mode convolutions in XLA), through the pool kernels where
-        they are opted in, with batch statistics unless ``bn_train`` is
-        False (``Cnn8Rnn(freeze_bn=True)``: the running statistics, and no
-        ``bn_pool``, whose kernel computes the batch statistics; JAX routes
-        it on ``bn_train``, ``layers.py:94-100``).  None follows the mode."""
-        if self.training and self.conv_mode is not None:
-            raise ValueError("train mode runs the plain path: conv_mode=None")
-        if self.conv_mode is None:
-            return self._plain(x, tuple(pool_size), bn_train)
+    def _served(self, x: torch.Tensor, pool: tuple) -> torch.Tensor:
         quantize = self.conv_mode == "int8"
         x = x.to(torch.bfloat16).contiguous()
         cin, cout = x.shape[3], self.conv1.out_channels
-        pool = tuple(pool_size)
         if cin == 1 and cout == 64 and x.shape[2] == 64 and pool == (2, 2):
             mode = BLOCK1_QUANT[self.block1_quant] if quantize else False
             *w, prep = self._kernel_weights("block1", mode)
@@ -277,6 +288,56 @@ class ConvBlock(nn.Module):
         *w, prep = self._kernel_weights("direct", quantize)
         return fused_double_conv_pool(x, *w, pool, quantize=quantize,
                                       prepared=prep)
+
+    def forward(self, x: torch.Tensor, pool_size=(2, 2),
+                bn_train: bool | None = None,
+                pool_type: str = "avg+max") -> torch.Tensor:
+        """x ``[B, T, M, Cin]`` → ``[B, T // pt, M // pm, Cout]``.  In
+        train mode the block runs the plain path (the JAX package runs its
+        train-mode convolutions in XLA), through the pool kernels where
+        they are opted in, with batch statistics unless ``bn_train`` is
+        False (``Cnn8Rnn(freeze_bn=True)``: the running statistics, and no
+        ``bn_pool``, whose kernel computes the batch statistics; JAX routes
+        it on ``bn_train``, ``layers.py:94-100``).  None follows the mode.
+        ``pool_type`` (``"avg+max"``, ``"avg"`` or ``"max"``) is read by
+        the plain path; the serving kernels pool ``"avg+max"`` only, as the
+        JAX fused routes do (``layers.py:125-126``)."""
+        if pool_type not in POOL_TYPES:
+            raise ValueError(f"pool_type must be one of {POOL_TYPES}")
+        if self.training and self.conv_mode is not None:
+            raise ValueError("train mode runs the plain path: conv_mode=None")
+        if self.conv_mode is None:
+            return self._plain(x, tuple(pool_size), bn_train, pool_type)
+        if pool_type != "avg+max":
+            raise ValueError("the serving kernels pool 'avg+max' only")
+        return self._served(x, tuple(pool_size))
+
+
+def pool_2d(x: torch.Tensor, pool_size, pool_type: str = "avg+max"
+            ) -> torch.Tensor:
+    """flax's ``avg_pool`` / ``max_pool`` (or their sum, ``"avg+max"``)
+    over non-overlapping ``pool_size`` windows of a channel-last
+    ``[B, T, M, C]``, in x's type."""
+    mx = (F.max_pool2d(x.permute(0, 3, 1, 2), pool_size).permute(0, 2, 3, 1)
+          if pool_type != "avg" else None)
+    if pool_type == "max":
+        return mx
+    dt = x.dtype
+    if dt == torch.float32:
+        avg = F.avg_pool2d(x.permute(0, 3, 1, 2), pool_size).permute(
+            0, 2, 3, 1)
+        return avg if mx is None else avg + mx
+    # flax's avg_pool in bf16 is XLA's reduce_window: the window sum
+    # rounds after every add, in window order (F.avg_pool2d would sum in
+    # f32 and round once)
+    kt, km = pool_size
+    b, t, m, c = x.shape
+    v = x[:, :t // kt * kt, :m // km * km].reshape(
+        b, t // kt, kt, m // km, km, c)
+    s = v[:, :, 0, :, 0]
+    for k in range(1, kt * km):
+        s = s + v[:, :, k // km, :, k % km]
+    return s / (kt * km) if mx is None else s / (kt * km) + mx
 
 
 class CDurBlock(nn.Module):
@@ -299,6 +360,24 @@ class CDurBlock(nn.Module):
             x, self.bn)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight, padding=1)
         return F.leaky_relu(y.permute(0, 2, 3, 1), 0.1)
+
+
+def conv2d_cl(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` ("SAME" padding) on a channel-last ``[B, T, M, C]``."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool) -> torch.Tensor:
+    """BN over the last axis, with batch statistics in train mode."""
+    return (batch_norm_train if train else batch_norm_eval)(x, bn)
+
+
+def xavier(module: nn.Module) -> nn.Module:
+    """``module`` with flax's ``xavier_uniform`` weight and zero bias."""
+    nn.init.xavier_uniform_(module.weight)
+    if module.bias is not None:
+        nn.init.zeros_(module.bias)
+    return module
 
 
 def lp_pool_2d(x: torch.Tensor, norm_type: float, window) -> torch.Tensor:
@@ -417,27 +496,8 @@ class BiGRU(nn.Module):
         self.dtype = dtype
         self.bwd = bwd
         self._kernel = kernel
-        h3 = 3 * hidden
         for sfx in ("", "_reverse"):
-            self.register_parameter(
-                f"weight_ih_l0{sfx}",
-                nn.Parameter(torch.empty(h3, input_size)))
-            self.register_parameter(
-                f"weight_hh_l0{sfx}", nn.Parameter(torch.empty(h3, hidden)))
-            self.register_parameter(
-                f"bias_ih_l0{sfx}", nn.Parameter(torch.zeros(h3)))
-            self.register_parameter(
-                f"bias_hh_l0{sfx}", nn.Parameter(torch.zeros(h3)))
-        # the JAX tree's initialisers (layers.py:336-340): lecun-normal
-        # input kernels, an orthogonal [H, H] recurrent kernel per gate,
-        # zero biases
-        with torch.no_grad():
-            for sfx in ("", "_reverse"):
-                getattr(self, f"weight_ih_l0{sfx}").normal_(
-                    0.0, input_size ** -0.5)
-                wh = getattr(self, f"weight_hh_l0{sfx}")
-                for g in range(3):
-                    nn.init.orthogonal_(wh[g * hidden:(g + 1) * hidden])
+            _gru_params(self, input_size, hidden, sfx)
 
     def route(self, dtype: torch.dtype | None = None) -> tuple:
         """How a call in ``dtype`` (the module's when None) runs:
@@ -483,7 +543,9 @@ class BiGRU(nn.Module):
             if dt == torch.float32:
                 ys = gru.bigru_trainable(tproj, wh, bn, pd, hoisted)
             else:
-                ys = gru.gru_forward(tproj, wh, bn, dt)
+                design = (gru.route(bsz, h, dt)["forward"]
+                          if tproj.is_cuda else "cluster")
+                ys = gru.gru_forward(tproj, wh, bn, dt, design)
             ys = ys.reshape(tlen, 2, bsz, h).permute(1, 2, 0, 3)
             return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)
         wh = torch.stack([wh0, wh1]).to(dt).float()         # [2, H, 3H]
@@ -501,3 +563,184 @@ class BiGRU(nn.Module):
             hid = out.to(dt)
         ys = torch.stack(ys, dim=2)                         # [2, B, T, H]
         return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)
+
+
+def _gru_params(module: nn.Module, input_size: int, hidden: int,
+                suffix: str = "") -> None:
+    """One GRU direction's parameters by ``nn.GRU``'s names, with the JAX
+    tree's initialisers (``layers.py:336-340``): lecun-normal input
+    kernels, an orthogonal ``[H, H]`` recurrent kernel a gate, zero
+    biases."""
+    h3 = 3 * hidden
+    wi = nn.Parameter(torch.empty(h3, input_size))
+    wh = nn.Parameter(torch.empty(h3, hidden))
+    with torch.no_grad():
+        wi.normal_(0.0, input_size ** -0.5)
+        for g in range(3):
+            nn.init.orthogonal_(wh[g * hidden:(g + 1) * hidden])
+    module.register_parameter(f"weight_ih_l0{suffix}", wi)
+    module.register_parameter(f"weight_hh_l0{suffix}", wh)
+    module.register_parameter(f"bias_ih_l0{suffix}",
+                              nn.Parameter(torch.zeros(h3)))
+    module.register_parameter(f"bias_hh_l0{suffix}",
+                              nn.Parameter(torch.zeros(h3)))
+
+
+class GRUSeq(nn.Module):
+    """One GRU direction over the whole padded sequence (JAX
+    ``layers.py:344-412``): the input projections of every step as one
+    product, then a plain loop of the recurrent products, f32.  Named and
+    folded as one direction of :class:`BiGRU` (``bias_hh_l0[:2H]``, which
+    the JAX tree lacks, joins the input bias detached).  No kernel
+    computes a single direction: the JAX package runs it as a
+    ``lax.scan``."""
+
+    def __init__(self, input_size: int, hidden: int, reverse: bool = False):
+        super().__init__()
+        self.hidden, self.reverse = hidden, reverse
+        _gru_params(self, input_size, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.hidden
+        b_hh = self.bias_hh_l0
+        bi = self.bias_ih_l0 + torch.cat(
+            [b_hh[:2 * h].detach(), torch.zeros_like(b_hh[2 * h:])])
+        proj = torch.matmul(x, self.weight_ih_l0.t()) + bi    # [B, T, 3H]
+        if self.reverse:
+            proj = torch.flip(proj, dims=(1,))
+        wh = self.weight_hh_l0.t()
+        hid = x.new_zeros(x.shape[0], h)
+        ys = []
+        for t in range(x.shape[1]):
+            p = proj[:, t]
+            rzn = hid @ wh
+            r = torch.sigmoid(p[:, :h] + rzn[:, :h])
+            z = torch.sigmoid(p[:, h:2 * h] + rzn[:, h:2 * h])
+            n = torch.tanh(p[:, 2 * h:] + r * (rzn[:, 2 * h:] + b_hh[2 * h:]))
+            hid = (1 - z) * n + z * hid
+            ys.append(hid)
+        ys = torch.stack(ys, dim=1)
+        return torch.flip(ys, dims=(1,)) if self.reverse else ys
+
+
+class GRU(nn.Module):
+    """Multi-layer GRU, uni- or bidirectional (JAX ``layers.py:546-560``,
+    torch ``nn.GRU``'s shape): layer ``layer{i}`` is a :class:`BiGRU`
+    (through the GRU kernels in f32, as JAX's ``BiGRU`` takes
+    ``bigru_pallas_trainable``) or a :class:`GRUSeq`.  ``kernel`` and
+    ``bwd`` are the bidirectional layers' (``BiGRU``)."""
+
+    def __init__(self, input_size: int, hidden: int, num_layers: int = 1,
+                 bidirectional: bool = False, kernel: bool | None = None,
+                 bwd: str | None = None):
+        super().__init__()
+        self.bidirectional = bidirectional
+        self.num_layers = num_layers
+        width = input_size
+        for i in range(num_layers):
+            setattr(self, f"layer{i}",
+                    BiGRU(width, hidden, kernel=kernel, bwd=bwd)
+                    if bidirectional else GRUSeq(width, hidden))
+            width = hidden * (2 if bidirectional else 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer{i}")(x)
+        return x
+
+
+class _Direction:
+    """One direction of a PyTorch recurrent layer over the padded,
+    batch-first sequence: its outputs, over the time-flipped sequence
+    and flipped back when ``reverse`` (flax's ``nn.RNN(reverse=True,
+    keep_order=True)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.reverse:
+            return torch.flip(super().forward(torch.flip(x, dims=(1,)))[0],
+                              dims=(1,))
+        return super().forward(x)[0]
+
+
+class RNNSeq(_Direction, nn.RNN):
+    """One Elman (tanh) RNN direction, biases on both sides (JAX
+    ``layers.py:563-594``, ``h' = tanh(W_ih x + b_ih + W_hh h + b_hh)``):
+    ``nn.RNN``.  No Pallas kernel computes it."""
+
+    def __init__(self, input_size: int, hidden: int, reverse: bool = False):
+        super().__init__(input_size, hidden, batch_first=True)
+        self.reverse = reverse
+
+
+class RNN(nn.Module):
+    """Multi-layer Elman RNN (JAX ``layers.py:597-613``): ``fwd{i}`` and,
+    when bidirectional, ``bwd{i}`` (``direction``: :class:`RNNSeq`),
+    concatenated."""
+
+    direction = RNNSeq
+
+    def __init__(self, input_size: int, hidden: int, num_layers: int = 1,
+                 bidirectional: bool = False):
+        super().__init__()
+        self.num_layers, self.bidirectional = num_layers, bidirectional
+        width = input_size
+        for i in range(num_layers):
+            setattr(self, f"fwd{i}", self.direction(width, hidden))
+            if bidirectional:
+                setattr(self, f"bwd{i}", self.direction(width, hidden,
+                                                        reverse=True))
+            width = hidden * (2 if bidirectional else 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            fwd = getattr(self, f"fwd{i}")(x)
+            x = (torch.cat([fwd, getattr(self, f"bwd{i}")(x)], dim=-1)
+                 if self.bidirectional else fwd)
+        return x
+
+
+class LSTMSeq(_Direction, nn.LSTM):
+    """One LSTM direction: flax's ``OptimizedLSTMCell`` (gates ``i, f, g,
+    o``, ``c' = f·c + i·g``, ``h' = o·tanh(c')``, the bias on the hidden
+    side only) as ``nn.LSTM``, whose gate order is the same: the input
+    kernels stack into ``weight_ih_l0``, the hidden ones and their biases
+    into ``weight_hh_l0`` / ``bias_hh_l0``, and ``bias_ih_l0`` stays zero
+    (no gradient), as the flax cell has none."""
+
+    def __init__(self, input_size: int, hidden: int, reverse: bool = False):
+        super().__init__(input_size, hidden, batch_first=True)
+        self.reverse = reverse
+        with torch.no_grad():
+            self.bias_ih_l0.zero_()
+        self.bias_ih_l0.requires_grad_(False)
+
+
+class LSTM(RNN):
+    """Multi-layer LSTM (JAX ``layers.py:616-632``): ``fwd{i}`` / ``bwd{i}``
+    (:class:`LSTMSeq`), as :class:`RNN`.  No Pallas kernel computes it."""
+
+    direction = LSTMSeq
+
+
+class PositionalEncoding(Seeded):
+    """Sinusoidal positions added to ``x [B, L, D]``, then dropout in train
+    mode (JAX ``layers.py:673-689``, reference models/text_encoder.py:
+    128-144), the table for ``max_len`` positions in f32 as jnp makes
+    it.  Each call in train mode draws a new mask from the module's
+    generator."""
+
+    def __init__(self, dropout: float, max_len: int = 100):
+        super().__init__()
+        self.p, self.max_len = dropout, max_len
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        pos = torch.arange(self.max_len, dtype=torch.float32,
+                           device=x.device)[:, None]
+        scale = -(torch.log(torch.tensor(10000.0, device=x.device)) / d)
+        div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                     device=x.device) * scale)
+        pe = torch.zeros(self.max_len, d, device=x.device)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div)
+        return self._drop(x + pe[None, :x.shape[1]], self.p)

@@ -32,7 +32,9 @@ cluster launch a walk (:func:`walk_plan`,
 a step in ``csrc/gru.cu``, stay callable as ``gru_forward(...,
 design="per_step")``, ``gru_backward(..., design="per_step")`` and
 ``gru_walk(..., design="per_step")``.  The hoisted backward's dWh product
-after the walk is ``torch.bmm`` in full f32 on either device.
+after the walk is ``torch.bmm`` in full f32 on either device.  The
+models' calls pick the design by shape (:func:`route`): the cluster
+designs take H <= 256, the first design the wider widths it takes.
 """
 
 from __future__ import annotations
@@ -735,6 +737,30 @@ def gru_backward_hoisted(proj: torch.Tensor, ys: torch.Tensor,
     return (dproj,) + hoisted_weight_grads(ys, dproj, drznn)
 
 
+def _takes(plan, *args) -> bool:
+    try:
+        plan(*args)
+    except ValueError:
+        return False
+    return True
+
+
+def route(b: int, h: int, dtype: torch.dtype = torch.float32,
+          variant: str | None = None) -> dict:
+    """The designs a call at ``B = b``, ``H = h`` takes on the card:
+    ``{"forward": ..., "backward": ...}``, each ``"cluster"`` where its
+    plan (:func:`forward_plan`; :func:`cluster_plan`, or :func:`walk_plan`
+    for a hoisted ``variant``) takes the shape, else ``"per_step"``
+    (``csrc/gru.cu``'s first design, which takes any H divisible by 4
+    whose carries fit in shared memory, such as word2vec's 300).  The
+    wrapper that launches a design raises where the shape is beyond it."""
+    bwd_plan = (cluster_plan if variant is None
+                else lambda b_, h_, _: walk_plan(b_, h_))
+    return {part: "cluster" if _takes(plan, b, h, dtype) else "per_step"
+            for part, plan in (("forward", forward_plan),
+                               ("backward", bwd_plan))}
+
+
 class BiGRUFunction(torch.autograd.Function):
     """The recurrence with the hand-written backward: with ``dtype`` f32,
     ``bigru_pallas_trainable`` (``variant`` None), ``_v2`` or ``_v3``
@@ -747,7 +773,10 @@ class BiGRUFunction(torch.autograd.Function):
     def forward(ctx, proj, wh, bn, dtype, variant):
         if variant is not None and dtype != torch.float32:
             raise ValueError("the hoisted backward is the f32 recurrence's")
-        ys = gru_forward(proj, wh, bn, dtype)
+        t, b, h = _dims(proj)
+        ctx.designs = (route(b, h, dtype, variant) if proj.is_cuda
+                       else {"forward": "cluster", "backward": "cluster"})
+        ys = gru_forward(proj, wh, bn, dtype, ctx.designs["forward"])
         ctx.save_for_backward(proj, ys, wh, bn)
         ctx.dtype, ctx.variant = dtype, variant
         return ys
@@ -755,11 +784,13 @@ class BiGRUFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         proj, ys, wh, bn = ctx.saved_tensors
+        design = ctx.designs["backward"]
         if ctx.variant is None:
-            dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype)
+            dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype,
+                                           design)
         else:
             dproj, dwh, dbn = gru_backward_hoisted(proj, ys, gy, wh, bn,
-                                                   ctx.variant)
+                                                   ctx.variant, design)
         return dproj, dwh.to(wh.dtype), dbn.to(bn.dtype), None, None
 
 
@@ -768,5 +799,6 @@ def bigru_trainable(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
                     variant: str | None = None) -> torch.Tensor:
     """f32 ``proj [T, 2B, 3H]`` → ``ys [T, 2B, H]``, differentiable in all
     three inputs; ``dtype`` is the recurrence's operand type, ``variant``
-    the f32 backward's (None, ``"v2"`` or ``"v3"``)."""
+    the f32 backward's (None, ``"v2"`` or ``"v3"``).  On the card each
+    half runs the design :func:`route` gives the shape."""
     return BiGRUFunction.apply(proj, wh, bn, dtype, variant)

@@ -215,3 +215,32 @@ class MetricImprover:
 
     def load_state_dict(self, state: dict) -> None:
         self.__dict__.update(state)
+
+
+class CosineWithWarmup:
+    """Per-iteration linear warmup, then cosine decay to ``final_lr_ratio``
+    of the base rate (a copy of JAX ``optim.py:208-234``, reference
+    run_weak_phrase.py:432-439)."""
+
+    def __init__(self, base_lr: float, warmup_iters: int, total_iters: int,
+                 final_lr_ratio: float = 0.0, **_ignored):
+        self.base_lr = base_lr
+        self.warmup_iters = max(warmup_iters, 1)
+        self.total_iters = total_iters
+        self.final_lr_ratio = final_lr_ratio
+
+    def __call__(self, iteration: int) -> float:
+        if iteration < self.warmup_iters:
+            return self.base_lr * (iteration + 1) / self.warmup_iters
+        progress = (iteration - self.warmup_iters) / max(
+            self.total_iters - self.warmup_iters, 1)
+        progress = min(progress, 1.0)
+        cos = 0.5 * (1.0 + math.cos(math.pi * progress))
+        return self.base_lr * (self.final_lr_ratio
+                               + (1 - self.final_lr_ratio) * cos)
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        pass

@@ -6,9 +6,15 @@ strong-supervision configs (``configs/strong/biencoder_train.yaml``,
 ``configs/weak_sentence/``) and the models, datasets and runners of
 WSTAG (the cross encoder, align functions and sim poolings) and the
 class-mapping configs (``configs/class_mapping/``: ``AudioTagging``, the
-eight class-mapping datasets, ``VarLenPadCollate``, both runners) use, and
-every loss class,
-resolved to the port's classes, and ``instantiate``, which builds
+eight class-mapping datasets, ``VarLenPadCollate``, both runners) use,
+every loss class, and the rest of the model zoo (the text towers and
+encoders, the cross and retrieval models, the released model's factory,
+``HuggingFaceTokenizer``, ``Vocabulary``, ``CosineWithWarmup``,
+``MetricImprover``, ``StrongRunner``), resolved to the port's classes
+(every JAX name but ``DataLoader``: its arguments ``seed``, ``prefetch``,
+``worker_type``, ``shard_index`` and ``num_shards`` are not
+``torch.utils.data.DataLoader``'s; the runners build theirs with
+``data/loader.py:build_loader``), and ``instantiate``, which builds
 ``{"type": name, "args": {...}}`` trees as the JAX package does: keys
 beside ``type``/``args`` that are dicts (sub-models) and ``type``-tagged
 dicts inside ``args`` (a collate's tokenizer) are built first, and a
@@ -34,7 +40,11 @@ def _fill() -> None:
         collate,
         datasets,
     )
-    from texttoaudiogrounding_tpu_torch.data.tokenizer import DictTokenizer
+    from texttoaudiogrounding_tpu_torch.data.tokenizer import (
+        DictTokenizer,
+        HuggingFaceTokenizer,
+    )
+    from texttoaudiogrounding_tpu_torch.data.vocabulary import Vocabulary
     from texttoaudiogrounding_tpu_torch.models.sim_pooling import (
         MULTI_TEXT_POOLINGS,
         SIM_POOLINGS,
@@ -48,13 +58,22 @@ def _fill() -> None:
         WeakPhraseRunner,
         WeakPhraseSelfSupervisionRunner,
     )
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner,
+    )
     from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
         WeakSentenceRunner,
     )
     _REGISTRY.update({
         **{name: getattr(models, name) for name in models.__all__
-           if name != "flagship_model"},
-        "Cnn8_Rnn": models.Cnn8Rnn, "MatchExpNegL2": models.ExpNegL2,
+           if not name[0].islower()},
+        "Cnn8_Rnn": models.Cnn8Rnn, "CrossCnn8_Rnn": models.CrossCnn8Rnn,
+        "LaionClapEncoder": models.ClapTextEncoder,
+        "AST": models.AudioSpectrogramTransformer,
+        "Wavegram_Logmel_Cnn14": models.WavegramLogmelCnn14,
+        "Cnn8RnnLaionClapGroundingModel":
+            models.cnn8rnn_laionclap_grounding_model,
+        "MatchExpNegL2": models.ExpNegL2,
         "MatchDotProduct": models.DotProduct,
         "MatchCrossAttention": models.CrossAttention,
         **SIM_POOLINGS, **MULTI_TEXT_POOLINGS,
@@ -74,6 +93,11 @@ def _fill() -> None:
         "TextCollate": collate.TextCollate,
         "VarNumTextCollate": collate.VarNumTextCollate,
         "DictTokenizer": DictTokenizer,
+        "HuggingFaceTokenizer": HuggingFaceTokenizer,
+        "Vocabulary": Vocabulary,
+        "CosineWithWarmup": optim.CosineWithWarmup,
+        "MetricImprover": optim.MetricImprover,
+        "StrongRunner": StrongRunner,
         "ReduceLROnPlateau": optim.ReduceLROnPlateau,
         "torch.optim.lr_scheduler.ReduceLROnPlateau":
             optim.ReduceLROnPlateau,
