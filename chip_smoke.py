@@ -308,10 +308,14 @@ Phases, each printing one line:
    ``FrameBceLoss`` and Adam on one batch of 32 x 10 s (the first step's
    gradients within 1e-4 / 2e-2 of the all-plain path's, row 13 once each
    way a step, the loss falling); ``RnnEncoder`` (bidirectional GRU over
-   160 rows of 20 tokens) one step at H = 256 (the cluster designs) and at
-   H = 300 (the first design, ``gru.route``), gradients within 1e-4 of the
-   plain GRU's; ``IntraAttention`` / ``SelfAttention`` forward and
-   backward finite; ``Cnn14``, ``ResNet38``, ``WavegramLogmelCnn14`` and
+   160 rows of 20 tokens) one step at H = 256 (the cluster designs), at
+   H = 300 and 302 (the first design, ``gru.route``; 302 padded to 304
+   with zero units) and over 400 rows at H = 300 (the first design's
+   launches split by ``gru.per_step_plan``), gradients within 1e-4 of the
+   plain GRU's; row 13's first design by its plan at H = 302 and at 400
+   rows of H = 300 against its plain version (1e-4); ``IntraAttention``
+   / ``SelfAttention`` forward and backward finite; ``Cnn14``,
+   ``ResNet38``, ``WavegramLogmelCnn14`` and
    the AST at full width on 32 x 10 s (shapes, finite, 2 clips within 1e-4
    of the CPU); an ``AudioTextClip(Cnn14, RetrievalBert at BERT-base
    width)`` step of ``InfoNceLoss(tau=1)`` whose encoder gradients with
@@ -345,8 +349,21 @@ Phases, each printing one line:
    counts a shard; (fault) two gloo ranks with one fault planted, bn0 on
    its rank's rows alone (local statistics): (b)'s limits on the first
    epoch's losses, on all the losses and on the gradients after the trunk,
-   and (d)'s, must each reject it.  Step ms of (a)-(c) by CUDA events, the
-   requests' ms by the host clock.
+   and (d)'s, must each reject it; (f) the sentence-level,
+   self-supervision and class-mapping runners at full width
+   (``MD_RUNNER_CUTS``: 2 steps of 32 clips, the validation batches),
+   each fitted by one rank and by two gloo ranks (``data: 2``): the
+   phrase- and word-wise sentence configs, the self-supervision config
+   (teacher broadcast from rank 0) and both class-mapping configs (mixup
+   and SpecAugment in the weak one), held as (b) holds its fit but with
+   ``MD_RUNNER_GRAD_LIMITS`` on the gradients, row 13 at half the rows on
+   each rank; the word-wise run's ``evaluate`` and the weak run's
+   ``evaluate_tagging`` on the two ranks against one rank (tracks and
+   probabilities within 1e-4); two planted faults, the
+   sentence model's text gathered with an own-rows backward and the mixed
+   class-mapping outputs left ungathered, each rejected by the limits.
+   Step ms of (a)-(c) and (f) by CUDA events, the requests' ms by the host
+   clock.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -4773,12 +4790,14 @@ def train_sentence_phase(tok, work: Path) -> dict:
     return report
 
 
-def _selfsup_config(work: Path, teacher_ckpt: Path) -> dict:
+def _selfsup_config(work: Path, teacher_ckpt: Path,
+                    write: bool = True) -> dict:
     """``configs/weak_phrase/cnn8rnn_w2vmean_clustering_selfsup.yaml`` as a
     dict, cut as ``SELFSUP_CUTS`` lists, over data written under ``work``:
     16 WAV clips of 10 s of noise (int16), captions of 2-6 phrases from a
     seeded pool over the vocabulary, and a seeded map of the captions'
-    phrases into ``SELFSUP_CLUSTERS`` clusters."""
+    phrases into ``SELFSUP_CLUSTERS`` clusters (``write=False``: the files
+    a call with ``write`` made, not written again)."""
     import json as _json
 
     import numpy as np
@@ -4790,8 +4809,9 @@ def _selfsup_config(work: Path, teacher_ckpt: Path) -> dict:
     wavs = []
     for i in range(16):
         path = root / f"noise{i}.wav"
-        wavfile.write(path, SR, (rng.normal(0, 0.01, SR * CLIP_S) * 32767)
-                      .astype(np.int16))
+        noise = rng.normal(0, 0.01, SR * CLIP_S)
+        if write:
+            wavfile.write(path, SR, (noise * 32767).astype(np.int16))
         wavs.append(path)
     words = np.array([f"w{i}" for i in range(2, WEAK_VOCAB)])
     pool = np.array(sorted({" ".join(rng.choice(words,
@@ -4808,16 +4828,18 @@ def _selfsup_config(work: Path, teacher_ckpt: Path) -> dict:
     used = sorted({p for label in labels.values() for it in label
                    for p in it["phrases"]})
     clusters = rng.integers(0, SELFSUP_CLUSTERS, len(used))
-    (root / "clusters.json").write_text(_json.dumps(
-        {str(c): [p for p, k in zip(used, clusters) if k == c]
-         for c in range(SELFSUP_CLUSTERS)}))
+    if write:
+        (root / "clusters.json").write_text(_json.dumps(
+            {str(c): [p for p, k in zip(used, clusters) if k == c]
+             for c in range(SELFSUP_CLUSTERS)}))
 
     def split(prefix: str) -> dict:
         label = labels[prefix]
         index = root / f"{prefix}.csv"
-        index.write_text("audio_id\tfile_path\n" + "".join(
-            f"{it['audio_id']}\t{wavs[i % len(wavs)]}\n"
-            for i, it in enumerate(label)))
+        if write:
+            index.write_text("audio_id\tfile_path\n" + "".join(
+                f"{it['audio_id']}\t{wavs[i % len(wavs)]}\n"
+                for i, it in enumerate(label)))
         return {"dataset": {"type": "AudioSamplePhrasesDataset", "args": {
                     "label": label, "audio": str(index),
                     "phrase_num": WEAK_PHRASES,
@@ -5955,27 +5977,30 @@ def _zoo_cross(kind: str, batch: dict) -> dict:
             "launches": _nonzero(launches)}
 
 
-def _zoo_rnn_encoder(rng, hidden: int) -> dict:
+def _zoo_rnn_encoder(rng, hidden: int, rows: int = ZOO_TEXT_ROWS) -> dict:
     """One step of ``RnnEncoder(5000, 300, hidden, bidirectional)`` on
-    ZOO_TEXT_ROWS phrases of up to ZOO_TEXT_T tokens (2B = 160 rows): its
-    gradients within 1e-4 relative RMS of the plain GRU's, row 13 once
-    each way (the cluster designs at H = 256, the first design at H =
-    300, ``gru.route``)."""
+    ``rows`` phrases of up to ZOO_TEXT_T tokens (2B = 2 rows): its
+    gradients within 1e-4 relative RMS of the plain GRU's, row 13 on the
+    design ``gru.route`` gives the shape: the cluster designs once each
+    way at H <= 256; else the first design (``gru.per_step_plan``: H =
+    302 padded to 304, and 200 rows split into the launches whose carries
+    fit), once a launch of the plan."""
     import numpy as np
     import torch
 
     from texttoaudiogrounding_tpu_torch import random_state_dict
     from texttoaudiogrounding_tpu_torch.models import RnnEncoder
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
 
     dev = torch.device(DEVICE)
-    lens = rng.integers(1, ZOO_TEXT_T + 1, ZOO_TEXT_ROWS)
+    lens = rng.integers(1, ZOO_TEXT_T + 1, rows)
     lens[0] = ZOO_TEXT_T
-    text = np.zeros((ZOO_TEXT_ROWS, ZOO_TEXT_T), np.int64)
+    text = np.zeros((rows, ZOO_TEXT_T), np.int64)
     for i, n in enumerate(lens):
         text[i, :n] = rng.integers(2, 5000, n)
     batch = {"text": torch.from_numpy(text).to(dev),
              "text_len": torch.from_numpy(lens).to(dev)}
-    target = torch.randn(ZOO_TEXT_ROWS, 2 * hidden, device=dev,
+    target = torch.randn(rows, 2 * hidden, device=dev,
                          generator=torch.Generator(dev).manual_seed(3))
     grads, launches = {}, {}
     for name, kernel in (("kernel", None), ("plain", False)):
@@ -5994,15 +6019,66 @@ def _zoo_rnn_encoder(rng, hidden: int) -> dict:
                 ((enc(batch)["seq_emb"] - target) ** 2).mean().backward()
             step_ms = _cuda_ms(step, 3)
     gaps = _gaps(grads["kernel"], grads["plain"])
-    suffix = "" if hidden <= 256 else "_per_step"
-    want = _want(**{f"gru_fwd{suffix}": 1, f"gru_bwd{suffix}": 1})
+    route = gru.route(rows, hidden)
+    plans = {part: gru.per_step_plan(rows, hidden, part)
+             for part in ("forward", "backward")}
+    want = _want(**{
+        f"gru_{short}" + ("" if route[part] == "cluster" else "_per_step"):
+        1 if route[part] == "cluster" else len(plans[part]["groups"])
+        for part, short in (("forward", "fwd"), ("backward", "bwd"))})
     if launches["kernel"] != want or max(gaps.values()) > 1e-4:
-        raise AssertionError(f"zoo RnnEncoder H={hidden}: launches "
-                             f"{_nonzero(launches['kernel'])}, gradient "
-                             f"gap {max(gaps.values())}")
-    return {"H": hidden, "rows": 2 * ZOO_TEXT_ROWS, "T": ZOO_TEXT_T,
+        raise AssertionError(f"zoo RnnEncoder H={hidden}, {rows} rows: "
+                             f"launches {_nonzero(launches['kernel'])} "
+                             f"(want {_nonzero(want)}), gradient gap "
+                             f"{max(gaps.values())}")
+    return {"H": hidden, "rows": 2 * rows, "T": ZOO_TEXT_T,
+            "route": route, "per_step_plans": plans,
             "grad_rel_rms_max": max(gaps.values()), "step_ms": step_ms,
             "launches": _nonzero(launches["kernel"])}
+
+
+def _zoo_gru_plans(rng) -> dict:
+    """Row 13's first design by its call plan (``gru.per_step_plan``) at
+    H = 302 (padded to 304 with zero units) and at 200 rows of H = 300
+    (two launches each way: the carries of 200 rows overflow shared
+    memory), T = ZOO_TEXT_T: forward and backward against their plain
+    versions within 1e-4 relative RMS, launches by the plan, both timed
+    with CUDA events."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+
+    out = {}
+    for label, b, h in (("h302", ZOO_TEXT_ROWS, 302), ("split", 200, 300)):
+        _, gy, _, proj, wh, bn, _ = _gru_inputs(rng, ZOO_TEXT_T, b, h, h)
+        plans = {p: gru.per_step_plan(b, h, p) for p in ("forward",
+                                                         "backward")}
+        _reset_counts()
+        ys = gru.gru_forward(proj, wh, bn, design="per_step")
+        grads = gru.gru_backward(proj, ys, gy, wh, bn, design="per_step")
+        torch.cuda.synchronize()
+        launches = _counts()
+        want = _want(gru_fwd_per_step=len(plans["forward"]["groups"]),
+                     gru_bwd_per_step=len(plans["backward"]["groups"]))
+        errs = [_err(ys, gru.gru_forward_plain(proj, wh, bn))]
+        errs += [_err(g, r) for g, r in zip(grads, gru.gru_backward_plain(
+            proj, ys, gy, wh, bn))]
+        if launches != want or max(e[1] for e in errs) > 1e-4:
+            raise AssertionError(f"zoo row 13 plan {label}: launches "
+                                 f"{_nonzero(launches)} (want "
+                                 f"{_nonzero(want)}), errors {errs}")
+        out[label] = {
+            "B": b, "H": h, "plans": plans, "launches": _nonzero(launches),
+            "max_abs_err": max(e[0] for e in errs),
+            "rel_rms_err": max(e[1] for e in errs),
+            "tolerance": "rel_rms <= 1e-4 (f32)",
+            "fwd_ms": _cuda_ms(lambda: gru.gru_forward(
+                proj, wh, bn, design="per_step"), 3),
+            "bwd_ms": _cuda_ms(lambda: gru.gru_backward(
+                proj, ys, gy, wh, bn, design="per_step"), 3),
+            "fwd_plain_ms": _cuda_ms(lambda: gru.gru_forward_plain(
+                proj, wh, bn), 1)}
+    return out
 
 
 def _zoo_attention() -> dict:
@@ -6233,7 +6309,10 @@ def zoo_phase() -> dict:
     batch = _zoo_audio(rng, KERNEL_CLIPS, 5000)
     report: dict = {"cross": {k: _zoo_cross(k, batch)
                               for k in ZOO_CROSS_STEPS}}
-    report["rnn_encoder"] = {h: _zoo_rnn_encoder(rng, h) for h in (256, 300)}
+    report["rnn_encoder"] = {h: _zoo_rnn_encoder(rng, h)
+                             for h in (256, 300, 302)}
+    report["rnn_encoder_split"] = _zoo_rnn_encoder(rng, 300, 200)
+    report["gru_plans"] = _zoo_gru_plans(rng)
     report["attention"] = _zoo_attention()
     report["towers"] = _zoo_towers(batch)
     report["clip"] = _zoo_clip(batch)
@@ -6271,7 +6350,7 @@ MD_LOSS_RTOL = 2e-4
 # data-parallel step, must fail them (PERF.md §6).
 MD_FIT_LOSS_RTOL = 1e-3
 MD_GRAD_LIMITS = (2e-2, 2e-3)
-MD_WAVE_SCALES = (1 + 1e-6, 1 - 1e-6, 1 + 3e-6, 1 - 3e-6)
+MD_WAVE_SCALES = (1 + 1e-6, 1 - 1e-6)
 MD_SPLIT_CLIPS = 16                 # a dp2 rank's rows of the batch of 32
 
 
@@ -6475,6 +6554,8 @@ def _md_worker(rank: int, world: int, port: int, part: str, work: str,
             result["split"] = _md_split_check(
                 mesh_from_config({"mesh": {"data": 2}}, "cuda:0").axis("data"))
             result["split_launches"] = _counts()
+        elif part == "runners":
+            result = _md_runner_ranks(work)
         elif part == "fault":
             _md_plant_local_bn0()
             result = {"fit": _md_public(_md_fit(tok, work, "md_fault",
@@ -6785,9 +6866,447 @@ def _md_split_row(dp2: list) -> dict:
             "clips": MD_SPLIT_CLIPS}
 
 
-def multi_device_phase(tok, work: Path) -> tuple:
-    """(a)-(e) of the port's ranks on the one card (see the module
-    docstring); returns (report, launches by path, the split row)."""
+# (f): the sentence-level, self-supervision and class-mapping runners on
+# two gloo ranks, each against one rank's fit on the same global batches
+MD_RUNNER_KINDS = ("sentence_phrase", "sentence_word", "selfsup",
+                   "mapping_weak", "mapping_strong")
+MD_RUNNER_STEPS = 2                 # train steps of each run (1 epoch)
+# (f)'s gradient limits (trunk, after it).  On an H100 the one-rank fits'
+# own change under the input scaling MD_WAVE_SCALES[0] reaches 1.60e-2 in
+# the trunk (self-supervision) and 4.80e-3 after it (the sentence models:
+# their ranking loss over a [B, B] matrix is ill-conditioned), and two
+# ranks lie 1.40e-2 / 4.56e-3 from one (PERF.md §6): about twice
+# those.  The planted faults miss them by 100x or more (the text gather)
+# and the loss limits by 4.5-11x (the ungathered mixup); the loss limits
+# are (b)'s.
+MD_RUNNER_GRAD_LIMITS = (3e-2, 1e-2)
+MD_RUNNER_CUTS = (
+    "each config as its phase builds it (SENTENCE_CUTS, SELFSUP_CUTS, "
+    "CLASS_MAPPING_CUTS), then trainer.epochs 1 of epoch_length "
+    "MD_RUNNER_STEPS (2) with the phase's validation batches, the train "
+    "loader without worker processes, parallel.mesh {data: 2} on the "
+    "ranks; the teacher is phase 7's v2 best.pth",)
+# the device of the ranks' processes (all on the one card)
+MD_RANK_DEVICE = "cuda:0"
+
+
+def _md_runner_case(kind: str, work: Path, exp: str) -> tuple:
+    """(runner class, config, items in memory or None) of ``kind`` (one of
+    ``MD_RUNNER_KINDS``), cut as ``MD_RUNNER_CUTS`` lists; the
+    experiment's directory is ``work / exp``."""
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingStrongRunner, ClassMappingWeakRunner)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseSelfSupervisionRunner)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner)
+
+    items = None
+    if kind.startswith("sentence"):
+        words = kind == "sentence_word"
+        cls = WeakSentenceRunner
+        config = _sentence_config(
+            str(work / exp), "AudioTextAlignBy" + ("Word" if words
+                                                   else "Phrase"),
+            _sentence_data(work, words=words), 1)
+    elif kind == "selfsup":
+        cls = WeakPhraseSelfSupervisionRunner
+        config = _selfsup_config(work, work / "md_teacher.pth", write=False)
+        config["experiment_path"] = str(work / exp)
+    else:
+        strong = kind == "mapping_strong"
+        cls = ClassMappingStrongRunner if strong else ClassMappingWeakRunner
+        label = "strong" if strong else "weak"
+        config = _class_mapping_config(label, str(work / exp))
+        items = {"train": _cm_items(label, TRAIN_CLIPS * MD_RUNNER_STEPS,
+                                    33 if strong else 31),
+                 "val": _cm_items(label, TRAIN_CLIPS * CM_VAL_BATCHES,
+                                  34 if strong else 32)}
+    config["trainer"].update(epochs=1, epoch_length=MD_RUNNER_STEPS)
+    config["data"]["train"]["dataloader_args"]["num_workers"] = 0
+    return cls, config, items
+
+
+def _md_runner_fit(kind: str, work: Path, exp: str, mesh: dict | None,
+                   device: str | None = None,
+                   wave_scale: float = 1.0) -> dict:
+    """``runner.train`` of ``kind`` (``_md_runner_case``) on ``mesh``
+    (None: one process), the counts set to 0 just before: the step and
+    validation losses, the first step's gradients and running statistics,
+    the running statistics after the fit, the launches, the BiGRU's
+    (train mode, rows) calls, the teacher's weights as a sum, the step ms
+    by CUDA events (3 steps on the rank's rows of a validation batch, after
+    the fit) and the experiment directory.  ``wave_scale`` scales every
+    waveform the audio encoder reads."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.parallel.mesh import device_feed
+    from texttoaudiogrounding_tpu_torch.training.runner_base import (
+        whole_batch_inputs)
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        _mixup_lambdas, mapping_strong_output_transform,
+        mixup_output_transform)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        weak_output_transform)
+
+    cls, config, items = _md_runner_case(kind, work, exp)
+    if mesh is not None:
+        config["parallel"] = {"mesh": mesh}
+    runner = cls(device=device or DEVICE)
+    if items is not None:
+        _memory_loaders(runner, items)
+    first: dict = {}
+    hook = runner.post_grad_hook
+
+    def capture(loss, grads):
+        hook(loss, grads)
+        if first:
+            return
+        for n, p in runner.model.named_parameters():
+            if p.grad is not None:
+                first[n] = p.grad.detach().float().cpu()
+        first["running"] = {n: b.detach().float().cpu() for n, b in
+                            runner.model.named_buffers() if "running" in n}
+
+    record: dict = {}
+    fit = runner.fit
+
+    def recorded_fit(*args, **kwargs):
+        record.update(fit(*args, **kwargs))
+        return record
+
+    def scaled_fit(model, *args, **kwargs):
+        model.audio_encoder.register_forward_pre_hook(
+            lambda mod, args: ({**args[0], "waveform":
+                                args[0]["waveform"] * wave_scale},))
+        return recorded_fit(model, *args, **kwargs)
+
+    runner.post_grad_hook = capture
+    runner.fit = recorded_fit if wave_scale == 1.0 else scaled_fit
+    with _GruBatches() as grus:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp_dir = runner.train(config)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+    model = runner.model
+    running = {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+               if "running" in n}
+    teacher = getattr(runner, "teacher", None)
+    teacher_sum = None if teacher is None else float(sum(
+        v.double().sum() for v in teacher.state_dict().values()))
+    transform = {"selfsup": runner.teacher_transform(teacher)
+                 if teacher is not None else None,
+                 "mapping_weak": mixup_output_transform,
+                 "mapping_strong": mapping_strong_output_transform}.get(
+                     kind, weak_output_transform)
+    host = next(iter(runner.build_dataloader(config["data"]["val"],
+                                             shuffle=False)))
+    if kind == "mapping_weak":
+        host = {**host, "mixup_lambda": _mixup_lambdas(
+            np.random.RandomState(7), TRAIN_CLIPS)}
+    batch, _, _ = next(device_feed([host], runner.mesh, runner.device,
+                                   whole=whole_batch_inputs(model)))
+    step_ms = _cuda_ms(lambda: runner.train_step(
+        model, runner.build_loss(), runner.optimizer, batch, transform), 3)
+    out = {"step_loss": record["step_loss"], "val_loss": record["val_loss"],
+           "first": first, "running": running, "launches": launches,
+           "gru_calls": sorted(set(grus.calls)), "teacher_sum": teacher_sum,
+           "fit_s": fit_s, "step_ms": step_ms, "exp_dir": str(exp_dir),
+           "mesh": runner.mesh.shape}
+    del runner, model, teacher, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _md_runner_want(kind: str) -> dict:
+    """The launches of ``_md_runner_fit`` on any mesh: row 13 once each
+    way a train step (the self-supervision teacher's forward beside the
+    student's) and once a validation batch."""
+    vals = CM_VAL_BATCHES if kind.startswith("mapping") else \
+        SENTENCE_VAL_BATCHES
+    forwards = 2 if kind == "selfsup" else 1
+    return _want(gru_fwd=forwards * (MD_RUNNER_STEPS + vals),
+                 gru_bwd=MD_RUNNER_STEPS)
+
+
+def _md_runner_evals(work: Path, sentence_exp: str, tagging_exp: str,
+                     tag: str, device: str | None = None) -> dict:
+    """``WeakSentenceRunner.evaluate`` of ``sentence_exp`` (a word-wise run)
+    with ``word_wise/eval.yaml``'s keys on the evaluate phase's set, and
+    ``ClassMappingWeakRunner.evaluate_tagging`` of ``tagging_exp`` on its
+    validation items: on several ranks each rank forwards its rows of each
+    batch; rank 0's tracks, metrics, tagging probabilities and APs (other
+    ranks': None), and the launches; ``tag`` names the files written."""
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingWeakRunner)
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner)
+
+    device = device or DEVICE
+    waves, label = _eval_data(work)
+    out: dict = {}
+    evaluator = WeakSentenceRunner(device=device)
+    _reset_counts()
+    metrics = evaluator.evaluate(sentence_exp, _eval_config(
+        work, waves, label, time_resolution=0.04, word_aggregation="mean",
+        output=f"result_{tag}.txt"))
+    torch.cuda.synchronize()
+    out["sentence"] = {"launches": _counts(), "metrics": metrics,
+                       "tracks": _tracks(evaluator) if evaluator.is_main
+                       else None}
+    tagger = ClassMappingWeakRunner(device=device)
+    _memory_loaders(tagger, {"val": _cm_items(
+        "weak", TRAIN_CLIPS * CM_VAL_BATCHES, 32)})
+    probs = []
+    forward = tagger.eval_forward
+
+    def recorded(batch, model):
+        output = forward(batch, model)
+        probs.append(output["clip_sim"].float().cpu().numpy())
+        return output
+
+    tagger.eval_forward = recorded
+    _reset_counts()
+    result = tagger.evaluate_tagging(tagging_exp,
+                                     {"output": f"tagging_{tag}.tsv"})
+    torch.cuda.synchronize()
+    out["tagging"] = {"launches": _counts(), "ap": result["ap"],
+                      "probs": np.concatenate(probs)}
+    return out
+
+
+def _md_plant_own_rows_text(axis) -> None:
+    """The planted fault of the sentence model: each rank runs the text
+    tower on its own captions and gathers the token embeddings with
+    ``gather_rows``, whose backward keeps the rank's own rows (right only
+    where every rank computes the same function of what it gathered; here
+    each rank computes its own block of the matrix)."""
+    from texttoaudiogrounding_tpu_torch.models import align_models
+    from texttoaudiogrounding_tpu_torch.parallel import kernel_shard
+
+    def forward(self, input_dict: dict) -> dict:
+        audio_out = self.audio_encoder(input_dict)
+        audio_emb = audio_out["embedding"]
+        word_emb = self.text_encoder(input_dict)["token_emb"]
+        if self.needs_proj:
+            audio_emb = self.audio_proj(audio_emb)
+            word_emb = self.text_proj(word_emb)
+        return self._pooled(
+            input_dict, self.match_fn(audio_emb,
+                                      kernel_shard.gather_rows(word_emb,
+                                                               axis)),
+            audio_out["length"],
+            kernel_shard.gather_rows(input_dict["text_len"], axis))
+
+    align_models.AudioTextAlignByWord.forward = forward
+    align_models.AudioTextAlignByWord.whole_batch_inputs = ()
+
+
+def _md_plant_ungathered_mixup() -> None:
+    """The planted fault of the weak class-mapping step: the mixed outputs
+    and labels (half the rank's rows) left ungathered, so that each rank
+    scores its own half (the base runner's ``output_rows``)."""
+    from texttoaudiogrounding_tpu_torch.training.runner_base import (
+        BaseRunner)
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingWeakRunner)
+
+    ClassMappingWeakRunner.output_rows = BaseRunner.output_rows
+
+
+def _md_runner_ranks(work: Path) -> dict:
+    """A rank of part (f): the five fits on ``data: 2``, the rank-sharded
+    evaluations of the one-rank runs' directories, then the two planted
+    faults' fits."""
+    from texttoaudiogrounding_tpu_torch.parallel.mesh import (
+        mesh_from_config)
+
+    mesh = {"data": 2}
+    out = {kind: _md_runner_fit(kind, work, f"md_{kind}_dp2", mesh,
+                                MD_RANK_DEVICE)
+           for kind in MD_RUNNER_KINDS}
+    out["evals"] = _md_runner_evals(work, str(work / "md_sentence_word"),
+                                    str(work / "md_mapping_weak"), "dp2",
+                                    MD_RANK_DEVICE)
+    _md_plant_own_rows_text(mesh_from_config({"mesh": mesh},
+                                             MD_RANK_DEVICE).axis("data"))
+    out["fault_text"] = _md_runner_fit("sentence_word", work,
+                                       "md_fault_text", mesh, MD_RANK_DEVICE)
+    _md_plant_ungathered_mixup()
+    out["fault_mixup"] = _md_runner_fit("mapping_weak", work,
+                                        "md_fault_mixup", mesh,
+                                        MD_RANK_DEVICE)
+    return out
+
+
+def _md_runners_part(work: Path, teacher: Path) -> tuple:
+    """(f): each runner of ``MD_RUNNER_KINDS`` fitted in this process (one
+    rank) and on two gloo ranks (``data: 2``): the ranks' step losses
+    within ``MD_LOSS_RTOL`` (the first) and ``MD_FIT_LOSS_RTOL`` of one
+    rank's, the first step's gradients within ``MD_RUNNER_GRAD_LIMITS``
+    (each one-rank fit's own change under the input scaling
+    ``MD_WAVE_SCALES[0]`` reported beside them), the running statistics
+    bit for bit alike on the ranks, row 13 launched as one rank launches
+    it on half the rows (the teacher's weights, the same sum everywhere);
+    the word-wise run's evaluation and the weak run's tagging evaluation
+    on the ranks against one rank (tracks and probabilities within 1e-4);
+    and the two planted faults
+    (``_md_plant_own_rows_text``, ``_md_plant_ungathered_mixup``), each
+    rejected by the limits.  Returns (report, launches by path)."""
+    import shutil
+
+    import numpy as np
+
+    shutil.copyfile(teacher, work / "md_teacher.pth")
+    _selfsup_config(work, work / "md_teacher.pth")
+    seconds: dict = {}
+    t0 = time.perf_counter()
+    ref = {kind: _md_runner_fit(kind, work, f"md_{kind}", None)
+           for kind in MD_RUNNER_KINDS}
+    # each one-rank fit's own change under a rounding-sized input change,
+    # reported beside the fixed limits
+    moved = {kind: _md_runner_fit(kind, work, f"md_{kind}_moved", None,
+                                  wave_scale=MD_WAVE_SCALES[0])
+             for kind in MD_RUNNER_KINDS}
+    ref_evals = _md_runner_evals(work, ref["sentence_word"]["exp_dir"],
+                                 ref["mapping_weak"]["exp_dir"], "one_rank")
+    seconds["one_rank"] = time.perf_counter() - t0
+    ranks = _md_spawn("runners", 2, work)
+    seconds["ranks"] = time.perf_counter() - t0 - seconds["one_rank"]
+    report: dict = {"cuts": MD_RUNNER_CUTS, "seconds": seconds,
+                    "spawn_s": ranks[0]["spawn_s"], "limits": {
+                        "first_loss_rel": MD_LOSS_RTOL,
+                        "loss_rel": MD_FIT_LOSS_RTOL,
+                        "grad_rel_rms": list(MD_RUNNER_GRAD_LIMITS),
+                        "wave_scale": MD_WAVE_SCALES[0]}}
+    by_path = {}
+    for kind in MD_RUNNER_KINDS:
+        one = ref[kind]
+        want = _md_runner_want(kind)
+        rows = {train: TRAIN_CLIPS // (2 if train and kind == "mapping_weak"
+                                       else 1)
+                for train in (True, False)}
+        if one["launches"] != want or one["gru_calls"] != sorted(
+                rows.items()):
+            raise AssertionError(f"(f) {kind} one rank: launches "
+                                 f"{_nonzero(one['launches'])}, BiGRU calls "
+                                 f"{one['gru_calls']}")
+        ref_first = {k: v for k, v in one["first"].items()
+                     if k != "running"}
+        entry = {"one_rank_step_loss": one["step_loss"],
+                 "one_rank_step_ms": one["step_ms"],
+                 "one_rank_fit_s": one["fit_s"], "ranks": [],
+                 "self_loss_rel": _md_loss_gap(moved[kind]["step_loss"],
+                                               one["step_loss"]),
+                 "self_grad_rel_rms": list(_worst(_gaps(
+                     {k: v for k, v in moved[kind]["first"].items()
+                      if k != "running"}, ref_first)))}
+        for r, res in enumerate(ranks):
+            got = res[kind]
+            label = f"(f) {kind} rank {r}"
+            gap = _md_losses_close(label, got["step_loss"], one["step_loss"],
+                                   MD_FIT_LOSS_RTOL)
+            first = {k: v for k, v in got["first"].items() if k != "running"}
+            trunk, rest = _md_grads_close(label, first, ref_first,
+                                          MD_RUNNER_GRAD_LIMITS)
+            half = {t: n // 2 for t, n in rows.items()}
+            if got["launches"] != want or got["gru_calls"] != sorted(
+                    half.items()) or got["mesh"] != {"data": 2}:
+                raise AssertionError(f"{label}: launches "
+                                     f"{_nonzero(got['launches'])}, BiGRU "
+                                     f"calls {got['gru_calls']}, mesh "
+                                     f"{got['mesh']}")
+            if got["teacher_sum"] != one["teacher_sum"]:
+                raise AssertionError(f"{label}: teacher weights sum "
+                                     f"{got['teacher_sum']}, one rank's "
+                                     f"{one['teacher_sum']}")
+            entry["ranks"].append({"step_loss": got["step_loss"],
+                                   "loss_rel_gap": gap,
+                                   "grad_rel_rms": [trunk, rest],
+                                   "step_ms": got["step_ms"],
+                                   "fit_s": got["fit_s"]})
+        for name, buf in ranks[0][kind]["running"].items():
+            if not (buf == ranks[1][kind]["running"][name]).all():
+                raise AssertionError(f"(f) {kind}: {name} differs between "
+                                     "the ranks")
+        entry["launches"] = _nonzero(ranks[0][kind]["launches"])
+        entry["gru_rows"] = ranks[0][kind]["gru_calls"]
+        report[kind] = entry
+        by_path[f"multi_device_{kind}_one_rank"] = one["launches"]
+        by_path[f"multi_device_{kind}_dp2"] = ranks[0][kind]["launches"]
+
+    # the evaluations: rank 0's tracks and probabilities against one rank's
+    evals = ranks[0]["evals"]
+    track_gap = _track_gap(evals["sentence"]["tracks"],
+                           ref_evals["sentence"]["tracks"])
+    prob_gap = float(np.max(np.abs(evals["tagging"]["probs"]
+                                   - ref_evals["tagging"]["probs"])))
+    for res in ranks:
+        ev = res["evals"]
+        batches = -(-2 * EVAL_CLIPS // EVAL_BATCH)
+        if ev["sentence"]["launches"] != _want(gru_fwd=batches) or \
+                ev["tagging"]["launches"] != _want(gru_fwd=CM_VAL_BATCHES):
+            raise AssertionError(
+                f"(f) evaluations on a rank: launches "
+                f"{_nonzero(ev['sentence']['launches'])}, "
+                f"{_nonzero(ev['tagging']['launches'])}")
+    if track_gap > 1e-4 or prob_gap > 1e-4:
+        raise AssertionError(f"(f) evaluations on two ranks: tracks "
+                             f"{track_gap}, tagging probabilities "
+                             f"{prob_gap} off one rank's (limit 1e-4)")
+    report["evaluate"] = {
+        "sentence_track_max_abs": track_gap,
+        "sentence_metric_gaps": {k: abs(v - ref_evals["sentence"]["metrics"][
+            k]) for k, v in evals["sentence"]["metrics"].items()},
+        "tagging_prob_max_abs": prob_gap,
+        "tagging_ap_max_abs": float(np.max(np.abs(
+            evals["tagging"]["ap"] - ref_evals["tagging"]["ap"]))),
+        "launches": {"sentence": _nonzero(evals["sentence"]["launches"]),
+                     "tagging": _nonzero(evals["tagging"]["launches"])}}
+    by_path["multi_device_eval_sentence_dp2"] = evals["sentence"]["launches"]
+    by_path["multi_device_eval_tagging_dp2"] = evals["tagging"]["launches"]
+
+    # the planted faults: each must fail the limits
+    faults = {}
+    for name, kind, required in (
+            ("fault_text", "sentence_word", ("grads_after_trunk",)),
+            ("fault_mixup", "mapping_weak", ("loss",
+                                             "grads_after_trunk"))):
+        got = ranks[0][name]
+        one = ref[kind]
+        first = {k: v for k, v in got["first"].items() if k != "running"}
+        trunk, rest = _worst(_gaps(first, {
+            k: v for k, v in one["first"].items() if k != "running"}))
+        gaps = {"first_epoch_loss_rel": _md_loss_gap(
+                    got["step_loss"][:1], one["step_loss"][:1]),
+                "loss_rel": _md_loss_gap(got["step_loss"],
+                                         one["step_loss"]),
+                "grad_rel_rms": [trunk, rest]}
+        rejected = {"first_epoch_loss": gaps["first_epoch_loss_rel"]
+                    > MD_LOSS_RTOL,
+                    "loss": gaps["loss_rel"] > MD_FIT_LOSS_RTOL,
+                    "grads_trunk": trunk > MD_RUNNER_GRAD_LIMITS[0],
+                    "grads_after_trunk": rest > MD_RUNNER_GRAD_LIMITS[1]}
+        if not all(rejected[k] for k in required):
+            raise AssertionError(f"(f) {name}: the planted fault passes "
+                                 f"limits: {gaps}, rejected {rejected}")
+        faults[name] = {"step_loss": got["step_loss"], **gaps,
+                        "rejected_by": rejected, "required": required}
+    report["faults"] = faults
+    return report, by_path
+
+
+def multi_device_phase(tok, work: Path, teacher: Path) -> tuple:
+    """(a)-(f) of the port's ranks on the one card (see the module
+    docstring; ``teacher`` is the self-supervision teacher's checkpoint);
+    returns (report, launches by path, the split row)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6952,6 +7471,9 @@ def multi_device_phase(tok, work: Path) -> tuple:
     # (e): the data-parallel predictor
     report["e"] = _md_predictor(tok)
     seconds["e"] = time.perf_counter() - t0 - sum(seconds.values())
+    # (f): the sentence-level, self-supervision and class-mapping runners
+    report["f"], runner_paths = _md_runners_part(work, teacher)
+    seconds["f"] = time.perf_counter() - t0 - sum(seconds.values())
     torch.backends.cudnn.deterministic = False
     by_path = {"multi_device_a": {}, "multi_device_dp2":
                dp2[0]["fit"]["launches"],
@@ -6961,6 +7483,7 @@ def multi_device_phase(tok, work: Path) -> tuple:
                "multi_device_predictor": report["e"].pop("launches")}
     by_path["multi_device_a"] = {k: v for k, v in report["a"][
         "launches"].items()}
+    by_path.update(runner_paths)
     return report, by_path, split_row
 
 
@@ -7391,7 +7914,8 @@ def main() -> int:
     print(json.dumps({"phase": "zoo", "card": smi, **zoo}, default=str),
           flush=True)
     t0 = time.perf_counter()
-    multi, multi_paths, split_row = multi_device_phase(tok, work)
+    multi, multi_paths, split_row = multi_device_phase(
+        tok, work, weak_exp / "best.pth")
     multi["phase_s"] = time.perf_counter() - t0
     report["multi_device"] = multi
     kernels.append(split_row)
@@ -7404,7 +7928,8 @@ def main() -> int:
                       **{k: {m: v for m, v in multi[k].items()
                              if m not in ("step_loss", "plain_step_loss")}
                          for k in ("a", "b", "c", "d", "fault")},
-                      "limits": multi["limits"], "e": multi["e"]},
+                      "limits": multi["limits"], "e": multi["e"],
+                      "f": multi["f"]},
                      default=str), flush=True)
     work_dir.cleanup()
 
@@ -7441,6 +7966,10 @@ def main() -> int:
                   for k, v in zoo["cross"].items()},
                "zoo_rnn_encoder": zoo["rnn_encoder"][256]["launches"],
                "zoo_rnn_encoder_h300": zoo["rnn_encoder"][300]["launches"],
+               "zoo_rnn_encoder_h302": zoo["rnn_encoder"][302]["launches"],
+               "zoo_rnn_encoder_split": zoo["rnn_encoder_split"]["launches"],
+               **{f"zoo_gru_plan_{k}": v["launches"]
+                  for k, v in zoo["gru_plans"].items()},
                **multi_paths}
     for row in kernels:
         counter = row.get("counter", row["name"])

@@ -266,16 +266,17 @@ def test_fc1_runs_through_its_module():
     assert seen == [(4, 5, 512), (4, 4, ranks.EMBED)]
 
 
-@pytest.mark.parametrize("runner,held", [
-    ("runner_strong.StrongRunner", True),
-    ("runner_weak_phrase.WeakPhraseRunner", True),
-    ("runner_weak_phrase.WeakPhraseSelfSupervisionRunner", False),
-    ("runner_weak_sentence.WeakSentenceRunner", False),
-    ("runner_class_mapping.ClassMappingStrongRunner", False),
-    ("runner_class_mapping.ClassMappingWeakRunner", False)])
-def test_runners_not_held_on_ranks_raise(monkeypatch, runner, held):
-    """A runner whose step is not held on several ranks raises there
-    rather than train each rank on its own rows."""
+@pytest.mark.parametrize("runner", [
+    "runner_strong.StrongRunner",
+    "runner_weak_phrase.WeakPhraseRunner",
+    "runner_weak_phrase.WeakPhraseSelfSupervisionRunner",
+    "runner_weak_sentence.WeakSentenceRunner",
+    "runner_class_mapping.ClassMappingStrongRunner",
+    "runner_class_mapping.ClassMappingWeakRunner"])
+def test_runners_set_up_on_a_dp2_mesh(monkeypatch, runner):
+    """Every runner's step is held on several ranks, so each sets up on a
+    ``data`` mesh of two (the steps themselves:
+    ``tests/test_torch_port_parallel_runners.py``)."""
     import importlib
 
     from texttoaudiogrounding_tpu_torch.parallel.mesh import Mesh
@@ -286,11 +287,9 @@ def test_runners_not_held_on_ranks_raise(monkeypatch, runner, held):
         f"texttoaudiogrounding_tpu_torch.training.{module}"), cls)
     monkeypatch.setattr(runner_base, "mesh_from_config",
                         lambda cfg, device: Mesh({"data": 2}))
-    if held:
-        assert runner_cls(device="cpu").setup({}).get("seed") == 1
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            runner_cls(device="cpu").setup({})
+    made = runner_cls(device="cpu")
+    assert made.setup({}).get("seed") == 1
+    assert made.mesh.shape == {"data": 2}
 
 
 # ------------------------------------------------------------- the ranks

@@ -169,18 +169,29 @@ def test_cosine_with_warmup_matches_jax():
 
 def test_gru_routes_by_shape():
     """Row 13 at text widths: the cluster designs take H <= 256; word2vec's
-    H = 300 goes to the first design (``csrc/gru.cu``); H = 302 (not a
-    multiple of 4, and no cluster of <= 16 CTAs of <= 16 units) is taken
-    by neither, so the first design's wrapper raises there where the JAX
-    package runs."""
+    H = 300 goes to the first design (``csrc/gru.cu``), and so does
+    H = 302 (not a multiple of 4, and no cluster of <= 16 CTAs of <= 16
+    units), which the first design runs padded to 304 with zero units,
+    as the JAX package runs it."""
     assert gru.route(80, 256) == {"forward": "cluster",
                                   "backward": "cluster"}
     assert gru.route(80, 300) == {"forward": "per_step",
                                   "backward": "per_step"}
     assert gru.route(80, 300, variant="v2")["backward"] == "per_step"
     assert gru.route(80, 302)["forward"] == "per_step"
-    with pytest.raises(ValueError, match="divisible by 4"):
-        gru._check_shape_for_kernel(80, 302, 0)
+    for part in ("forward", "backward", "walk"):
+        assert gru.per_step_plan(80, 302, part) == {"h": 304,
+                                                    "groups": [(0, 80)]}
+    rng = np.random.default_rng(3)
+    proj = torch.from_numpy(rng.normal(size=(3, 4, 906)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(0, 0.05, (2, 302, 906)).astype(
+        np.float32))
+    bn = torch.from_numpy(rng.normal(0, 0.05, (2, 302)).astype(np.float32))
+    ys = gru.run_per_step_plan(gru.per_step_plan(2, 302, "forward"),
+                               lambda *a: (gru.gru_forward_plain(*a),),
+                               (proj,), (wh, bn), 302, 1)[0]
+    torch.testing.assert_close(ys, gru.gru_forward_plain(proj, wh, bn),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_gru_route_of_a_forward_ignores_the_backward_limit():

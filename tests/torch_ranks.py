@@ -372,7 +372,287 @@ def runs(calls: list) -> dict:
     return {"calls": out}
 
 
-JOBS = {"steps": steps, "bn_pool": bn_pool, "clip": clip, "runs": runs}
+# ------------- the sentence-level, self-supervision and class-mapping runners
+CLASSES = 5
+
+
+def _waves(steps: int, b: int, seed: int) -> list:
+    """:func:`batches`' waveforms for any ``b`` (an odd one cut from
+    ``b + 1``)."""
+    return [{k: batch[k][:b] for k in ("waveform", "waveform_len")}
+            for batch in batches(steps, b + b % 2, seed=seed)]
+
+
+def _word_batches(b: int, steps: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for batch in _waves(steps, b, seed):
+        lens = rng.integers(1, 6, (b,))
+        tokens = rng.integers(1, VOCAB, (b, 5))
+        tokens[np.arange(5)[None, :] >= lens[:, None]] = 0
+        out.append({**batch, "text": tokens, "text_len": lens})
+    return out
+
+
+def phrase_batch(nums, seed: int) -> dict:
+    """A ``VarNumTextCollate`` batch: ``len(nums)`` clips with ``nums[i]``
+    phrases each, flattened to ``phrases [ΣN, 4]``."""
+    rng = np.random.default_rng(seed)
+    b, total = len(nums), int(sum(nums))
+    lens = rng.integers(1, 5, (total,))
+    tokens = rng.integers(1, VOCAB, (total, 4))
+    tokens[np.arange(4)[None, :] >= lens[:, None]] = 0
+    pad_index = np.zeros((b, max(nums)), np.int64)
+    start = np.cumsum([0] + list(nums))
+    for i, n in enumerate(nums):
+        pad_index[i, :n] = np.arange(start[i], start[i] + n)
+    return {**_waves(1, b, seed)[0], "phrases": tokens,
+            "phrases_len": lens, "phrases_num": np.asarray(nums, np.int64),
+            "phrases_pad_index": pad_index, "text_key": "phrases"}
+
+
+def _mapping_batches(steps: int, b: int, strong: bool, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    frames = (SAMPLES // 320 + 1) // 4
+    out = []
+    for item in _waves(steps, b, seed):
+        weak = (rng.random((b, CLASSES)) > 0.5).astype(np.float32)
+        if strong:
+            item["strong_label"] = (rng.random((b, frames, CLASSES)) > 0.6
+                                    ).astype(np.float32) * weak[:, None]
+            item["weak_label"] = weak
+        else:
+            item["label"] = weak
+        out.append(item)
+    return out
+
+
+def _align(kind: str, dropout):
+    from texttoaudiogrounding_tpu_torch.models import (
+        AudioTextAlignByPhrase,
+        AudioTextAlignByWord,
+        Cnn8Rnn,
+        EmbeddingAgg,
+    )
+    from texttoaudiogrounding_tpu_torch.models.align import AlignDotProduct
+    from texttoaudiogrounding_tpu_torch.models.sim_pooling import SimPooling
+
+    cls = AudioTextAlignByWord if kind == "word" else AudioTextAlignByPhrase
+    return cls(Cnn8Rnn(dropout=dropout), EmbeddingAgg(VOCAB, EMBED),
+               AlignDotProduct(), SimPooling("mean", "mean"),
+               shared_dim=EMBED, add_proj=True, device="cpu")
+
+
+def _tagging(dropout):
+    from texttoaudiogrounding_tpu_torch.models import Cnn8Rnn
+    from texttoaudiogrounding_tpu_torch.models.audio_text_model import (
+        AudioTagging,
+    )
+    return AudioTagging(Cnn8Rnn(dropout=dropout), CLASSES, device="cpu")
+
+
+def _fit_steps(runner, m, loss_fn, transform, host_batches) -> dict:
+    """The runner's ``train_step`` over ``host_batches`` fed as ``fit``
+    feeds them: the losses, the first step's gradients and running
+    statistics, and the statistics after."""
+    from texttoaudiogrounding_tpu_torch.parallel.mesh import device_feed
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_base import (
+        whole_batch_inputs,
+    )
+
+    first: dict = {}
+    first_stats: dict = {}
+    hook = runner.post_grad_hook
+
+    def capture(loss, grads):
+        hook(loss, grads)
+        if not first:
+            first.update({n: p.grad.detach().clone()
+                          for n, p in m.named_parameters()
+                          if p.grad is not None})
+            first_stats.update({n: b.clone() for n, b in m.named_buffers()
+                                if "running" in n})
+
+    runner.post_grad_hook = capture
+    opt = Optimizer({"type": "Adam", "args": {"lr": 1e-3}}, m.parameters(),
+                    None)
+    losses = [float(runner.train_step(m, loss_fn, opt, batch, transform))
+              for batch, _, _ in device_feed(host_batches, runner.mesh, "cpu",
+                                             whole=whole_batch_inputs(m))]
+    return {"losses": losses, "grads": first, "first_stats": first_stats,
+            "stats": {n: b.clone() for n, b in m.named_buffers()
+                      if "running" in n}}
+
+
+def _evaluated(runner, m, host_batch: dict, read):
+    """``read(output, model, host batch)`` of the runner's evaluation
+    forward (``eval_forward``: on several ranks the batch padded, each
+    rank's rows forwarded, the rows gathered) in eval mode."""
+    m.eval()
+    with torch.no_grad():
+        return read(runner.eval_forward(host_batch, m), m, host_batch)
+
+
+def _runner(cls, mesh):
+    runner = cls(device="cpu")
+    runner.mesh = mesh
+    return runner
+
+
+def runners(mesh_shape: dict | None = None, f64_stats: bool = True,
+            word_weights: str | None = None) -> dict:
+    """Two train steps of each of the four runners' steps on seeded
+    batches under ``mesh_shape`` (None: one rank), with their outputs of
+    an evaluation forward, the self-supervision teacher's weights after
+    its broadcast, SpecAugment's stripes and the odd-slice mixup case;
+    ``word_jax`` is one word-wise step from ``word_weights`` (a state
+    dict file) with dropout off, for the JAX comparison."""
+    from texttoaudiogrounding_tpu_torch.models import layers
+
+    before = layers.STATS_DTYPE
+    layers.STATS_DTYPE = torch.float64 if f64_stats else torch.float32
+    try:
+        out = _runner_cases(_mesh(mesh_shape), f64_stats)
+    finally:
+        layers.STATS_DTYPE = before
+    if word_weights is not None:
+        out["word_jax"] = _word_jax(_mesh(mesh_shape), word_weights)
+    return out
+
+
+def _word_jax(mesh, word_weights: str) -> dict:
+    from texttoaudiogrounding_tpu_torch.losses import MaxMarginRankingLoss
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        weak_output_transform,
+    )
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner,
+    )
+
+    torch.manual_seed(1)
+    m = _align("word", (0.0, 0.0))
+    m.load_state_dict(torch.load(word_weights))
+    return _fit_steps(_runner(WeakSentenceRunner, mesh), m,
+                      MaxMarginRankingLoss(), weak_output_transform,
+                      _word_batches(4, 1, seed=21))
+
+
+def _runner_cases(mesh, f64_stats: bool) -> dict:
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.losses import (
+        ClipBceLoss,
+        ClipFrameBceLoss,
+        MaskedFrameBceLoss,
+        MaxMarginRankingLoss,
+        RandomTripletLoss,
+    )
+    from texttoaudiogrounding_tpu_torch.models.layers import (
+        rank_stripes,
+        spec_augment_stripes,
+    )
+    from texttoaudiogrounding_tpu_torch.parallel import kernel_shard
+    from texttoaudiogrounding_tpu_torch.parallel.mesh import device_feed
+    from texttoaudiogrounding_tpu_torch.training.runner_class_mapping import (
+        ClassMappingStrongRunner,
+        ClassMappingWeakRunner,
+        _mixup_lambdas,
+        mapping_strong_output_transform,
+        mixup_output_transform,
+    )
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
+        WeakPhraseSelfSupervisionRunner,
+        weak_output_transform,
+    )
+    from texttoaudiogrounding_tpu_torch.training.runner_weak_sentence import (
+        WeakSentenceRunner,
+    )
+
+    out: dict = {}
+    # sentence level, word- and phrase-wise (ΣN 6, then 5: divisible by
+    # the two ranks and not), then an evaluation forward of 3 clips (padded
+    # to the ranks; the phrase batch's ΣN = B = 3)
+    for kind, loss_fn, host in (
+            ("word", MaxMarginRankingLoss(), _word_batches(4, 2, seed=11)),
+            ("phrase", RandomTripletLoss(), [phrase_batch([1, 2, 1, 2], 12),
+                                             phrase_batch([2, 1, 1, 1], 13)])):
+        torch.manual_seed(1)
+        m = _align(kind, (0.2, 0.5))
+        m.load_state_dict(random_state_dict(m, 3))
+        runner = _runner(WeakSentenceRunner, mesh)
+        evaluated = (_word_batches(3, 1, seed=14)[0] if kind == "word"
+                     else phrase_batch([1, 1, 1], 15))
+        tracks = _evaluated(runner, m, evaluated, runner.eval_tracks)
+        res = _fit_steps(runner, m, loss_fn, weak_output_transform, host)
+        out[f"sentence_{kind}"] = {**res, "tracks": tracks}
+    # self-supervision: each rank builds its teacher from another seed;
+    # rank 0's weights reach every rank
+    torch.manual_seed(1)
+    m = model(weak=True)
+    runner = _runner(WeakPhraseSelfSupervisionRunner, mesh)
+    runner.config = {"teacher": {
+        "type": "MultiTextBiEncoder",
+        "args": {"shared_dim": EMBED, "add_proj": True},
+        "audio_encoder": {"type": "Cnn8Rnn", "args": {}},
+        "text_encoder": {"type": "EmbeddingAgg",
+                         "args": {"vocab_size": VOCAB, "embed_dim": EMBED}},
+        "match_fn": {"type": "DotProduct", "args": {}}}}
+    torch.manual_seed(100 + mesh.rank)
+    teacher = runner.build_teacher()
+    torch.manual_seed(1)
+    res = _fit_steps(runner, m, ClipFrameBceLoss(
+                         0.5, clip_label_key="label",
+                         frame_label_key="frame_label"),
+                     runner.teacher_transform(teacher),
+                     batches(2, phrases=3, seed=16))
+    res["teacher"] = {k: v.clone() for k, v in teacher.state_dict().items()}
+    out["selfsup"] = res
+    # class mapping: weak with mixup and SpecAugment, strong
+    for kind in ("weak", "strong"):
+        torch.manual_seed(1)
+        m = _tagging((0.2, 0.5))
+        m.load_state_dict(random_state_dict(m, 4))
+        strong = kind == "strong"
+        runner = _runner(ClassMappingStrongRunner if strong
+                         else ClassMappingWeakRunner, mesh)
+        evaluated = _mapping_batches(1, 3, strong, seed=18)[0]
+        scores = _evaluated(runner, m, evaluated, lambda out, *_: {
+            k: v for k, v in out.items() if torch.is_tensor(v)})
+        if strong:
+            res = _fit_steps(runner, m, MaskedFrameBceLoss(),
+                             mapping_strong_output_transform,
+                             _mapping_batches(2, 4, True, seed=19))
+        else:
+            runner.static_train_inputs = {"specaug": True}
+            host = _mapping_batches(2, 4, False, seed=17)
+            mix = np.random.RandomState(1235)
+            for batch in host:
+                batch["mixup_lambda"] = _mixup_lambdas(mix, 4)
+            res = _fit_steps(runner, m, ClipBceLoss(), mixup_output_transform,
+                             host)
+        out[f"mapping_{kind}"] = {**res, "eval": scores}
+    # SpecAugment's stripes for 4 clips of 21 frames as a rank draws them
+    gen = torch.Generator().manual_seed(9)
+    with kernel_shard.data_parallel(mesh):
+        rows = kernel_shard.global_rows(4 // (mesh.axis_size("data")))
+        out["stripes"] = rank_stripes(spec_augment_stripes(gen, rows, 21,
+                                                           64))
+    # mixup over two clips: one row a rank on two ranks
+    m = _tagging((0.0, 0.0))
+    m.train()
+    host = _mapping_batches(1, 2, False, seed=22)[0]
+    host["mixup_lambda"] = np.array([0.3, 0.7], np.float32)
+    batch, _, _ = next(device_feed([host], mesh, "cpu"))
+    try:
+        with kernel_shard.data_parallel(mesh):
+            out["odd_mixup"] = tuple(m(batch)["clip_sim"].shape)
+    except ValueError as err:
+        out["odd_mixup"] = str(err)
+    return out
+
+
+JOBS = {"steps": steps, "bn_pool": bn_pool, "clip": clip, "runs": runs,
+        "runners": runners}
 
 
 if __name__ == "__main__":

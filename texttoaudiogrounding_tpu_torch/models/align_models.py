@@ -10,6 +10,21 @@ number of phrases a caption, which ``VarNumTextCollate`` flattens to
 an align function (``models/align.py``) for the first two and a match
 function after a cross encoder for :class:`AudioTextCrossAlignByPhrase`.
 ``output_matrix`` in the input adds ``sim_matrix [B, B, T, N]``.
+
+On several ranks (``parallel/kernel_shard.py``) a rank's audio rows meet
+the captions of the whole global batch: ``whole_batch_inputs`` names the
+text keys, which the feed gives every rank whole (``parallel/mesh.py``),
+and the text tower runs on all of them outside the ``data`` axis (its
+dropout drawn as one rank draws it, no statistics summed over ranks).  A
+rank then computes its block ``sim [b, B]`` of the matrix, and the loss
+gathers the blocks.  Each rank's graph holds the text tower's share of
+its own block only, so the gradients summed over the ranks are the
+global ones, and no collective runs on the text side.  (Gathering the
+rank's text embeddings instead would need a backward that sums over the
+``data`` axis: ``gather_rows`` keeps a rank's own rows, right only where
+every rank computes the same function of the gathered tensor.)  The
+text tower runs N times, for the shipped word2vec-mean towers a table
+lookup and a mean.
 """
 
 from __future__ import annotations
@@ -18,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from texttoaudiogrounding_tpu_torch.models.audio_text_model import _Grounding
+from texttoaudiogrounding_tpu_torch.parallel import kernel_shard
 
 
 def pack_phrases(flat: torch.Tensor, pad_index: torch.Tensor,
@@ -29,6 +45,11 @@ def pack_phrases(flat: torch.Tensor, pad_index: torch.Tensor,
             < nums[:, None])
     return packed * mask.reshape(*mask.shape, *([1] * (packed.dim() - 2))
                                  ).to(packed.dtype)
+
+
+def _phrase_keys(key: str) -> tuple:
+    """A ``VarNumTextCollate`` group's keys under ``key``."""
+    return (key, f"{key}_len", f"{key}_num", f"{key}_pad_index")
 
 
 class _Align(_Grounding):
@@ -44,6 +65,12 @@ class _Align(_Grounding):
         self.sim_pooling = sim_pooling
         self._place(device)
 
+    @staticmethod
+    def text_side():
+        """The context the text tower runs in: outside the ``data`` axis,
+        on the whole batch's texts (see the module's docstring)."""
+        return kernel_shard.data_parallel(None)
+
     def _pooled(self, input_dict: dict, sim_matrix: torch.Tensor,
                 audio_len: torch.Tensor, text_len: torch.Tensor) -> dict:
         out = {"sim": self.sim_pooling({"sim": sim_matrix,
@@ -58,6 +85,8 @@ class AudioTextAlignByWord(_Align):
     """The frames against the caption's tokens (``text``, ``text_len``):
     ``sim_matrix [B, B, T, L]``."""
 
+    whole_batch_inputs = ("text", "text_len")
+
     def __init__(self, audio_encoder: nn.Module, text_encoder: nn.Module,
                  match_fn: nn.Module, sim_pooling: nn.Module,
                  shared_dim: int = 512, add_proj: bool = False,
@@ -70,7 +99,8 @@ class AudioTextAlignByWord(_Align):
     def forward(self, input_dict: dict) -> dict:
         audio_out = self.audio_encoder(input_dict)
         audio_emb = audio_out["embedding"]
-        word_emb = self.text_encoder(input_dict)["token_emb"]
+        with self.text_side():
+            word_emb = self.text_encoder(input_dict)["token_emb"]
         if self.needs_proj:
             audio_emb = self.audio_proj(audio_emb)
             word_emb = self.text_proj(word_emb)
@@ -96,13 +126,18 @@ class AudioTextAlignByPhrase(_Align):
                          freeze_text_encoder, device)
         self.text_key = text_key
 
+    @property
+    def whole_batch_inputs(self) -> tuple:
+        return _phrase_keys(self.text_key)
+
     def forward(self, input_dict: dict) -> dict:
         audio_out = self.audio_encoder(input_dict)
         audio_emb = audio_out["embedding"]
         key = self.text_key
-        seq_emb = self.text_encoder({
-            "text": input_dict[key],
-            "text_len": input_dict[f"{key}_len"]})["seq_emb"]
+        with self.text_side():
+            seq_emb = self.text_encoder({
+                "text": input_dict[key],
+                "text_len": input_dict[f"{key}_len"]})["seq_emb"]
         nums = input_dict[f"{key}_num"]
         seq_emb = pack_phrases(seq_emb, input_dict[f"{key}_pad_index"], nums)
         if self.needs_proj:
@@ -130,13 +165,19 @@ class AudioTextCrossAlignByPhrase(_Align):
                          project=False)
         self.text_key = text_key
 
+    @property
+    def whole_batch_inputs(self) -> tuple:
+        return _phrase_keys(self.text_key)
+
     def forward(self, input_dict: dict) -> dict:
         audio_out = self.audio_encoder(input_dict)
         audio_emb, audio_len = audio_out["embedding"], audio_out["length"]
         key = self.text_key
         text_len = input_dict[f"{key}_len"]
-        token_emb = self.text_encoder({"text": input_dict[key],
-                                       "text_len": text_len})["token_emb"]
+        with self.text_side():
+            token_emb = self.text_encoder({"text": input_dict[key],
+                                           "text_len": text_len}
+                                          )["token_emb"]
         nums = input_dict[f"{key}_num"]
         b, t, d = audio_emb.shape
         s = token_emb.shape[0]                                 # ΣN

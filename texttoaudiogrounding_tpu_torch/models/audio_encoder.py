@@ -45,7 +45,8 @@ BatchNorms use batch statistics, ``Dropout(0.2)`` follows each block and
 trainer's config seed).  In train mode ``Cnn8Rnn`` also takes the
 class-mapping augmentations of JAX ``:98-103, 138-143``: with ``specaug``
 true in the input, SpecAugment after bn0 (``layers.spec_augment``, its
-stripes drawn from the same generator), and with ``mixup_lambda [B]`` in
+stripes drawn from the same generator for the global batch and cut to
+the rank's rows, ``layers.rank_stripes``), and with ``mixup_lambda [B]`` in
 the input, mixup of the log-mel after it (``layers.do_mixup``: the batch
 halves before the conv blocks) and of the length, which stays float
 (``λ·l0 + (1-λ)·l1``: a length of 12.6 keeps 13 frames through
@@ -67,6 +68,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     do_mixup,
     dropout,
     lp_pool_2d,
+    rank_stripes,
     spec_augment,
     spec_augment_stripes,
 )
@@ -78,6 +80,7 @@ from texttoaudiogrounding_tpu_torch.ops.frontend import (
 from texttoaudiogrounding_tpu_torch.ops.kernels.logmel import (
     fused_log_mel_spectrogram,
 )
+from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import global_rows
 
 _BLOCKS = ((1, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (1, 2)),
            (256, 512, (1, 2)))
@@ -134,7 +137,9 @@ class Cnn8Rnn(_Encoder):
         x = (batch_norm_train if bn_train else batch_norm_eval)(x, self.bn0)
         gen = self._dropout_generator(x.device) if train else None
         if train and input_dict.get("specaug", False):
-            x = spec_augment(x, spec_augment_stripes(gen, *x.shape))
+            b, t, m = x.shape
+            x = spec_augment(x, rank_stripes(spec_augment_stripes(
+                gen, global_rows(b), t, m)))
         mixup_lambda = input_dict.get("mixup_lambda") if train else None
         if mixup_lambda is not None:
             x = do_mixup(x, mixup_lambda)

@@ -31,6 +31,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     dropout,
     lp_pool_2d,
     pool_2d,
+    rank_stripes,
     spec_augment,
     spec_augment_stripes,
     xavier,
@@ -40,6 +41,7 @@ from texttoaudiogrounding_tpu_torch.ops.frontend import (
     cnn8rnn_mel_config,
     log_mel_spectrogram,
 )
+from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import global_rows
 
 
 class CDurTextBlock(nn.Module):
@@ -181,7 +183,9 @@ class CrossCnn8Rnn(Seeded):
         x = batch_norm(x, self.bn0, bn_train)
         gen = self._dropout_generator(x.device) if train else None
         if train and input_dict.get("specaug", False):
-            x = spec_augment(x, spec_augment_stripes(gen, *x.shape))
+            b, t, m = x.shape
+            x = spec_augment(x, rank_stripes(spec_augment_stripes(
+                gen, global_rows(b), t, m)))
         mixup_lambda = input_dict.get("mixup_lambda") if train else None
         if mixup_lambda is not None:
             x = do_mixup(x, mixup_lambda)

@@ -422,6 +422,15 @@ def spec_augment_stripes(generator: torch.Generator, batch: int,
                              freq_drop_width, mels, device)}
 
 
+def rank_stripes(stripes: dict) -> dict:
+    """Stripes drawn for the global batch (:func:`spec_augment_stripes` at
+    ``kernel_shard.global_rows(b)`` rows) cut to the rank's rows, as
+    dropout's masks are, so that N ranks draw what one rank draws; as they
+    are outside an active ``data`` axis."""
+    return {k: tuple(kernel_shard.local_rows(t) for t in pair)
+            for k, pair in stripes.items()}
+
+
 def stripe_keep(begin: torch.Tensor, width: torch.Tensor,
                 total: int) -> torch.Tensor:
     """``[B, total]`` bool, False inside any of a row's stripes."""
@@ -441,7 +450,14 @@ def spec_augment(x: torch.Tensor, stripes: dict) -> torch.Tensor:
 
 def do_mixup(x: torch.Tensor, mixup_lambda: torch.Tensor) -> torch.Tensor:
     """Even rows mixed with odd ones, ``x[0::2]·λ[0::2] + x[1::2]·λ[1::2]``
-    in ``x``'s dtype; halves the batch (JAX ``layers.py:663-670``)."""
+    in ``x``'s dtype; halves the batch (JAX ``layers.py:663-670``).  Under
+    an active ``data`` axis each rank mixes its own rows: a pair that would
+    span two ranks (an odd row count a rank) raises."""
+    if x.shape[0] % 2 and kernel_shard.active_data_axis() is not None:
+        raise ValueError(
+            f"mixup pairs rows 2k and 2k + 1 within a rank: a rank's "
+            f"{x.shape[0]} rows are odd (take a global batch that is an "
+            "even multiple of the data axis; ROADMAP.md Queue 3)")
     lam = mixup_lambda.to(x.dtype)
     lam = lam.reshape(lam.shape + (1,) * (x.dim() - 1))
     return x[0::2] * lam[0::2] + x[1::2] * lam[1::2]

@@ -23,6 +23,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     ConvBlock,
     Seeded,
     batch_norm,
+    rank_stripes,
     spec_augment,
     spec_augment_stripes,
     xavier,
@@ -39,6 +40,7 @@ from texttoaudiogrounding_tpu_torch.ops.masking import (
     max_with_lens,
     mean_with_lens,
 )
+from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import global_rows
 
 
 class _GradScale(torch.autograd.Function):
@@ -77,8 +79,9 @@ class AudioTower(Seeded):
         x = log_mel_spectrogram(input_dict["waveform"], self.mel_config)
         x = batch_norm(x, self.bn0, self.training)
         if self.training and input_dict.get("specaug", False):
-            x = spec_augment(x, spec_augment_stripes(
-                self._dropout_generator(x.device), *x.shape))
+            b, t, m = x.shape
+            x = spec_augment(x, rank_stripes(spec_augment_stripes(
+                self._dropout_generator(x.device), global_rows(b), t, m)))
         return x[..., None]
 
     def _clip(self, time_emb: torch.Tensor, input_dict: dict) -> dict:

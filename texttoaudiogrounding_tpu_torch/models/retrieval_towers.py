@@ -19,6 +19,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     Seeded,
     batch_norm,
     conv2d_cl,
+    rank_stripes,
     spec_augment,
     spec_augment_stripes,
     xavier,
@@ -32,6 +33,7 @@ from texttoaudiogrounding_tpu_torch.ops.frontend import (
     LogMelConfig,
     log_mel_spectrogram,
 )
+from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import global_rows
 
 
 def avg_pool_cl(x: torch.Tensor, window) -> torch.Tensor:
@@ -230,8 +232,9 @@ class AudioSpectrogramTransformer(Seeded):
         x = log_mel_spectrogram(input_dict["waveform"], self.mel_config)
         x = batch_norm(x, self.init_bn, self.training)
         if self.training and input_dict.get("specaug", False):
-            x = spec_augment(x, spec_augment_stripes(
-                self._dropout_generator(x.device), *x.shape))
+            b, t, m = x.shape
+            x = spec_augment(x, rank_stripes(spec_augment_stripes(
+                self._dropout_generator(x.device), global_rows(b), t, m)))
         x = self.patch_embed(x[:, None])                   # [B, H, tp, fp]
         b, h, tp, fp = x.shape
         if (tp, fp) != self.patches:

@@ -31,10 +31,13 @@ cluster launch a walk (:func:`walk_plan`,
 :func:`gru_walk_cluster_emulated`).  Their first designs, one CUDA launch
 a step in ``csrc/gru.cu``, stay callable as ``gru_forward(...,
 design="per_step")``, ``gru_backward(..., design="per_step")`` and
-``gru_walk(..., design="per_step")``.  The hoisted backward's dWh product
-after the walk is ``torch.bmm`` in full f32 on either device.  The
-models' calls pick the design by shape (:func:`route`): the cluster
-designs take H <= 256, the first design the wider widths it takes.
+``gru_walk(..., design="per_step")``; they take any H and B through
+:func:`per_step_plan` (H padded up to a multiple of 4 with zero units,
+the rows split into launches whose carries fit in shared memory).  The
+hoisted backward's dWh product after the walk is ``torch.bmm`` in full
+f32 on either device.  The models' calls pick the design by shape
+(:func:`route`): the cluster designs take H <= 256, the first design
+every wider width.
 """
 
 from __future__ import annotations
@@ -528,13 +531,95 @@ def _hs_floats(b: int, h: int) -> int:
     return -(-b * (h + 1) // 4) * 4
 
 
-def _check_shape_for_kernel(b: int, h: int, smem: int) -> None:
-    if h % _JT:
-        raise ValueError(f"the GRU kernel needs H divisible by {_JT}")
-    if smem > _SMEM_MAX:
-        raise ValueError(f"the GRU kernel needs {smem} bytes of shared "
-                         f"memory at B={b}, H={h}; the card has "
+def _per_step_smem(part: str, b16: bool):
+    """Bytes of shared memory ``csrc/gru.cu``'s ``part`` (``"forward"``,
+    ``"backward"`` or ``"walk"``) takes at (B, H) (its ``*_smem``)."""
+    def smem(b: int, h: int) -> int:
+        floats = _hs_floats(b, h) + h * 3 * _JT
+        if part != "forward":
+            floats += _JT * (3 * h + 1)
+        if part == "backward":
+            floats += b * (4 if b16 else 3) * _JT
+        return 4 * floats
+    return smem
+
+
+def per_step_plan(b: int, h: int, part: str,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """The first design's call plan at ``B = b``, ``H = h``: ``{"h": H
+    padded up to a multiple of 4, "groups": [(first row, end), ...]}``, the
+    batch rows split into as few even groups as keep each launch's carries
+    within the card's shared memory.  Zero units are exact: with a zero
+    carry a padded unit's ``n`` is ``tanh(0) = 0``, so its carry stays 0,
+    and its zero rows of ``wh`` add nothing to the real units; the rows of
+    a GRU are independent.  Raises where one row does not fit."""
+    if part not in ("forward", "backward", "walk"):
+        raise ValueError(f"part must be forward, backward or walk: {part}")
+    hp = -(-h // _JT) * _JT
+    smem = _per_step_smem(part, dtype == torch.bfloat16)
+    if smem(1, hp) > _SMEM_MAX:
+        raise ValueError(f"the GRU kernel needs {smem(1, hp)} bytes of "
+                         f"shared memory for one row at H={h}; the card has "
                          f"{_SMEM_MAX}")
+    rows = b
+    while smem(rows, hp) > _SMEM_MAX:
+        rows -= 1
+    groups = -(-b // rows)
+    rows = -(-b // groups)
+    return {"h": hp, "groups": [(lo, min(b, lo + rows))
+                                for lo in range(0, b, rows)]}
+
+
+def _pad_last(x: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+    """``x [..., k·h]`` (k gates of h units) → ``[..., k·hp]``, each
+    gate's units padded with zeros."""
+    if hp == h:
+        return x
+    parts = x.unflatten(-1, (x.shape[-1] // h, h))
+    return torch.nn.functional.pad(parts, (0, hp - h)).flatten(-2)
+
+
+def _cut_last(x: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_last`."""
+    if hp == h:
+        return x
+    return x.unflatten(-1, (x.shape[-1] // hp, hp))[..., :h].flatten(-2)
+
+
+def run_per_step_plan(plan: dict, launch, rows: tuple, weights: tuple,
+                      h: int, row_outputs: int) -> tuple:
+    """``launch`` over :func:`per_step_plan`'s ``plan``: for each group,
+    its direction-0 and direction-1 rows of the time-major ``rows`` (``[T,
+    2B, k·H]``: proj, ys, gy) and the ``weights`` (``wh [2, H, 3H]``, ``bn
+    [2, H]``), all padded to the plan's H, go to ``launch``, which returns
+    a tuple of outputs.  Its first ``row_outputs`` outputs are the group's
+    rows (put back in place), the others weight gradients (summed over the
+    groups in order); every output is cut back to H."""
+    hp, b = plan["h"], rows[0].shape[1] // 2
+    wh, bn = weights
+    pw = torch.nn.functional.pad(_pad_last(wh, h, hp), (0, 0, 0, hp - h))
+    pb = _pad_last(bn, h, hp)
+    full = [_pad_last(x, h, hp) for x in rows]
+    outs: list = []
+    for lo, hi in plan["groups"]:
+        if (lo, hi) == (0, b):
+            got = launch(*full, pw, pb)
+        else:
+            got = launch(*[torch.cat([x[:, lo:hi], x[:, b + lo:b + hi]], 1)
+                           for x in full], pw, pb)
+        if not outs:
+            outs = [x.new_empty(x.shape[0], 2 * b, x.shape[2])
+                    for x in got[:row_outputs]]
+            outs += [torch.zeros_like(x) for x in got[row_outputs:]]
+        for i, x in enumerate(got):
+            if i < row_outputs:
+                outs[i][:, lo:hi] = x[:, :hi - lo]
+                outs[i][:, b + lo:b + hi] = x[:, hi - lo:]
+            else:
+                outs[i] += x
+    cut = [_cut_last(x, h, hp) for x in outs]
+    return tuple(x[:, :h] if x.dim() == 3 and i >= row_outputs else x
+                 for i, x in enumerate(cut))
 
 
 _P, _I = _build.P, _build.I
@@ -547,8 +632,9 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
     carry (``dtype``).  On the card ``design`` picks the kernel:
     ``"cluster"`` (``csrc/gru_fwd_sm90.cu``, counted as ``gru_fwd`` /
     ``gru_fwd_bf16``) or ``"per_step"`` (``csrc/gru.cu``'s first design,
-    counted as ``gru_fwd_per_step`` / ``gru_fwd_bf16_per_step``); a shape
-    the chosen design cannot take raises."""
+    counted as ``gru_fwd_per_step`` / ``gru_fwd_bf16_per_step``, by
+    :func:`per_step_plan`: H padded, the rows split into launches that
+    fit); a shape the cluster design cannot take raises."""
     _check(proj, wh, bn)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the carry is float32 or bfloat16")
@@ -572,7 +658,16 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
         launches[name] += 1
         _build.check(err, "ttg_gru_fwd_cluster")
         return ys
-    _check_shape_for_kernel(b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT))
+    return run_per_step_plan(per_step_plan(b, h, "forward", dtype),
+                             lambda *a: (_fwd_per_step(*a, dtype),),
+                             (proj,), (wh, bn), h, 1)[0]
+
+
+def _fwd_per_step(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One call of ``csrc/gru.cu``'s forward (a launch a step) at a shape
+    it takes."""
+    t, b, h = _dims(proj)
     proj, wh, bn = _kernel_ready(proj, wh, bn)
     ys = torch.empty(t, 2 * b, h, dtype=torch.float32, device=proj.device)
     if dtype == torch.float32:
@@ -588,6 +683,7 @@ def gru_forward(proj: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
                              [_P, _P, _P, _P, _P, _I, _I, _I, _P])
         err = fn(proj.data_ptr(), whr.data_ptr(), bn.data_ptr(),
                  ys.data_ptr(), hbuf.data_ptr(), t, b, h, _build.stream(proj))
+    name = "gru_fwd_bf16" if dtype == torch.bfloat16 else "gru_fwd"
     launches[f"{name}_per_step"] += 1
     _build.check(err, f"ttg_{name}")
     return ys
@@ -602,8 +698,9 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     operands (``dtype``).  On the card ``design`` picks the kernel:
     ``"cluster"`` (``csrc/gru_bwd_sm90.cu``, counted as ``gru_bwd`` /
     ``gru_bwd_bf16``) or ``"per_step"`` (``csrc/gru.cu``'s first design,
-    counted as ``gru_bwd_per_step`` / ``gru_bwd_bf16_per_step``); a shape
-    the chosen design cannot take raises."""
+    counted as ``gru_bwd_per_step`` / ``gru_bwd_bf16_per_step``, by
+    :func:`per_step_plan`); a shape the cluster design cannot take
+    raises."""
     _check(proj, wh, bn)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the operands are float32 or bfloat16")
@@ -613,32 +710,44 @@ def gru_backward(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
         return gru_backward_plain(proj, ys, gy, wh, bn, dtype)
     t, b, h = _dims(proj)
     b16 = dtype == torch.bfloat16
-    if design == "cluster":
-        plan = cluster_plan(b, h, dtype)
-    else:
-        _check_shape_for_kernel(
-            b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)
-                       + b * (4 if b16 else 3) * _JT))
+    if design == "per_step":
+        return run_per_step_plan(
+            per_step_plan(b, h, "backward", dtype),
+            lambda *a: _bwd_per_step(*a, dtype), (proj, ys, gy), (wh, bn),
+            h, 1)
+    plan = cluster_plan(b, h, dtype)
     proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
     name = "gru_bwd_bf16" if b16 else "gru_bwd"
     whk = wh.to(dtype).float() if b16 else wh
     dev = proj.device
     dproj = torch.empty_like(proj)
-    if design == "cluster":
-        n = 2 * h * 3 * h + 2 * h
-        out = torch.empty(n, dtype=torch.float32, device=dev)
-        part = torch.empty(plan["groups"], n, dtype=torch.float32,
-                           device=dev)
-        fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster",
-                             [_P] * 8 + [_I] * 7 + [_P])
-        err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(),
-                 whk.data_ptr(), bn.data_ptr(), dproj.data_ptr(),
-                 out.data_ptr(), part.data_ptr(), t, b, h, plan["ctas"],
-                 plan["groups"], plan["rows"], int(b16), _build.stream(proj))
-        launches[name] += 1
-        _build.check(err, "ttg_gru_bwd_cluster")
-        return (dproj, out[:n - 2 * h].view(2, h, 3 * h),
-                out[n - 2 * h:].view(2, h))
+    n = 2 * h * 3 * h + 2 * h
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    part = torch.empty(plan["groups"], n, dtype=torch.float32, device=dev)
+    fn = _build.function("gru_bwd_sm90", "ttg_gru_bwd_cluster",
+                         [_P] * 8 + [_I] * 7 + [_P])
+    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), whk.data_ptr(),
+             bn.data_ptr(), dproj.data_ptr(), out.data_ptr(),
+             part.data_ptr(), t, b, h, plan["ctas"], plan["groups"],
+             plan["rows"], int(b16), _build.stream(proj))
+    launches[name] += 1
+    _build.check(err, "ttg_gru_bwd_cluster")
+    return (dproj, out[:n - 2 * h].view(2, h, 3 * h),
+            out[n - 2 * h:].view(2, h))
+
+
+def _bwd_per_step(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
+                  wh: torch.Tensor, bn: torch.Tensor,
+                  dtype: torch.dtype) -> tuple:
+    """One call of ``csrc/gru.cu``'s backward (a launch a step) at a shape
+    it takes: ``(dproj, dwh, dbn)``."""
+    t, b, h = _dims(proj)
+    b16 = dtype == torch.bfloat16
+    proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
+    name = "gru_bwd_bf16" if b16 else "gru_bwd"
+    whk = wh.to(dtype).float() if b16 else wh
+    dev = proj.device
+    dproj = torch.empty_like(proj)
     dwh = torch.zeros_like(wh)
     dbn = torch.zeros_like(bn)
     dcol = torch.empty(2, 2 * b, 3 * h, dtype=torch.float32, device=dev)
@@ -687,8 +796,9 @@ def gru_walk(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     ``"v3"``): ``(dproj [T, 2B, 3H], drznn [T, 2B, H])``.  On the card
     ``design`` picks the kernel: ``"cluster"`` (``csrc/gru_walk_sm90.cu``,
     counted as ``gru_bwd_<variant>``) or ``"per_step"`` (``csrc/gru.cu``'s
-    ``ttg_gru_bwd_<variant>``, counted as ``gru_bwd_<variant>_per_step``);
-    a shape the chosen design cannot take raises."""
+    ``ttg_gru_bwd_<variant>``, counted as ``gru_bwd_<variant>_per_step``,
+    by :func:`per_step_plan`); a shape the cluster design cannot take
+    raises."""
     _check(proj, wh, bn)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
@@ -697,25 +807,35 @@ def gru_walk(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
     if not proj.is_cuda:
         return gru_walk_plain(proj, ys, gy, wh, bn, variant == "v3")
     t, b, h = _dims(proj)
-    name = f"gru_bwd_{variant}"
-    if design == "cluster":
-        plan = walk_plan(b, h)
-    else:
-        _check_shape_for_kernel(
-            b, h, 4 * (_hs_floats(b, h) + h * 3 * _JT + _JT * (3 * h + 1)))
+    if design == "per_step":
+        return run_per_step_plan(
+            per_step_plan(b, h, "walk"),
+            lambda *a: _walk_per_step(*a, variant), (proj, ys, gy), (wh, bn),
+            h, 2)
+    plan = walk_plan(b, h)
     proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
     dproj = torch.empty_like(proj)
     drznn = torch.empty_like(ys)
-    if design == "cluster":
-        fn = _build.function("gru_walk_sm90", "ttg_gru_walk_cluster",
-                             [_P] * 7 + [_I] * 7 + [_P])
-        err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(),
-                 wh.data_ptr(), bn.data_ptr(), dproj.data_ptr(),
-                 drznn.data_ptr(), t, b, h, plan["ctas"], plan["groups"],
-                 plan["rows"], int(variant == "v3"), _build.stream(proj))
-        launches[name] += 1
-        _build.check(err, "ttg_gru_walk_cluster")
-        return dproj, drznn
+    fn = _build.function("gru_walk_sm90", "ttg_gru_walk_cluster",
+                         [_P] * 7 + [_I] * 7 + [_P])
+    err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
+             bn.data_ptr(), dproj.data_ptr(), drznn.data_ptr(), t, b, h,
+             plan["ctas"], plan["groups"], plan["rows"],
+             int(variant == "v3"), _build.stream(proj))
+    launches[f"gru_bwd_{variant}"] += 1
+    _build.check(err, "ttg_gru_walk_cluster")
+    return dproj, drznn
+
+
+def _walk_per_step(proj: torch.Tensor, ys: torch.Tensor, gy: torch.Tensor,
+                   wh: torch.Tensor, bn: torch.Tensor, variant: str) -> tuple:
+    """One call of ``csrc/gru.cu``'s hoisted walk ``variant`` (a launch a
+    step) at a shape it takes: ``(dproj, drznn)``."""
+    t, b, h = _dims(proj)
+    name = f"gru_bwd_{variant}"
+    proj, ys, gy, wh, bn = _kernel_ready(proj, ys, gy, wh, bn)
+    dproj = torch.empty_like(proj)
+    drznn = torch.empty_like(ys)
     part = torch.empty(2 * b, h, dtype=torch.float32, device=proj.device)
     fn = _build.function("gru", f"ttg_{name}", [_P] * 8 + [_I] * 3 + [_P])
     err = fn(proj.data_ptr(), ys.data_ptr(), gy.data_ptr(), wh.data_ptr(),
@@ -751,9 +871,8 @@ def route(b: int, h: int, dtype: torch.dtype = torch.float32,
     ``{"forward": ..., "backward": ...}``, each ``"cluster"`` where its
     plan (:func:`forward_plan`; :func:`cluster_plan`, or :func:`walk_plan`
     for a hoisted ``variant``) takes the shape, else ``"per_step"``
-    (``csrc/gru.cu``'s first design, which takes any H divisible by 4
-    whose carries fit in shared memory, such as word2vec's 300).  The
-    wrapper that launches a design raises where the shape is beyond it."""
+    (``csrc/gru.cu``'s first design, which takes every shape through
+    :func:`per_step_plan`: word2vec's 300, or 302 padded to 304)."""
     bwd_plan = (cluster_plan if variant is None
                 else lambda b_, h_, _: walk_plan(b_, h_))
     return {part: "cluster" if _takes(plan, b, h, dtype) else "per_step"

@@ -197,14 +197,14 @@ def copy_to(t: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 class _GlobalOutput(Mapping):
-    def __init__(self, output: dict, rows: int, axis: Axis):
+    def __init__(self, output: dict, rows: tuple, axis: Axis):
         self._src, self._rows, self._axis = output, rows, axis
         self._read: dict = {}
 
     def __getitem__(self, key):
         if key not in self._read:
             v = self._src[key]
-            if torch.is_tensor(v) and v.dim() > 0 and v.shape[0] == self._rows:
+            if torch.is_tensor(v) and v.dim() > 0 and v.shape[0] in self._rows:
                 v = gather_rows(v, self._axis)
             self._read[key] = v
         return self._read[key]
@@ -216,9 +216,14 @@ class _GlobalOutput(Mapping):
         return len(self._src)
 
 
-def global_output(output: dict, rows: int, axis: Axis | None) -> Mapping:
-    """A rank's model output over ``rows`` rows as the global batch's: each
-    tensor whose leading dim is ``rows`` is gathered over ``axis``
-    (:func:`gather_rows`) when first read, so a loss gathers only what it
-    reads (every rank reads the same entries in the same order)."""
-    return output if axis is None else _GlobalOutput(output, rows, axis)
+def global_output(output: dict, rows, axis: Axis | None) -> Mapping:
+    """A rank's model output over ``rows`` rows (an int, or a tuple of the
+    row counts its tensors have: a mixup step's outputs have half the
+    batch's) as the global batch's: each tensor whose leading dim is one
+    of ``rows`` is gathered over ``axis`` (:func:`gather_rows`) when first
+    read, so a loss gathers only what it reads (every rank reads the same
+    entries in the same order)."""
+    if axis is None:
+        return output
+    return _GlobalOutput(output, (rows,) if isinstance(rows, int)
+                         else tuple(rows), axis)

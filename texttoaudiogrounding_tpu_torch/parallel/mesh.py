@@ -18,7 +18,10 @@ its devices.
   ``mesh.devices.size``.
 * :func:`shard_batch`: the rank's contiguous rows of the ``data`` axis; a
   leaf whose leading dim does not divide the axis stays whole, as JAX
-  replicates it.
+  replicates it, and so do the flat phrases of a ``VarNumTextCollate``
+  batch (:func:`ragged_keys`: rows that are not batch items, which JAX's
+  global step indexes by ``{key}_pad_index``) and the keys a model takes
+  whole on every rank (``whole``: the alignment models' text side).
 * :func:`param_placements`: ``parallel.rules`` on the port's parameters by
   the JAX flax paths ``weights.flax_leaf`` gives them, the spec moved to
   the torch layout where ``weights.py`` transposes; the first rule that
@@ -85,6 +88,15 @@ class Mesh:
         if self.device_mesh is not None:
             dist.barrier()
 
+    def broadcast_module(self, module: torch.nn.Module) -> None:
+        """Rank 0's parameters and buffers of ``module`` on every rank (a
+        module that no ``parallel.rules`` shard)."""
+        if self.device_mesh is None:
+            return
+        with torch.no_grad():
+            for tensor in module.state_dict().values():
+                dist.broadcast(tensor, src=0)
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
 
@@ -137,14 +149,31 @@ def mesh_from_config(parallel_cfg: Optional[dict], device="cpu") -> Mesh:
                                   mesh_dim_names=tuple(shape)))
 
 
+def ragged_keys(batch: dict) -> set:
+    """The flat keys of ``VarNumTextCollate``'s ragged groups: ``{key}
+    [ΣN, L]`` and ``{key}_len [ΣN]`` for each ``{key}_pad_index``.  Their
+    rows are phrases, not batch items: the feed neither pads nor cuts them
+    (each rank gets every phrase, and ``{key}_pad_index`` keeps its global
+    indices into them)."""
+    out = set()
+    for name in batch:
+        key = name[:-len("_pad_index")]
+        if name.endswith("_pad_index") and key in batch:
+            out |= {key, f"{key}_len"}
+    return out
+
+
 def pad_batch_to_multiple(batch: dict, multiple: int) -> tuple[dict, int]:
     """Pad the batch dim so it divides the mesh (last partial batches).
 
     Returns (padded_batch, real_batch_size).  Padding repeats the last
     element; callers mask out padded rows on the host after the step.
+    The flat keys of a ragged phrase group (:func:`ragged_keys`) are not
+    rows and stay as they are.
     """
-    leaves = [v for v in batch.values()
-              if isinstance(v, np.ndarray) and v.ndim > 0]
+    ragged = ragged_keys(batch)
+    leaves = [v for k, v in batch.items() if k not in ragged
+              and isinstance(v, np.ndarray) and v.ndim > 0]
     if not leaves:
         return batch, 0
     b = leaves[0].shape[0]
@@ -154,7 +183,7 @@ def pad_batch_to_multiple(batch: dict, multiple: int) -> tuple[dict, int]:
     out = {}
     for key, value in batch.items():
         if isinstance(value, np.ndarray) and value.ndim > 0 \
-                and value.shape[0] == b:
+                and value.shape[0] == b and key not in ragged:
             out[key] = np.concatenate(
                 [value, np.repeat(value[-1:], target - b, axis=0)], axis=0)
         else:
@@ -162,18 +191,22 @@ def pad_batch_to_multiple(batch: dict, multiple: int) -> tuple[dict, int]:
     return out, b
 
 
-def shard_batch(batch: dict, mesh: Mesh, axis: str = "data") -> dict:
+def shard_batch(batch: dict, mesh: Mesh, axis: str = "data",
+                whole: Iterable = ()) -> dict:
     """The rank's contiguous rows of every array leaf whose leading dim
-    divides ``axis``; other leaves (a ragged flat tensor, ids, strings) as
-    they are."""
+    divides ``axis``; other leaves (ids, strings), the flat keys of a
+    ragged phrase group (:func:`ragged_keys`) and the keys in ``whole``
+    (inputs every rank takes whole: the text side of the alignment
+    models, ``whole_batch_inputs``) as they are."""
     n = mesh.axis_size(axis)
     if n <= 1:
         return batch
     index = mesh.coordinate(axis)
+    keep = ragged_keys(batch) | set(whole)
     out = {}
     for key, value in batch.items():
         if isinstance(value, np.ndarray) and value.ndim > 0 \
-                and value.shape[0] % n == 0:
+                and value.shape[0] % n == 0 and key not in keep:
             rows = value.shape[0] // n
             out[key] = value[index * rows:(index + 1) * rows]
         else:
@@ -181,18 +214,26 @@ def shard_batch(batch: dict, mesh: Mesh, axis: str = "data") -> dict:
     return out
 
 
+def rank_batch(batch: dict, mesh: Mesh, whole: Iterable = ()
+               ) -> tuple[dict, int]:
+    """``(the rank's rows of batch padded to the mesh's ranks, the real
+    batch size)``: :func:`pad_batch_to_multiple`, then
+    :func:`shard_batch`."""
+    arr, real = pad_batch_to_multiple(batch, mesh.size)
+    return shard_batch(arr, mesh, whole=whole), real
+
+
 def device_feed(batches: Iterable, mesh: Mesh, device,
-                prepare: Optional[Callable] = None
+                prepare: Optional[Callable] = None, whole: Iterable = ()
                 ) -> Iterator[tuple[dict, dict, int]]:
     """``(the rank's batch on device, host batch, real batch size)`` for
     each host batch: ``prepare`` (default none), padded to a multiple of
-    the mesh's ranks, the rank's rows, pinned and copied without blocking
-    (JAX ``device_feed``)."""
+    the mesh's ranks, the rank's rows (``whole`` keys kept whole), pinned
+    and copied without blocking (JAX ``device_feed``)."""
     for host_batch in batches:
-        arr = prepare(host_batch) if prepare else host_batch
-        arr, real_bs = pad_batch_to_multiple(arr, mesh.size)
-        yield to_device(shard_batch(arr, mesh), device, pin=True), \
-            host_batch, real_bs
+        local, real_bs = rank_batch(
+            prepare(host_batch) if prepare else host_batch, mesh, whole)
+        yield to_device(local, device, pin=True), host_batch, real_bs
 
 
 def _spec(rule_spec) -> tuple:

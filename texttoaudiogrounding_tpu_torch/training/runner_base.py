@@ -45,10 +45,12 @@ rank's rows under the ``data`` axis (global BatchNorm statistics, dropout
 drawn for the global batch: ``parallel/kernel_shard.py``), computes the
 loss of the global batch from the ranks' outputs gathered, and sums the
 gradients over the ``data`` axis: N ranks compute the one-rank step on the
-global batch, as GSPMD's step does.  Rank 0 writes the checkpoints (full
-tensors) and the log; a checkpoint of one mesh resumes under another.
-Runners whose steps are not held so (``multi_device = False``) raise on
-more than one rank.
+global batch, as GSPMD's step does.  A model's ``whole_batch_inputs``
+(the alignment models' text side, which meets every audio row) reach
+every rank whole, and :meth:`BaseRunner.output_rows` names the row counts
+of the output that are batch rows (a mixup step's are half the batch's).
+Rank 0 writes the checkpoints (full tensors) and the log; a checkpoint of
+one mesh resumes under another.
 
 Runs on the card unless ``device="cpu"`` is asked for.  TF32 is off: f32
 convolutions and matrix products run in full f32, as the JAX reference
@@ -101,6 +103,12 @@ from texttoaudiogrounding_tpu_torch.utils.config import (
 from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
 
 
+def whole_batch_inputs(model) -> tuple:
+    """The input keys ``model`` takes whole on every rank (its
+    ``whole_batch_inputs``; none for most models)."""
+    return tuple(getattr(model, "whole_batch_inputs", ()))
+
+
 def init_logger(filename: Path, level: str = "INFO") -> logging.Logger:
     """File + stdout logger (reference utils/train_util.py:91-101)."""
     logger = logging.getLogger(f"ttg_torch.{filename}")
@@ -118,17 +126,10 @@ def init_logger(filename: Path, level: str = "INFO") -> logging.Logger:
     return logger
 
 
-MULTI_DEVICE_ROADMAP = ("ROADMAP.md Queue 1, the runners not yet held on "
-                        "several ranks")
-
-
 class BaseRunner:
     # leave the frozen parameters out of the checkpoints of a masked run
     # (``trainer.save_trainable_only`` overrides it)
     save_trainable_only = False
-    # whether the runner's step is held on several ranks (else it raises
-    # there rather than train each rank on its own rows)
-    multi_device = True
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
@@ -152,10 +153,6 @@ class BaseRunner:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.mesh = mesh_from_config(self.config.get("parallel"), self.device)
-        if self.mesh.size > 1 and not self.multi_device:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs on one rank only, not on the "
-                f"{self.mesh.size} of {self.mesh} ({MULTI_DEVICE_ROADMAP})")
         return self.config
 
     def build_dataloader(self, cfg: dict, shuffle: bool):
@@ -195,13 +192,19 @@ class BaseRunner:
         """Between the backward and the clipping: may change ``grads`` (the
         parameters' ``.grad``) in place.  The default leaves them."""
 
+    def output_rows(self, batch: dict) -> tuple:
+        """The leading dims of the step's output tensors that are the
+        rank's rows of the batch: the batch's own."""
+        return (batch["waveform"].shape[0],)
+
     def _global(self, output: dict, batch: dict):
         """``output`` of the rank's rows as the global batch's (its row
-        tensors gathered over the ``data`` axis when read)."""
+        tensors, by :meth:`output_rows`, gathered over the ``data`` axis
+        when read)."""
         axis = None if self.mesh is None else self.mesh.axis("data")
         if axis is None:
             return output
-        return global_output(output, batch["waveform"].shape[0], axis)
+        return global_output(output, self.output_rows(batch), axis)
 
     def train_step(self, model, loss_fn, optimizer, batch: dict,
                    output_transform: Callable) -> torch.Tensor:
@@ -252,6 +255,7 @@ class BaseRunner:
         self._freeze_mask = freeze_mask_from_model(model)
         ckpt_mask = self._freeze_mask if trainable_only else None
         mesh = self.mesh
+        whole = whole_batch_inputs(model)
         shards = tensor_parallel.shard_model(
             model, mesh, self.config.get("parallel", {}).get("rules"))
         by_param = {model.get_parameter(n): s for n, s in shards.items()}
@@ -331,7 +335,7 @@ class BaseRunner:
                         yield next(train_iter)
 
             for batch, _, real_bs in device_feed(epoch_batches(), mesh,
-                                                 self.device):
+                                                 self.device, whole=whole):
                 profiler.step(iteration)
                 losses.append(self.train_step(
                     model, loss_fn, optimizer, batch, output_transform))
@@ -345,7 +349,8 @@ class BaseRunner:
 
             val_losses = [float(self.val_step(
                 model, loss_fn, batch, output_transform))
-                for batch, _, _ in device_feed(val_loader, mesh, self.device)]
+                for batch, _, _ in device_feed(val_loader, mesh, self.device,
+                                               whole=whole)]
             val_loss = float(np.mean(val_losses))
             record["train_loss"].append(train_loss)
             record["val_loss"].append(val_loss)

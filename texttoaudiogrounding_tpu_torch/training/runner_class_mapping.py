@@ -15,6 +15,15 @@ draws bit for bit), the model mixes the log-mel and the length, the step's
 output transform the labels; ``specaug`` reaches the train steps only.
 ``evaluate_tagging`` gives each class's average precision
 (``evaluation/tagging.py``, NumPy) and writes it as a TSV with ``csv``.
+
+On several ranks (``runner_base.py``) the mixup pairs (rows 2k, 2k + 1)
+stay within a rank, whose row count must then be even (``do_mixup``
+raises otherwise); the mixed outputs and labels have half the rank's rows
+and are gathered as the global batch's (:meth:`ClassMappingWeakRunner.
+output_rows`), SpecAugment's stripes are drawn for the global batch and
+cut to the rank's rows, as dropout's masks are; evaluation forwards each
+rank's rows and gathers them (``eval_forward``), and rank 0 scores and
+writes.
 """
 
 from __future__ import annotations
@@ -25,7 +34,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from texttoaudiogrounding_tpu_torch.data.loader import to_device
 from texttoaudiogrounding_tpu_torch.evaluation.tagging import (
     average_precision,
 )
@@ -85,9 +93,6 @@ class ClassMappingStrongRunner(StrongRunner):
     its mapped class channel."""
 
     output_transform = staticmethod(mapping_strong_output_transform)
-    # one rank: mixup pairs rows across a rank's slice, and the class
-    # channel of each test item is read on the host batch
-    multi_device = False
 
     def eval_tracks(self, output: dict, model, batch: dict) -> list:
         """``frame_sim[idx, :len, text_idx]`` of each item (reference
@@ -128,6 +133,12 @@ class ClassMappingWeakRunner(ClassMappingStrongRunner):
     (reference mapping_to_class/run_weak.py:34-58): ``mixup: true`` and
     ``specaug: true`` at the config's top level."""
 
+    def output_rows(self, batch: dict) -> tuple:
+        """A mixup step's outputs (and mixed labels) have half the rank's
+        rows; the batch's other entries its rows."""
+        rows = batch["waveform"].shape[0]
+        return (rows, rows // 2) if "mixup_lambda" in batch else (rows,)
+
     def fit(self, model, loss_fn, train_loader, val_loader,
             output_transform, exp_dir) -> dict:
         """The base ``fit`` over the loader with mixup coefficients and the
@@ -148,7 +159,9 @@ class ClassMappingWeakRunner(ClassMappingStrongRunner):
         (reference mapping_to_class/run_weak.py:60-103): a table
         ``{"label_index", "ap"}``, 0 for a class without a positive,
         written as a TSV to the eval config's ``output`` in the run's
-        directory where it names one; the weights are the run's best."""
+        directory where it names one; the weights are the run's best.  On
+        several ranks each rank forwards its rows (``eval_forward``) and
+        rank 0 scores and writes; every rank returns the table."""
         eval_config = parse_config_or_kwargs(eval_config, overrides,
                                              **kwargs)
         exp_dir = Path(experiment_path)
@@ -161,19 +174,25 @@ class ClassMappingWeakRunner(ClassMappingStrongRunner):
         probs, labels = [], []
         with torch.no_grad():
             for batch in dataloader:
-                output = model(to_device(batch, self.device))
+                output = self.eval_forward(batch, model)
                 probs.append(output["clip_sim"].float().cpu().numpy())
                 labels.append(np.asarray(batch["label"]))
-        probs = np.concatenate(probs)
-        labels = np.concatenate(labels)
-        result = {"label_index": np.arange(labels.shape[1]),
-                  "ap": average_precision(labels, probs)}
-        out = eval_config.get("output")
-        if out:
-            with open(exp_dir / out, "w", newline="") as f:
-                writer = csv.writer(f, delimiter="\t", lineterminator="\n")
-                writer.writerow(["label_index", "ap"])
-                writer.writerows(zip(result["label_index"].tolist(),
-                                     result["ap"].tolist()))
-        print(f"tagging mAP: {result['ap'].mean():.4f}")
-        return result
+        return self.main_only(_tagging_result, np.concatenate(probs),
+                              np.concatenate(labels), exp_dir,
+                              eval_config.get("output"))
+
+
+def _tagging_result(probs: np.ndarray, labels: np.ndarray, exp_dir: Path,
+                    out: str | None) -> dict:
+    """Each class's average precision, written as a TSV to ``exp_dir /
+    out`` where ``out`` is given."""
+    result = {"label_index": np.arange(labels.shape[1]),
+              "ap": average_precision(labels, probs)}
+    if out:
+        with open(exp_dir / out, "w", newline="") as f:
+            writer = csv.writer(f, delimiter="\t", lineterminator="\n")
+            writer.writerow(["label_index", "ap"])
+            writer.writerows(zip(result["label_index"].tolist(),
+                                 result["ap"].tolist()))
+    print(f"tagging mAP: {result['ap'].mean():.4f}")
+    return result

@@ -52,11 +52,13 @@ from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import (
 )
 from texttoaudiogrounding_tpu_torch.parallel.mesh import (
     device_feed,
-    pad_batch_to_multiple,
-    shard_batch,
+    rank_batch,
 )
 from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
-from texttoaudiogrounding_tpu_torch.training.runner_base import BaseRunner
+from texttoaudiogrounding_tpu_torch.training.runner_base import (
+    BaseRunner,
+    whole_batch_inputs,
+)
 from texttoaudiogrounding_tpu_torch.utils.config import (
     merge_a_into_b,
     parse_config_or_kwargs,
@@ -160,8 +162,7 @@ class StrongRunner(BaseRunner):
         mesh = self.mesh
         if mesh is None or mesh.size == 1:
             return model(self.eval_batch(batch, model))
-        arr, real = pad_batch_to_multiple(batch, mesh.size)
-        local = shard_batch(arr, mesh)
+        local, real = rank_batch(batch, mesh, whole_batch_inputs(model))
         rows = local["waveform"].shape[0]
         axis = mesh.axis("data")
         out = dict(global_output(model(self.eval_batch(local, model)), rows,
@@ -542,7 +543,8 @@ class StrongRunner(BaseRunner):
             model.parameters(),
             self.config.get("trainer", {}).get("max_grad_norm"))
         batch, _, _ = next(device_feed([next(iter(train_loader))], self.mesh,
-                                       self.device))
+                                       self.device,
+                                       whole=whole_batch_inputs(model)))
         losses = []
         for i in range(iters):
             losses.append(float(self.train_step(

@@ -84,9 +84,10 @@ class WeakPhraseSelfSupervisionRunner(WeakPhraseRunner):
     checkpoint.  Each step's output is the batch under the student's
     output with ``label = max(label, teacher clip_sim)`` and
     ``frame_label = teacher frame_sim`` (``ClipFrameBceLoss``'s keys in the
-    config)."""
-
-    multi_device = False
+    config).  On several ranks each rank's teacher runs on the rank's rows
+    with rank 0's weights (broadcast once built), and the loss gathers the
+    fields it overwrote with the student's output (``BaseRunner._global``).
+    """
 
     def build_teacher(self) -> torch.nn.Module:
         cfg = self.config["teacher"]
@@ -97,6 +98,8 @@ class WeakPhraseSelfSupervisionRunner(WeakPhraseRunner):
             self.logger.info(f"teacher loaded from {cfg['checkpoint']}")
         else:
             self.logger.info("teacher: no checkpoint key, fresh init")
+        if self.mesh is not None:
+            self.mesh.broadcast_module(teacher)
         teacher.eval()
         teacher.requires_grad_(False)
         return teacher

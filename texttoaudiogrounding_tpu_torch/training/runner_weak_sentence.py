@@ -14,6 +14,12 @@ every frame: unlike the strong runner's they are not cut to the clip's
 length, as in the JAX runner.  The shipped phrase-wise eval config
 collates the phrase as ``text`` and gives no ``phrases``: its evaluation
 raises ``KeyError: 'phrases'`` here as in the JAX package.
+
+On several ranks (``runner_base.py``) every rank takes the batch's
+captions whole and computes its audio rows' block ``sim [b, B]`` of the
+matrix (``models/align_models.py``); the ranking loss reads the gathered
+``[B, B]``, and evaluation the diagonal of the gathered ``sim_matrix``
+(``eval_forward``).
 """
 
 from __future__ import annotations
@@ -31,10 +37,7 @@ _AGGREGATIONS = {"mean": np.mean, "sum": np.sum, "max": np.max}
 
 
 class WeakSentenceRunner(WeakPhraseRunner):
-    """``WeakSentenceRunner(device).train(config)`` and ``.evaluate``; one
-    rank (its ``[B, B]`` similarity matrix spans the global batch)."""
-
-    multi_device = False
+    """``WeakSentenceRunner(device).train(config)`` and ``.evaluate``."""
 
     def eval_batch(self, batch: dict, model) -> dict:
         return {**to_device(batch, self.device), "output_matrix": True}
