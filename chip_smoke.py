@@ -86,7 +86,12 @@ Phases, each printing one line:
    (``block1_quant="int8"``, the JAX ``TTG_B1_QUANT=1``), each checked the
    same way, the latter's launch counts too, and with block 1 all in int8
    in the single staging (``block1_mode="single"``, the JAX
-   ``TTG_B1_MODE=single``), held to the same contract;
+   ``TTG_B1_MODE=single``), held to the same contract; so are the two
+   routing switches (``SERVING_SWITCHES``), their launches exact: block 1
+   on the plain bf16 path (``block1_pair=False``, the JAX
+   ``TTG_FUSED_B1=0``), the plain frontend under the int8 blocks
+   (``logmel_kernel=False``) and row 1's kernel feeding the f32 model
+   (``logmel_kernel=True``, the JAX ``TTG_PALLAS_FRONTEND=1``);
 4. designs: the JAX package's designs that no shipped model routes, one
    record each in one table: block 1's all-int8 mode in both stagings and
    ``fused_pair_conv_pool`` (with and without conv1, second design
@@ -355,15 +360,36 @@ Phases, each printing one line:
    each fitted by one rank and by two gloo ranks (``data: 2``): the
    phrase- and word-wise sentence configs, the self-supervision config
    (teacher broadcast from rank 0) and both class-mapping configs (mixup
-   and SpecAugment in the weak one), held as (b) holds its fit but with
+   and SpecAugment in the weak one; the weak one also at a global batch
+   of 6, three clips a rank, so that the mixup pair (2, 3) spans the
+   ranks: rank 0 holds two mixed rows, rank 1 one), held as (b) holds
+   its fit but with
    ``MD_RUNNER_GRAD_LIMITS`` on the gradients, row 13 at half the rows on
    each rank; the word-wise run's ``evaluate`` and the weak run's
    ``evaluate_tagging`` on the two ranks against one rank (tracks and
    probabilities within 1e-4); two planted faults, the
    sentence model's text gathered with an own-rows backward and the mixed
-   class-mapping outputs left ungathered, each rejected by the limits.
+   class-mapping outputs left ungathered, each rejected by the limits;
+   the wrappers a rank holding no mixed row calls (rows 11-13, row 12's
+   sums) at no rows: empty outputs, zero sums and gradients, no launch.
    Step ms of (a)-(c) and (f) by CUDA events, the requests' ms by the host
-   clock.
+   clock;
+20. remat: one train step at full width (32 clips x 10 s, cuDNN
+   deterministic) of the f32 strong config and of bf16 routes (b) and (c),
+   with the activations kept, recomputed in the backward for the whole
+   forward (``trainer.remat``, the JAX ``jax.checkpoint``) and for the four
+   conv blocks (``Cnn8Rnn(remat_blocks=[1, 2, 3, 4])``, the JAX
+   ``TTG_TRAIN_REMAT=1234``), and kept once more: each step's loss and
+   dropout generator's state equal to the step without remat, its
+   gradients and running statistics bit for bit or within
+   ``REMAT_REL_RMS`` (1e-6 relative RMS), its launches exact (the
+   recompute reruns rows 1 and 13 / 14 under the whole forward and the
+   blocks' pool kernels, rows 11 and 12, under either), its ms (CUDA
+   events, 5 steps) and peak device memory; then ``StrongRunner.fit`` of
+   the f32 config for 2 epochs of 3 steps under ``CosineWithWarmup`` at
+   ``lr_update_interval: iteration``: every step's rate the schedule's
+   (its formula written in this script), the epoch lines logging the last
+   step's.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1809,6 +1835,18 @@ SERVING_PER_FORWARD = {"logmel": 1, "conv_block1_pair": 1,
                        "conv_block_pair": 1, "conv_block": 2}
 
 
+# the routing switches the serving phase drives: (name, flagship_model
+# arguments, launches per forward)
+SERVING_SWITCHES = (
+    ("block1_plain", {"block1_pair": False},
+     {**SERVING_PER_FORWARD, "conv_block1_pair": 0}),
+    ("frontend_plain", {"logmel_kernel": False},
+     {**SERVING_PER_FORWARD, "logmel": 0}),
+    ("f32_logmel_kernel", {"serving": False, "gru_kernel": False,
+                           "logmel_kernel": True}, {"logmel": 1}),
+)
+
+
 def _request(rng, lens: list) -> tuple:
     """(audio [B, max len] with noise up to each length, B phrases)."""
     import numpy as np
@@ -1983,6 +2021,28 @@ def serving_phase(rng, tok) -> dict:
     hook.remove()
     served.clear()
 
+    # the two routing switches (JAX TTG_FUSED_B1=0 and TTG_PALLAS_FRONTEND)
+    # on the largest request, each held to the contract as the default
+    # path is and its launches exact: block 1 on the plain bf16 path while
+    # blocks 2-4 keep their kernels, the plain frontend under the int8
+    # blocks, and row 1's kernel feeding the f32 model (all else plain)
+    route_launches, route_requests = {}, {}
+    for name, kwargs, per_forward in SERVING_SWITCHES:
+        model_r = flagship_model(device=DEVICE, **kwargs)
+        model_r.load_state_dict(sd)
+        hook = model_r.audio_encoder.register_forward_hook(
+            lambda mod, args, out: served.append((args[0],
+                                                  out["embedding"])))
+        _reset_counts()
+        route_launches[name] = _counts()
+        route_requests[name] = _checked_request(
+            GroundingPredictor(model_r, tok), pred_plain, plain, served,
+            f"{label}, {name}", audio, lens, text, per_forward,
+            route_launches[name])
+        hook.remove()
+        served.clear()
+        del model_r
+
     # steady-state throughput of the largest request, four ways
     paths = {}
     for name, p in (("default", pred), ("gru_kernel", pred_gk),
@@ -2009,6 +2069,7 @@ def serving_phase(rng, tok) -> dict:
             "gru_fwd_bf16_launches": gru_launches,
             "block1_int8_launches": b1_totals,
             "block1_single_launches": single_totals,
+            "switch_launches": route_launches, "switches": route_requests,
             "clips_per_s": paths["default"]["clips_per_s"],
             "largest": label, "paths": paths}, handoff
 
@@ -6869,7 +6930,11 @@ def _md_split_row(dp2: list) -> dict:
 # (f): the sentence-level, self-supervision and class-mapping runners on
 # two gloo ranks, each against one rank's fit on the same global batches
 MD_RUNNER_KINDS = ("sentence_phrase", "sentence_word", "selfsup",
-                   "mapping_weak", "mapping_strong")
+                   "mapping_weak", "mapping_strong", "mapping_weak_b6")
+# mapping_weak_b6: the weak class-mapping fit at a global batch of
+# MD_B6_CLIPS, three clips a rank on two ranks, so that the mixup pair
+# (2, 3) spans the ranks (rank 0 then holds two mixed rows, rank 1 one)
+MD_B6_CLIPS = 6
 MD_RUNNER_STEPS = 2                 # train steps of each run (1 epoch)
 # (f)'s gradient limits (trunk, after it).  On an H100 the one-rank fits'
 # own change under the input scaling MD_WAVE_SCALES[0] reaches 1.60e-2 in
@@ -6918,10 +6983,12 @@ def _md_runner_case(kind: str, work: Path, exp: str) -> tuple:
         cls = ClassMappingStrongRunner if strong else ClassMappingWeakRunner
         label = "strong" if strong else "weak"
         config = _class_mapping_config(label, str(work / exp))
-        items = {"train": _cm_items(label, TRAIN_CLIPS * MD_RUNNER_STEPS,
-                                    33 if strong else 31),
-                 "val": _cm_items(label, TRAIN_CLIPS * CM_VAL_BATCHES,
-                                  34 if strong else 32)}
+        clips, seed = ((MD_B6_CLIPS, 35) if kind == "mapping_weak_b6"
+                       else (TRAIN_CLIPS, 33 if strong else 31))
+        items = {"train": _cm_items(label, clips * MD_RUNNER_STEPS, seed),
+                 "val": _cm_items(label, clips * CM_VAL_BATCHES, seed + 1)}
+        for split in ("train", "val"):
+            config["data"][split]["dataloader_args"]["batch_size"] = clips
     config["trainer"].update(epochs=1, epoch_length=MD_RUNNER_STEPS)
     config["data"]["train"]["dataloader_args"]["num_workers"] = 0
     return cls, config, items
@@ -7001,13 +7068,14 @@ def _md_runner_fit(kind: str, work: Path, exp: str, mesh: dict | None,
     transform = {"selfsup": runner.teacher_transform(teacher)
                  if teacher is not None else None,
                  "mapping_weak": mixup_output_transform,
+                 "mapping_weak_b6": mixup_output_transform,
                  "mapping_strong": mapping_strong_output_transform}.get(
                      kind, weak_output_transform)
     host = next(iter(runner.build_dataloader(config["data"]["val"],
                                              shuffle=False)))
-    if kind == "mapping_weak":
+    if kind.startswith("mapping_weak"):
         host = {**host, "mixup_lambda": _mixup_lambdas(
-            np.random.RandomState(7), TRAIN_CLIPS)}
+            np.random.RandomState(7), len(host["waveform"]))}
     batch, _, _ = next(device_feed([host], runner.mesh, runner.device,
                                    whole=whole_batch_inputs(model)))
     step_ms = _cuda_ms(lambda: runner.train_step(
@@ -7031,6 +7099,65 @@ def _md_runner_want(kind: str) -> dict:
     forwards = 2 if kind == "selfsup" else 1
     return _want(gru_fwd=forwards * (MD_RUNNER_STEPS + vals),
                  gru_bwd=MD_RUNNER_STEPS)
+
+
+def _md_gru_rows(kind: str, rank: int | None = None) -> list:
+    """The (train mode, rows) calls of the BiGRU in ``kind``'s fit: on one
+    rank (``rank`` None) or on ``rank`` of two.  The weak class-mapping
+    fits mix rows 2k and 2k + 1 of the global batch before the conv
+    blocks, each rank the pairs whose even row it holds."""
+    clips = MD_B6_CLIPS if kind == "mapping_weak_b6" else TRAIN_CLIPS
+    ranks, r = (1, 0) if rank is None else (2, rank)
+    rows = clips // ranks
+    train = rows
+    if kind.startswith("mapping_weak"):
+        first, end = r * rows, (r + 1) * rows
+        train = len([k for k in range(clips // 2) if first <= 2 * k < end])
+    return sorted({(True, train), (False, rows)})
+
+
+def _md_no_rows() -> dict:
+    """The wrappers a rank holding no mixed row calls (rows 11-13 and row
+    12's sums, with the mixed rows' shapes at B = 0 on the card): each
+    returns its empty output, zero sums and zero weight gradients, and
+    launches nothing."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.ops.kernels import (
+        bn_pool, dual_pool, gru)
+
+    dev = torch.device(DEVICE)
+    out = {}
+    _reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        proj = torch.zeros(250, 0, 768, device=dev, requires_grad=True)
+        wh = torch.randn(2, 256, 768, device=dev, requires_grad=True)
+        bn = torch.randn(2, 256, device=dev, requires_grad=True)
+        ys = gru.bigru_trainable(proj, wh, bn, dtype)
+        ys.sum().backward()
+        out[f"gru_{dtype}"] = {
+            "ys": list(ys.shape), "grads_zero": all(
+                not bool(t.grad.any()) for t in (proj, wh, bn))}
+        if tuple(ys.shape) != (250, 0, 256) or not out[f"gru_{dtype}"][
+                "grads_zero"]:
+            raise AssertionError(f"(f) no rows: BiGRU {out}")
+    x = torch.zeros(0, 1001, 64, 64, dtype=torch.bfloat16, device=dev)
+    g = torch.zeros(0, 500, 32, 64, dtype=torch.bfloat16, device=dev)
+    c = torch.ones(64, device=dev)
+    sums = bn_pool.batch_sums(x) + bn_pool.bn_pool_bwd_sums(
+        x, g, c, c, c, c, (2, 2))
+    shapes = [bn_pool.bn_pool_fwd(x, c, c, (2, 2)).shape,
+              bn_pool.bn_pool_bwd_apply(x, g, c, c, c, c, (2, 2), c, c,
+                                        1).shape,
+              dual_pool.dual_pool_fwd(x, (2, 2)).shape,
+              dual_pool.dual_pool_bwd(x, g, (2, 2)).shape]
+    torch.cuda.synchronize()
+    out["pools"] = [list(s_) for s_ in shapes]
+    out["launches"] = _nonzero(_counts())
+    if (any(bool(t.any()) for t in sums) or out["launches"]
+            or out["pools"] != [[0, 500, 32, 64], [0, 1001, 64, 64]] * 2):
+        raise AssertionError(f"(f) no rows: {out}, sums {sums}")
+    return out
 
 
 def _md_runner_evals(work: Path, sentence_exp: str, tagging_exp: str,
@@ -7190,11 +7317,8 @@ def _md_runners_part(work: Path, teacher: Path) -> tuple:
     for kind in MD_RUNNER_KINDS:
         one = ref[kind]
         want = _md_runner_want(kind)
-        rows = {train: TRAIN_CLIPS // (2 if train and kind == "mapping_weak"
-                                       else 1)
-                for train in (True, False)}
-        if one["launches"] != want or one["gru_calls"] != sorted(
-                rows.items()):
+        if one["launches"] != want or one["gru_calls"] != _md_gru_rows(
+                kind):
             raise AssertionError(f"(f) {kind} one rank: launches "
                                  f"{_nonzero(one['launches'])}, BiGRU calls "
                                  f"{one['gru_calls']}")
@@ -7216,9 +7340,8 @@ def _md_runners_part(work: Path, teacher: Path) -> tuple:
             first = {k: v for k, v in got["first"].items() if k != "running"}
             trunk, rest = _md_grads_close(label, first, ref_first,
                                           MD_RUNNER_GRAD_LIMITS)
-            half = {t: n // 2 for t, n in rows.items()}
-            if got["launches"] != want or got["gru_calls"] != sorted(
-                    half.items()) or got["mesh"] != {"data": 2}:
+            if got["launches"] != want or got["gru_calls"] != _md_gru_rows(
+                    kind, r) or got["mesh"] != {"data": 2}:
                 raise AssertionError(f"{label}: launches "
                                      f"{_nonzero(got['launches'])}, BiGRU "
                                      f"calls {got['gru_calls']}, mesh "
@@ -7300,6 +7423,7 @@ def _md_runners_part(work: Path, teacher: Path) -> tuple:
         faults[name] = {"step_loss": got["step_loss"], **gaps,
                         "rejected_by": rejected, "required": required}
     report["faults"] = faults
+    report["no_rows"] = _md_no_rows()
     return report, by_path
 
 
@@ -7675,6 +7799,257 @@ def _ptxas(source: str) -> list:
     return out
 
 
+# The remat phase: one train step at full width with the activations kept
+# ("off"), recomputed in the backward for the whole forward ("whole":
+# trainer.remat, JAX jax.checkpoint) and for the four conv blocks
+# ("blocks": Cnn8Rnn remat_blocks, JAX TTG_TRAIN_REMAT=1234), and "off"
+# once more ("off_again"), the yardstick of what a rerun of the same step
+# moves, on the f32 strong step and bf16 routes (b) and (c).
+REMAT_ROUTES = {"f32": {},
+                "b_bn_pool_gru_bf16": BF16_ROUTES["b_bn_pool_gru_bf16"],
+                "c_pool_vjp_gru_bf16": BF16_ROUTES["c_pool_vjp_gru_bf16"]}
+REMAT_VARIANTS = {"off": ({}, False), "whole": ({}, True),
+                  "blocks": ({"remat_blocks": [1, 2, 3, 4]}, False),
+                  "off_again": ({}, False)}
+# a gradient or running statistic of a remat step against the step without:
+# bit for bit, or within this relative RMS where a kernel sums in another
+# order from one call to the next
+REMAT_REL_RMS = 1e-6
+REMAT_TIMED_STEPS = 5
+# the per-iteration schedule of the remat phase's fit: 2 epochs of 3 steps
+REMAT_COSINE = {"type": "CosineWithWarmup",
+                "args": {"base_lr": 1e-3, "warmup_iters": 2,
+                         "total_iters": 6, "final_lr_ratio": 0.1}}
+
+
+def _remat_want(route: str, variant: str) -> dict:
+    """The launches of one train step: the recompute reruns the forward's
+    kernels, row 1 and row 13 (or 14) under the whole forward and the conv
+    blocks' pool kernels (rows 11, 12 and row 12's statistics) under
+    either; the backwards run once."""
+    again = int(variant == "whole")
+    if route == "f32":
+        return _want(gru_fwd=1 + again, gru_bwd=1)
+    pools = 4 * (1 + int(variant in ("whole", "blocks")))
+    counts = {"logmel": 1 + again, "gru_fwd_bf16": 1 + again,
+              "gru_bwd_bf16": 1}
+    if route.startswith("b_"):
+        counts.update(bn_pool_fwd=pools, bn_pool_stats=pools, bn_pool_bwd=4)
+    else:
+        counts.update(dual_pool_fwd=pools, dual_pool_bwd=4)
+    return _want(**counts)
+
+
+def _remat_gaps(got: dict, ref: dict) -> dict:
+    """Of ``got``'s tensors against ``ref``'s: how many differ in a bit,
+    and the largest relative RMS (0 where all are equal)."""
+    import torch
+    if set(got) != set(ref):
+        raise AssertionError(f"remat: tensors {sorted(set(got) ^ set(ref))} "
+                             "on one side only")
+    differ, worst = [], 0.0
+    for name, r in ref.items():
+        g = got[name]
+        if torch.equal(g, r):
+            continue
+        differ.append(name)
+        g, r = g.double(), r.double()
+        worst = max(worst, float(torch.sqrt(
+            ((g - r) ** 2).mean() / (r ** 2).mean().clamp_min(1e-30))))
+    return {"differ": len(differ), "of": len(ref), "rel_rms_max": worst,
+            "first_differing": differ[:4]}
+
+
+def _remat_step(runner, config: dict, sd: dict, batch: dict, loss_fn,
+                variant: str) -> dict:
+    """One train step of ``variant`` from ``sd`` and a fresh optimizer, the
+    counts set to 0 just before: its loss, gradients, running statistics,
+    the dropout generator's state after and the launches; then the step's
+    ms (CUDA events, ``REMAT_TIMED_STEPS`` steps) and the peak memory."""
+    import copy
+
+    import torch
+
+    from texttoaudiogrounding_tpu_torch.training.optim import Optimizer
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        strong_output_transform)
+    from texttoaudiogrounding_tpu_torch.utils.registry import instantiate
+
+    extra, whole = REMAT_VARIANTS[variant]
+    runner.config["trainer"]["remat"] = whole
+    model_cfg = copy.deepcopy(config["model"])
+    model_cfg["audio_encoder"]["args"].update(extra)
+    torch.manual_seed(config["seed"])
+    model = instantiate(model_cfg, device=DEVICE)
+    model.load_state_dict(sd)
+    opt = Optimizer(config["optimizer"], model.parameters(), 1.0)
+    grads: dict = {}
+
+    def capture(loss, _grads):
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+
+    runner.post_grad_hook = capture
+
+    def step():
+        return runner.train_step(model, loss_fn, opt, batch,
+                                 strong_output_transform)
+
+    _reset_counts()
+    loss = step()
+    torch.cuda.synchronize()
+    launches = _counts()
+    out = {"loss": float(loss), "grads": grads, "launches": launches,
+           "stats": {n: b.detach().clone() for n, b in model.named_buffers()
+                     if "running" in n},
+           "generator": model.audio_encoder._generator.get_state()}
+    runner.post_grad_hook = lambda *a: None
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out["step_ms"] = _cuda_ms(step, REMAT_TIMED_STEPS)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_above_state_bytes"] = out["peak_bytes"] - before
+    runner.config["trainer"]["remat"] = False
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_schedule_fit(tok, work: Path) -> dict:
+    """``StrongRunner.fit`` of the f32 strong config for 2 epochs of 3
+    steps with ``REMAT_COSINE`` at ``lr_update_interval: iteration``: every
+    step's rate must be the schedule's at that step (from 0), written
+    here as its formula, and the epoch lines must log the last step's;
+    row 13 once each way a train step and once a validation batch."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner, strong_output_transform)
+
+    runner = StrongRunner(device=DEVICE)
+    config = _strong_config(str(work / "remat_cosine"))
+    config["lr_scheduler"] = REMAT_COSINE
+    config["trainer"].update(epochs=2, epoch_length=3,
+                             lr_update_interval="iteration")
+    config = runner.setup(config)
+    exp_dir = runner.prepare_experiment()
+    train_loader, val_loader = _loaders(tok, config["seed"])
+    model = runner.build_model()
+    model.load_state_dict(random_state_dict(model, seed=1))
+    _reset_counts()
+    record = runner.fit(model, runner.build_loss(), train_loader, val_loader,
+                        strong_output_transform, exp_dir)
+    torch.cuda.synchronize()
+    launches = _counts()
+    a = REMAT_COSINE["args"]
+
+    def rule(i):
+        if i < a["warmup_iters"]:
+            return a["base_lr"] * (i + 1) / a["warmup_iters"]
+        p = min((i - a["warmup_iters"]) / (a["total_iters"]
+                                           - a["warmup_iters"]), 1.0)
+        return a["base_lr"] * (a["final_lr_ratio"] + (
+            1 - a["final_lr_ratio"]) * 0.5 * (1 + math.cos(math.pi * p)))
+
+    want_lr = [rule(i) for i in range(6)]
+    got_lr = record["step_lr"]
+    logged = [line.split("lr: ")[1].split()[0] for line in (
+        exp_dir / "train.log").read_text().splitlines() if "lr: " in line]
+    want = _want(gru_fwd=6 + 2 * VAL_STEPS, gru_bwd=6)
+    if len(got_lr) != 6 or not np.allclose(got_lr, want_lr, rtol=1e-12,
+                                           atol=0):
+        raise AssertionError(f"remat: the per-iteration rates {got_lr}, "
+                             f"the schedule's {want_lr}")
+    if logged != [f"{want_lr[i]:.2g}" for i in (2, 5)]:
+        raise AssertionError(f"remat: the epoch lines log the rates "
+                             f"{logged}, not the epochs' last steps'")
+    if launches != want or not np.isfinite(record["step_loss"]).all():
+        raise AssertionError(f"remat: the scheduled fit launched "
+                             f"{_nonzero(launches)}, losses "
+                             f"{record['step_loss']}")
+    return {"step_lr": got_lr, "schedule_lr": want_lr, "logged_lr": logged,
+            "step_loss": record["step_loss"], "launches": launches,
+            "launches_nonzero": _nonzero(launches)}
+
+
+def remat_phase(tok, work: Path) -> tuple:
+    """The f32 strong step and bf16 routes (b) and (c) at full width, one
+    batch of 32 x 10 s, cuDNN deterministic: each remat variant's loss,
+    gradients, running statistics and generator state against the step
+    without (bit for bit or within ``REMAT_REL_RMS``), its launches exact
+    (``_remat_want``), its step ms and peak memory; then the scheduled fit
+    (``_remat_schedule_fit``).  Raises on any miss."""
+    import torch
+
+    from texttoaudiogrounding_tpu_torch import random_state_dict
+    from texttoaudiogrounding_tpu_torch.data.loader import to_device
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner)
+
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    report: dict = {"clips": TRAIN_CLIPS, "clip_s": CLIP_S,
+                    "rel_rms_limit": REMAT_REL_RMS,
+                    "timed_steps": REMAT_TIMED_STEPS, "routes": {}}
+    paths: dict = {}
+    try:
+        _, val_loader = _loaders(tok, 1)
+        batch = to_device(next(iter(val_loader)), torch.device(DEVICE))
+        for route, args in REMAT_ROUTES.items():
+            runner = StrongRunner(device=DEVICE)
+            config = runner.setup(_strong_config(str(work / "remat"),
+                                                 **args))
+            model = runner.build_model()
+            sd = random_state_dict(model, seed=1)
+            del model
+            loss_fn = runner.build_loss()
+            runs = {v: _remat_step(runner, config, sd, batch, loss_fn, v)
+                    for v in REMAT_VARIANTS}
+            ref = runs["off"]
+            entry = {}
+            for variant, run in runs.items():
+                label = f"remat {route} {variant}"
+                want = _remat_want(route, variant)
+                if run["launches"] != want:
+                    raise AssertionError(
+                        f"{label}: launches {_nonzero(run['launches'])}, "
+                        f"expected {_nonzero(want)}")
+                grads = _remat_gaps(run["grads"], ref["grads"])
+                stats = _remat_gaps(run["stats"], ref["stats"])
+                same_gen = torch.equal(run["generator"], ref["generator"])
+                if (run["loss"] != ref["loss"] or not same_gen
+                        or grads["rel_rms_max"] > REMAT_REL_RMS
+                        or stats["rel_rms_max"] > REMAT_REL_RMS):
+                    raise AssertionError(
+                        f"{label}: loss {run['loss']} (off {ref['loss']}), "
+                        f"generator state equal {same_gen}, gradients "
+                        f"{grads}, running statistics {stats}")
+                entry[variant] = {
+                    "loss": run["loss"], "grads": grads, "stats": stats,
+                    "step_ms": run["step_ms"],
+                    "peak_gib": run["peak_bytes"] / 2 ** 30,
+                    "peak_above_state_gib":
+                        run["peak_above_state_bytes"] / 2 ** 30,
+                    "launches": _nonzero(run["launches"])}
+                paths[f"remat_{route}_{variant}"] = run["launches"]
+            report["routes"][route] = entry
+            del runs, ref, sd
+            torch.cuda.empty_cache()
+        report["schedule"] = _remat_schedule_fit(tok, work)
+        paths["remat_schedule"] = report["schedule"]["launches"]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    report["phase_s"] = time.perf_counter() - t0
+    return report, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -7753,6 +8128,7 @@ def main() -> int:
                       "clips_per_s": serving["clips_per_s"],
                       "largest": serving["largest"],
                       "requests": serving["requests"],
+                      "switches": serving["switches"],
                       "paths": {k: {"clips_per_s": v["clips_per_s"],
                                     "launches": v["trace"]["launches"],
                                     "device_idle_share":
@@ -7931,6 +8307,11 @@ def main() -> int:
                       "limits": multi["limits"], "e": multi["e"],
                       "f": multi["f"]},
                      default=str), flush=True)
+    remat, remat_paths = remat_phase(tok, work)
+    report["remat"] = remat
+    print(json.dumps({"phase": "remat", "card": smi, **remat, "schedule": {
+        k: v for k, v in remat["schedule"].items() if k != "launches"}}),
+        flush=True)
     work_dir.cleanup()
 
     # launches on each path, counted from zero just before it
@@ -7938,6 +8319,8 @@ def main() -> int:
                            serving["gru_fwd_bf16_launches"]},
                "serving_block1_int8": serving["block1_int8_launches"],
                "serving_block1_single": serving["block1_single_launches"],
+               **{f"serving_{k}": v
+                  for k, v in serving["switch_launches"].items()},
                "designs": design_launches,
                "train": train["fit_launches"],
                "train_bf16": train16["fit_launches"],
@@ -7970,7 +8353,7 @@ def main() -> int:
                "zoo_rnn_encoder_split": zoo["rnn_encoder_split"]["launches"],
                **{f"zoo_gru_plan_{k}": v["launches"]
                   for k, v in zoo["gru_plans"].items()},
-               **multi_paths}
+               **multi_paths, **remat_paths}
     for row in kernels:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c.get(counter, 0)

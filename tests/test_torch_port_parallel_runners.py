@@ -33,8 +33,12 @@ classes.  Tolerances:
 * the ragged phrase feed (``parallel/mesh.py:rank_batch``), SpecAugment's
   stripes and the self-supervision teacher's weights after its broadcast
   (each rank drew its own): exact;
-* mixup over two clips on two ranks raises (a pair would span the
-  ranks; ``ROADMAP.md`` Queue 3), where one rank mixes them.
+* mixup whose pairs span the two ranks, against one rank: a train-mode
+  forward of 2 clips (one a rank; one rank then holds the mixed row, the
+  other none) within 1e-6 absolute, and the weak class-mapping step at
+  B = 6 (three rows a rank) to the dp2 limits above;
+* the strong step on dp2 under ``trainer.remat`` against dp2 without it:
+  bit for bit.
 """
 
 import flax.linen as fnn
@@ -266,15 +270,69 @@ def test_teacher_weights_are_rank_zeros_on_every_rank(dp2, one_rank):
             assert torch.equal(rank["selfsup"]["teacher"][name], value), name
 
 
+def _steps_match(got: dict, ref: dict) -> None:
+    """dp2's train steps against one rank's, to the dp2 limits."""
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=2e-4)
+    assert set(got["grads"]) == set(ref["grads"])
+    for name, g in ref["grads"].items():
+        assert _rel(got["grads"][name], g) <= 1e-5, name
+    for name, s in ref["first_stats"].items():
+        np.testing.assert_allclose(got["first_stats"][name], s, rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
 @pytest.mark.timeout(300)
 def test_mixup_of_a_pair_across_ranks_raises(dp2, one_rank):
-    assert one_rank["odd_mixup"] == (1, ranks.CLASSES)
+    """The name is the one of the check it replaces (a pair spanning two
+    ranks used to raise): such a pair is now mixed as one rank mixes it.
+    The 2-clip forward: rank 0 holds the one mixed row, rank 1 none; the
+    weak class-mapping step at B = 6: two mixed rows on rank 0, one on
+    rank 1."""
+    ref = one_rank["odd_mixup"]
+    assert ref["clip_sim"].shape == (1, ranks.CLASSES)
+    assert [rank["odd_mixup"]["clip_sim"].shape[0] for rank in dp2] == [1, 0]
+    for key, value in ref.items():
+        got = torch.cat([rank["odd_mixup"][key] for rank in dp2])
+        np.testing.assert_allclose(got, value, rtol=0, atol=1e-6,
+                                   err_msg=key)
     for rank in dp2:
-        assert isinstance(rank["odd_mixup"], str)
-        assert "ROADMAP.md Queue 3" in rank["odd_mixup"]
+        _steps_match(rank["mapping_weak_b6"], one_rank["mapping_weak_b6"])
+    for name in one_rank["mapping_weak_b6"]["stats"]:
+        assert torch.equal(dp2[0]["mapping_weak_b6"]["stats"][name],
+                           dp2[1]["mapping_weak_b6"]["stats"][name]), name
+
+
+@pytest.mark.timeout(300)
+def test_dp2_remat_step_matches_dp2(dp2):
+    """``trainer.remat`` recomputes the forward, its global BatchNorm sums
+    and gathers included, in the backward: the losses, first gradients
+    and running statistics of dp2 without it, bit for bit."""
+    for rank in dp2:
+        plain, remat = rank["strong_remat_False"], rank["strong_remat_True"]
+        assert remat["losses"] == plain["losses"]
+        for key in ("grads", "first_stats", "stats"):
+            assert set(remat[key]) == set(plain[key])
+            for name, value in plain[key].items():
+                assert torch.equal(remat[key][name], value), (key, name)
 
 
 @pytest.mark.timeout(300)
 def test_ranks_import_no_jax(dp2):
     for rank in dp2:
         assert rank["jax_modules"] == []
+
+
+def test_a_rank_with_no_mixed_row_runs_the_gru():
+    """A rank that holds no mixed row (``kernel_shard.mixup_rows``) runs
+    the trainable BiGRU on no rows: an empty output and zero gradients
+    (exact), in f32 and bf16, so that every rank's gradients sum alike."""
+    from texttoaudiogrounding_tpu_torch.ops.kernels import gru
+    for dtype in (torch.float32, torch.bfloat16):
+        proj = torch.zeros(5, 0, 24, requires_grad=True)
+        wh = torch.randn(2, 8, 24, requires_grad=True)
+        bn = torch.randn(2, 8, requires_grad=True)
+        ys = gru.bigru_trainable(proj, wh, bn, dtype)
+        assert ys.shape == (5, 0, 8) and ys.dtype == torch.float32
+        ys.sum().backward()
+        for t in (proj, wh, bn):
+            assert t.grad is not None and not t.grad.any()

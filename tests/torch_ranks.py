@@ -505,7 +505,9 @@ def runners(mesh_shape: dict | None = None, f64_stats: bool = True,
     """Two train steps of each of the four runners' steps on seeded
     batches under ``mesh_shape`` (None: one rank), with their outputs of
     an evaluation forward, the self-supervision teacher's weights after
-    its broadcast, SpecAugment's stripes and the odd-slice mixup case;
+    its broadcast, SpecAugment's stripes, the mixup cases whose pairs span
+    two ranks (a forward of 2 clips, the weak class-mapping step at
+    B = 6) and the strong step with and without ``trainer.remat``;
     ``word_jax`` is one word-wise step from ``word_weights`` (a state
     dict file) with dropout off, for the JAX comparison."""
     from texttoaudiogrounding_tpu_torch.models import layers
@@ -543,6 +545,7 @@ def _runner_cases(mesh, f64_stats: bool) -> dict:
     from texttoaudiogrounding_tpu_torch.losses import (
         ClipBceLoss,
         ClipFrameBceLoss,
+        FrameBceLoss,
         MaskedFrameBceLoss,
         MaxMarginRankingLoss,
         RandomTripletLoss,
@@ -559,6 +562,10 @@ def _runner_cases(mesh, f64_stats: bool) -> dict:
         _mixup_lambdas,
         mapping_strong_output_transform,
         mixup_output_transform,
+    )
+    from texttoaudiogrounding_tpu_torch.training.runner_strong import (
+        StrongRunner,
+        strong_output_transform,
     )
     from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
         WeakPhraseSelfSupervisionRunner,
@@ -637,17 +644,40 @@ def _runner_cases(mesh, f64_stats: bool) -> dict:
         rows = kernel_shard.global_rows(4 // (mesh.axis_size("data")))
         out["stripes"] = rank_stripes(spec_augment_stripes(gen, rows, 21,
                                                            64))
-    # mixup over two clips: one row a rank on two ranks
+    # mixup over two clips: one row a rank on two ranks, the pair spanning
+    # them (one rank holds the mixed row, the other none)
     m = _tagging((0.0, 0.0))
+    m.load_state_dict(random_state_dict(m, 6))
     m.train()
     host = _mapping_batches(1, 2, False, seed=22)[0]
     host["mixup_lambda"] = np.array([0.3, 0.7], np.float32)
     batch, _, _ = next(device_feed([host], mesh, "cpu"))
-    try:
-        with kernel_shard.data_parallel(mesh):
-            out["odd_mixup"] = tuple(m(batch)["clip_sim"].shape)
-    except ValueError as err:
-        out["odd_mixup"] = str(err)
+    with torch.no_grad(), kernel_shard.data_parallel(mesh):
+        forward = m(batch)
+    out["odd_mixup"] = {k: forward[k].clone() for k in ("clip_sim",
+                                                        "length")}
+    # the weak class-mapping step at B = 6: three rows a rank on two
+    # ranks, the pair (2, 3) spanning them
+    torch.manual_seed(1)
+    m = _tagging((0.2, 0.5))
+    m.load_state_dict(random_state_dict(m, 4))
+    runner = _runner(ClassMappingWeakRunner, mesh)
+    runner.static_train_inputs = {"specaug": True}
+    host = _mapping_batches(2, 6, False, seed=23)
+    mix = np.random.RandomState(1236)
+    for batch in host:
+        batch["mixup_lambda"] = _mixup_lambdas(mix, 6)
+    out["mapping_weak_b6"] = _fit_steps(runner, m, ClipBceLoss(),
+                                        mixup_output_transform, host)
+    # the strong step with and without trainer.remat
+    for remat in (False, True):
+        torch.manual_seed(1)
+        m = model()
+        runner = _runner(StrongRunner, mesh)
+        runner.config = {"trainer": {"remat": remat}}
+        out[f"strong_remat_{remat}"] = _fit_steps(
+            runner, m, FrameBceLoss(), strong_output_transform,
+            batches(2, seed=24))
     return out
 
 

@@ -26,6 +26,16 @@ The JAX package picks its kernels with environment variables
   all in int8) or ``"bf16"`` (``0``), and ``block1_mode`` that of
   ``TTG_B1_MODE``: ``"triple"`` (the default) or ``"single"``.
 
+Three more switches of the JAX environment are arguments here:
+``logmel_kernel`` is ``TTG_PALLAS_FRONTEND`` (True / False force the
+log-mel kernel on or off; None, the default, takes it in bf16 only);
+``block1_pair=False`` is ``TTG_FUSED_B1=0`` (in serving, block 1 leaves its
+pair kernel for the plain path, in bf16 with the running statistics,
+while blocks 2-4 keep theirs); ``remat_blocks`` is ``TTG_TRAIN_REMAT``
+(the ids, 1-4, of the conv blocks whose activations the train step
+recomputes in its backward, ``models/remat.py``; the dropout after a
+block stays outside it, as in JAX).
+
 ``bn_pool`` and ``pool_vjp`` list the out-channels of the blocks that run
 the pool kernels (``ConvBlock``); ``gru_bwd`` is ``BiGRU``'s ``bwd``:
 ``"bf16"`` picks the bf16 trainable GRU, ``"v2"`` / ``"v3"`` the hoisted
@@ -72,6 +82,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
     spec_augment,
     spec_augment_stripes,
 )
+from texttoaudiogrounding_tpu_torch.models.remat import checkpointed
 from texttoaudiogrounding_tpu_torch.ops.frontend import (
     cdur_mel_config,
     cnn8rnn_mel_config,
@@ -99,10 +110,16 @@ class Cnn8Rnn(_Encoder):
                  bn_pool: tuple = (), pool_vjp: tuple = (),
                  gru_bwd: str | None = None, freeze_cnn: bool = False,
                  freeze_bn: bool = False, block1_quant: str = "conv1",
-                 block1_tc: int = 48, block1_mode: str = "triple"):
+                 block1_tc: int = 48, block1_mode: str = "triple",
+                 logmel_kernel: bool | None = None, block1_pair: bool = True,
+                 remat_blocks: tuple = ()):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError("dtype must be torch.float32 or torch.bfloat16")
+        if not set(remat_blocks) <= {1, 2, 3, 4}:
+            raise ValueError("remat_blocks lists conv block ids 1-4")
+        self.logmel_kernel = logmel_kernel
+        self.remat_blocks = tuple(remat_blocks)
         if conv_mode is not None and dtype != torch.bfloat16:
             raise ValueError("the serving kernels (conv_mode 'bf16' or "
                              "'int8') run with dtype=bfloat16")
@@ -117,7 +134,8 @@ class Cnn8Rnn(_Encoder):
             setattr(self, f"conv_block{i}", ConvBlock(
                 cin, cout, conv_mode, bn_pool=cout in bn_pool,
                 pool_vjp=cout in pool_vjp, block1_quant=block1_quant,
-                block1_tc=block1_tc, block1_mode=block1_mode))
+                block1_tc=block1_tc, block1_mode=block1_mode,
+                pair_kernel=block1_pair or i > 1))
         self.fc1 = nn.Linear(512, 512)
         self.rnn = BiGRU(512, 256, dtype=dtype, kernel=gru_kernel,
                          bwd=gru_bwd)
@@ -129,7 +147,9 @@ class Cnn8Rnn(_Encoder):
         bn_train = train and not self.freeze_bn
         if train and self.conv_mode is not None:
             raise ValueError("training runs the plain path: conv_mode=None")
-        if self.dtype == torch.bfloat16:       # the kernel (frontend.py:229)
+        kernel = (self.dtype == torch.bfloat16 if self.logmel_kernel is None
+                  else self.logmel_kernel)
+        if kernel:                             # the kernel (frontend.py:229)
             x = fused_log_mel_spectrogram(waveform, cfg)    # [B, T, 64]
         else:
             x = log_mel_spectrogram(waveform, cfg)
@@ -146,8 +166,12 @@ class Cnn8Rnn(_Encoder):
         x = x[..., None].to(self.dtype)                     # [B, T, 64, 1]
         p_block, p_mean = self.dropout if train else (0.0, 0.0)
         for i, (_, _, pool) in enumerate(_BLOCKS, start=1):
-            x = dropout(getattr(self, f"conv_block{i}")(x, pool, bn_train),
-                        p_block, gen)
+            block = getattr(self, f"conv_block{i}")
+            if train and i in self.remat_blocks:
+                x = checkpointed(block, x, pool, bn_train)
+            else:
+                x = block(x, pool, bn_train)
+            x = dropout(x, p_block, gen)
         # mean over mel in the blocks' dtype (f32 sum, as jnp.mean)
         x = x.float().mean(dim=2).to(self.dtype)            # [B, T/4, 512]
         x = dropout(x, p_mean, gen)

@@ -271,18 +271,23 @@ class AudioTagging(nn.Module):
 def grounding_cnn8rnn(serving: bool, sample_rate: int = 32000,
                       gru_kernel: bool | None = None,
                       block1_quant: str = "conv1", block1_tc: int = 48,
-                      block1_mode: str = "triple") -> Cnn8Rnn:
+                      block1_mode: str = "triple",
+                      logmel_kernel: bool | None = None,
+                      block1_pair: bool = True) -> Cnn8Rnn:
     """The grounding models' ``Cnn8Rnn`` audio tower: with ``serving`` the
     int8 serving path (bf16 dtype, int8 conv blocks, the JAX recipe's
     ``TTG_FUSED_CONV=int8``), else the f32 path; ``gru_kernel`` as in
-    ``BiGRU``; ``block1_quant``, ``block1_tc`` and ``block1_mode`` as in
-    ``Cnn8Rnn`` (the JAX ``TTG_B1_QUANT`` / ``TTG_B1_TC`` /
-    ``TTG_B1_MODE``, read only by the serving path)."""
+    ``BiGRU``; ``block1_quant``, ``block1_tc``, ``block1_mode`` and
+    ``block1_pair`` as in ``Cnn8Rnn`` (the JAX ``TTG_B1_QUANT`` /
+    ``TTG_B1_TC`` / ``TTG_B1_MODE`` / ``TTG_FUSED_B1``, read only by the
+    serving path), and ``logmel_kernel`` (``TTG_PALLAS_FRONTEND``)."""
     if serving:
         return Cnn8Rnn(sample_rate, dtype=torch.bfloat16, conv_mode="int8",
                        gru_kernel=gru_kernel, block1_quant=block1_quant,
-                       block1_tc=block1_tc, block1_mode=block1_mode)
-    return Cnn8Rnn(sample_rate, gru_kernel=gru_kernel)
+                       block1_tc=block1_tc, block1_mode=block1_mode,
+                       logmel_kernel=logmel_kernel, block1_pair=block1_pair)
+    return Cnn8Rnn(sample_rate, gru_kernel=gru_kernel,
+                   logmel_kernel=logmel_kernel)
 
 
 def flagship_model(serving: bool = True, device="cuda",
@@ -291,16 +296,21 @@ def flagship_model(serving: bool = True, device="cuda",
                    gru_kernel: bool | None = None,
                    block1_quant: str = "conv1",
                    block1_tc: int = 48,
-                   block1_mode: str = "triple") -> BiEncoder:
+                   block1_mode: str = "triple",
+                   logmel_kernel: bool | None = None,
+                   block1_pair: bool = True) -> BiEncoder:
     """The flagship grounding model (the JAX package's
     ``__graft_entry__._flagship_model``): ``BiEncoder(Cnn8Rnn,
     EmbeddingAgg(5000, 512), DotProduct, shared_dim=512, add_proj=True)``.
     The audio tower is :func:`grounding_cnn8rnn`'s, whose arguments
-    ``serving``, ``gru_kernel`` and ``block1_*`` are (``gru_kernel=False``
-    with ``serving=False`` is the all-plain path)."""
+    ``serving``, ``gru_kernel``, ``block1_*`` and ``logmel_kernel`` are
+    (``gru_kernel=False`` with ``serving=False`` is the all-plain
+    path)."""
     audio = grounding_cnn8rnn(serving, gru_kernel=gru_kernel,
                               block1_quant=block1_quant,
-                              block1_tc=block1_tc, block1_mode=block1_mode)
+                              block1_tc=block1_tc, block1_mode=block1_mode,
+                              logmel_kernel=logmel_kernel,
+                              block1_pair=block1_pair)
     return BiEncoder(audio, EmbeddingAgg(vocab_size, embed_dim),
                      DotProduct(), shared_dim=shared_dim, add_proj=True,
                      device=device)

@@ -15,10 +15,13 @@ state-dict names follow the reference torch modules (``conv1.weight`` is
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from texttoaudiogrounding_tpu_torch.models import remat
 from texttoaudiogrounding_tpu_torch.ops.kernels import (
     conv_block1_pair,
     conv_block_wino,
@@ -99,7 +102,11 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
 
 def update_running(bn: nn.BatchNorm1d | nn.BatchNorm2d, mean: torch.Tensor,
                    var: torch.Tensor) -> None:
-    """flax's running-statistics rule: ``0.9 · running + 0.1 · batch``."""
+    """flax's running-statistics rule: ``0.9 · running + 0.1 · batch``;
+    not in the backward's recompute of a rematerialized forward
+    (``models/remat.py``), whose forward already moved them."""
+    if remat.recomputing():
+        return
     with torch.no_grad():
         bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
         bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
@@ -123,7 +130,8 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d
         mean = xf.mean(dim=dims)
         var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
     else:
-        count = kernel_shard.global_rows(xf.numel() // xf.shape[-1])
+        count = kernel_shard.global_rows(xf.shape[0]) * math.prod(
+            xf.shape[1:-1])
         sums = kernel_shard.global_sums(torch.stack(
             [xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
         mean = sums[0] / count
@@ -142,7 +150,9 @@ class ConvBlock(nn.Module):
     kernels with the BN folded into their epilogues, as the JAX serving
     path routes it under ``TTG_FUSED_CONV``:
 
-    * Cin = 1, 64 mels, pool (2, 2) → block 1 (``fused_block1_pair``;
+    * Cin = 1, 64 mels, pool (2, 2) → block 1 (``fused_block1_pair``,
+      unless ``pair_kernel`` is False, the JAX ``TTG_FUSED_B1=0``: then the
+      plain path in bf16 with the running statistics;
       int8 serving runs it in the mode ``block1_quant`` names, as
       ``TTG_B1_QUANT`` does: ``"conv1"``, int8 conv1 and bf16 conv2, the
       default; ``"int8"``, both convs in int8, y1 requantized per chunk of
@@ -178,8 +188,9 @@ class ConvBlock(nn.Module):
                  conv_mode: str | None = None, bn_pool: bool = False,
                  pool_vjp: bool = False, block1_quant: str = "conv1",
                  block1_tc: int = 48, block1_mode: str = "triple",
-                 wino: bool = False):
+                 wino: bool = False, pair_kernel: bool = True):
         super().__init__()
+        self.pair_kernel = pair_kernel
         if conv_mode not in CONV_MODES:
             raise ValueError(f"conv_mode must be one of {CONV_MODES}")
         self.conv_mode = conv_mode
@@ -271,6 +282,8 @@ class ConvBlock(nn.Module):
         x = x.to(torch.bfloat16).contiguous()
         cin, cout = x.shape[3], self.conv1.out_channels
         if cin == 1 and cout == 64 and x.shape[2] == 64 and pool == (2, 2):
+            if not self.pair_kernel:
+                return self._plain(x, pool, bn_train=False)
             mode = BLOCK1_QUANT[self.block1_quant] if quantize else False
             *w, prep = self._kernel_weights("block1", mode)
             return fused_block1_pair(x[..., 0].contiguous(), *w,
@@ -451,13 +464,18 @@ def spec_augment(x: torch.Tensor, stripes: dict) -> torch.Tensor:
 def do_mixup(x: torch.Tensor, mixup_lambda: torch.Tensor) -> torch.Tensor:
     """Even rows mixed with odd ones, ``x[0::2]·λ[0::2] + x[1::2]·λ[1::2]``
     in ``x``'s dtype; halves the batch (JAX ``layers.py:663-670``).  Under
-    an active ``data`` axis each rank mixes its own rows: a pair that would
-    span two ranks (an odd row count a rank) raises."""
-    if x.shape[0] % 2 and kernel_shard.active_data_axis() is not None:
-        raise ValueError(
-            f"mixup pairs rows 2k and 2k + 1 within a rank: a rank's "
-            f"{x.shape[0]} rows are odd (take a global batch that is an "
-            "even multiple of the data axis; ROADMAP.md Queue 3)")
+    an active ``data`` axis ``x`` and ``mixup_lambda`` are the rank's rows
+    of the global batch: with an even count each rank mixes its own rows;
+    with an odd one a pair spans two ranks, and the rank mixes the global
+    batch's pairs whose even row it holds (``kernel_shard.mixup_pairs``),
+    whose counts differ between the ranks, down to none: that layout
+    becomes the axis's for the rest of the forward
+    (``kernel_shard.set_rows``)."""
+    axis = kernel_shard.active_data_axis()
+    if x.shape[0] % 2 and axis is not None:
+        out = kernel_shard.mixup_pairs(x, mixup_lambda)
+        kernel_shard.set_rows(kernel_shard.mixup_rows(x.shape[0], axis))
+        return out
     lam = mixup_lambda.to(x.dtype)
     lam = lam.reshape(lam.shape + (1,) * (x.dim() - 1))
     return x[0::2] * lam[0::2] + x[1::2] * lam[1::2]

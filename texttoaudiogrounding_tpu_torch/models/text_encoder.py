@@ -26,6 +26,7 @@ from texttoaudiogrounding_tpu_torch.models.layers import (
 from texttoaudiogrounding_tpu_torch.models.match import DotProductAttention
 from texttoaudiogrounding_tpu_torch.ops.masking import (
     generate_length_mask,
+    masked_softmax,
     mean_with_lens,
 )
 
@@ -64,9 +65,8 @@ class AttentionPooling(nn.Module):
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         score = self.fc(x)[..., 0]                          # [B, L]
-        mask = generate_length_mask(lens, x.shape[1])
-        score = torch.where(mask, score, torch.full_like(score, -1e10))
-        weight = torch.softmax(score, dim=1)
+        weight = masked_softmax(score, generate_length_mask(lens, x.shape[1]),
+                                dim=1)
         return torch.sum(x * weight[..., None], dim=1)
 
 

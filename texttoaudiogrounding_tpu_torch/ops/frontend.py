@@ -7,8 +7,9 @@ slaney mels, 50-14000 Hz, ``top_db=None``; and the CDur encoder's, n_fft
 2048, 40 ms window, 20 ms hop, 64 HTK mels).  The windowed DFT is one
 matrix product of the framed waveform against the window-weighted
 real/imag DFT basis, as the JAX package computes it with a strided
-convolution.  The bf16 serving frontend is the hand-written kernel in
-``ops/kernels/logmel.py``.
+convolution (:func:`power_spectrogram`); :func:`log_mel_spectrogram_numpy`
+is the float64 NumPy golden.  The bf16 serving frontend is the
+hand-written kernel in ``ops/kernels/logmel.py``.
 
 Frame count with center (reflect) padding is ``floor(num_samples / hop) +
 1``, the length arithmetic the reference's encoders rely on.
@@ -173,15 +174,51 @@ def _tables(cfg: LogMelConfig, device: torch.device) -> tuple:
     return _device_tables[key]
 
 
+def power_spectrogram(waveform: torch.Tensor, cfg: LogMelConfig,
+                      use_fft: bool = False) -> torch.Tensor:
+    """``[B, N] -> [B, T, n_freqs]`` f32 power spectrogram (power 2) of
+    the reflect-padded frames (JAX ``frontend.py:174``): the frames times
+    the windowed DFT basis, or with ``use_fft`` the windowed frames'
+    ``torch.fft.rfft``, for cross-checking."""
+    frames = frame_waveform(waveform.to(torch.float32), cfg)
+    if use_fft:
+        win = torch.from_numpy(_padded_window(cfg).astype(np.float32)).to(
+            waveform.device)
+        spec = torch.fft.rfft(frames * win, n=cfg.n_fft, dim=-1)
+        return spec.real ** 2 + spec.imag ** 2
+    basis, _ = _tables(cfg, waveform.device)
+    spec = torch.matmul(frames, basis)                  # [B, T, 2F]
+    real, imag = spec[..., :cfg.n_freqs], spec[..., cfg.n_freqs:]
+    return real ** 2 + imag ** 2
+
+
 def log_mel_spectrogram(waveform: torch.Tensor,
                         cfg: LogMelConfig) -> torch.Tensor:
     """``[B, N] -> [B, T, n_mels]`` log-mel (dB), all in f32."""
     if cfg.top_db is not None:
         raise NotImplementedError("the Cnn8Rnn frontend uses top_db=None")
-    frames = frame_waveform(waveform.to(torch.float32), cfg)
-    basis, fb = _tables(cfg, waveform.device)
-    spec = torch.matmul(frames, basis)                  # [B, T, 2F]
-    real, imag = spec[..., :cfg.n_freqs], spec[..., cfg.n_freqs:]
-    power = real ** 2 + imag ** 2
-    mel = torch.matmul(power, fb)
+    _, fb = _tables(cfg, waveform.device)
+    mel = torch.matmul(power_spectrogram(waveform, cfg), fb)
     return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
+
+
+def log_mel_spectrogram_numpy(waveform: np.ndarray,
+                              cfg: LogMelConfig) -> np.ndarray:
+    """The float64 NumPy golden of the log-mel (JAX ``frontend.py:247``):
+    reflect-padded frames, the window, ``np.fft.rfft``, the filterbank in
+    float64, dB, ``top_db`` where the config sets it."""
+    waveform = np.asarray(waveform, dtype=np.float64)
+    pad = cfg.n_fft // 2
+    x = np.pad(waveform, ((0, 0), (pad, pad)), mode="reflect")
+    t = num_frames(waveform.shape[1], cfg.hop_length)
+    win = _padded_window(cfg)
+    frames = np.stack(
+        [x[:, i * cfg.hop_length:i * cfg.hop_length + cfg.n_fft] * win
+         for i in range(t)], axis=1)
+    spec = np.fft.rfft(frames, n=cfg.n_fft, axis=-1)
+    power = np.abs(spec) ** 2
+    mel = power @ mel_filterbank(cfg).astype(np.float64)
+    out = 10.0 * np.log10(np.maximum(mel, cfg.amin))
+    if cfg.top_db is not None:
+        out = np.maximum(out, out.max() - cfg.top_db)
+    return out

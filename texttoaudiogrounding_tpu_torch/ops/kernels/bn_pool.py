@@ -88,6 +88,12 @@ def _rows(x: torch.Tensor) -> int:
     return x.shape[0] * x.shape[1] * x.shape[2]
 
 
+def _global_rows(x: torch.Tensor, axis) -> int:
+    """The (B, T, M) rows of the global batch whose rank's rows are
+    ``x``."""
+    return axis.total(x.shape[0]) * x.shape[1] * x.shape[2]
+
+
 def _coef(gamma, inv, s1, s2, count: int) -> torch.Tensor:
     """``[c1, c2] = ac·s1 / N, ac·s2 / N`` (``ac = γ·inv``); N divides as a
     tensor, as the kernel divides (PyTorch on the card multiplies by the
@@ -320,6 +326,14 @@ def _stats_launch(x: torch.Tensor, entry: str) -> tuple:
     return out[0], out[1]
 
 
+def _no_sums(x: torch.Tensor) -> tuple:
+    """The two per-channel f32 sums of a rank with no rows (a mixup whose
+    pairs span the ranks, ``kernel_shard.mixup_rows``): zeros, with
+    nothing to launch."""
+    zero = torch.zeros(x.shape[3], dtype=torch.float32, device=x.device)
+    return zero, zero.clone()
+
+
 def batch_sums_plain(x: torch.Tensor) -> tuple:
     """f32 ``(Σx, Σx²)`` over (B, T, M)."""
     xf = x.float()
@@ -334,16 +348,19 @@ def batch_sums(x: torch.Tensor) -> tuple:
         raise ValueError("x must be [B, T, M, C], float32 or bfloat16")
     if not x.is_cuda:
         return batch_sums_plain(x)
+    if x.shape[0] == 0:              # a rank with no rows
+        return _no_sums(x)
     return _stats_launch(x, "ttg_bn_pool_sums")
 
 
 def global_batch_stats(x: torch.Tensor, axis) -> tuple:
     """f32 ``(mean, var)`` of the global batch whose rows ``x`` shares with
     the other ranks of ``axis`` (a ``kernel_shard.Axis``): the ranks' sums
-    summed, then flax's fast variance over ``axis.size`` times x's rows."""
+    summed, then flax's fast variance over the global batch's rows (its
+    row layout: ``axis.total``)."""
     tot = torch.stack(batch_sums(x))
     dist.all_reduce(tot, group=axis.group)
-    count = tot.new_full((), float(_rows(x) * axis.size))
+    count = tot.new_full((), float(_global_rows(x, axis)))
     mean = tot[0] / count
     return mean, torch.clamp_min(tot[1] / count - mean * mean, 0.0)
 
@@ -359,6 +376,8 @@ def bn_pool_fwd(x: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
     x, sc, sh = kernel_ready(x, sc.float(), sh.float())
     b, t, m, c = x.shape
     out = torch.empty(b, tos, m // 2, c, dtype=x.dtype, device=x.device)
+    if b == 0:                       # a rank with no rows
+        return out
     fn = _build.function("bn_pool", "ttg_bn_pool_fwd",
                          [_P] * 4 + [_I] * 6 + [_P])
     err = fn(x.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(), b, t,
@@ -450,6 +469,8 @@ def bn_pool_bwd_sums(x, g, mean, inv, gamma, beta, pool) -> tuple:
     pt, tos = _bwd_args(x, g, mean, inv, gamma, beta, pool)
     if not x.is_cuda:
         return bn_pool_bwd_sums_plain(x, g, mean, inv, gamma, beta, pool)
+    if x.shape[0] == 0:              # a rank with no rows
+        return _no_sums(x)
     return _v2_launch(x, g, mean, inv, gamma, beta, pt, tos,
                       "ttg_bn_pool_bwd_v2_sums")
 
@@ -463,6 +484,8 @@ def bn_pool_bwd_apply(x, g, mean, inv, gamma, beta, pool, s1, s2,
     if not x.is_cuda:
         return bn_pool_bwd_apply_plain(x, g, mean, inv, gamma, beta, pool,
                                        s1, s2, count)
+    if x.shape[0] == 0:              # a rank with no rows
+        return torch.empty_like(x)
     return _v2_launch(x, g, mean, inv, gamma, beta, pt, tos,
                       "ttg_bn_pool_bwd_v2_apply", (s1, s2, count))[0]
 
@@ -477,7 +500,7 @@ def bn_pool_bwd_global(x, g, mean, inv, gamma, beta, pool, axis) -> tuple:
     tot = torch.stack([s1, s2])
     dist.all_reduce(tot, group=axis.group)
     dx = bn_pool_bwd_apply(x, g, mean, inv, gamma, beta, pool, tot[0],
-                           tot[1], _rows(x) * axis.size)
+                           tot[1], _global_rows(x, axis))
     return dx, s2, s1
 
 

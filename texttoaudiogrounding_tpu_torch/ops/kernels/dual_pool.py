@@ -129,6 +129,8 @@ def dual_pool_fwd(x: torch.Tensor, pool) -> torch.Tensor:
     (x,) = kernel_ready(x)
     b, t, m, c = x.shape
     out = torch.empty(b, tos, m // 2, c, dtype=x.dtype, device=x.device)
+    if b == 0:                       # a rank with no rows
+        return out
     fn = _build.function("dual_pool", "ttg_dual_pool_fwd",
                          [_P, _P] + [_I] * 6 + [_P])
     err = fn(x.data_ptr(), out.data_ptr(), b, t, m, c, pt,
@@ -150,6 +152,8 @@ def dual_pool_bwd(x: torch.Tensor, g: torch.Tensor, pool) -> torch.Tensor:
     check_channels(x)
     x, g = kernel_ready(x, g.to(x.dtype))
     dx = torch.empty_like(x)
+    if b == 0:                       # a rank with no rows
+        return dx
     fn = _build.function("dual_pool", "ttg_dual_pool_bwd",
                          [_P] * 3 + [_I] * 6 + [_P])
     err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, t, m, c, pt,

@@ -893,16 +893,24 @@ class BiGRUFunction(torch.autograd.Function):
         if variant is not None and dtype != torch.float32:
             raise ValueError("the hoisted backward is the f32 recurrence's")
         t, b, h = _dims(proj)
+        ctx.dtype, ctx.variant = dtype, variant
+        if b == 0:
+            # a rank with no rows (a mixup whose pairs span the ranks,
+            # kernel_shard.mixup_rows): nothing to launch, zero gradients
+            ctx.save_for_backward(proj, wh, bn)
+            return proj.new_zeros(t, 0, h, dtype=torch.float32)
         ctx.designs = (route(b, h, dtype, variant) if proj.is_cuda
                        else {"forward": "cluster", "backward": "cluster"})
         ys = gru_forward(proj, wh, bn, dtype, ctx.designs["forward"])
         ctx.save_for_backward(proj, ys, wh, bn)
-        ctx.dtype, ctx.variant = dtype, variant
         return ys
 
     @staticmethod
     def backward(ctx, gy):
-        proj, ys, wh, bn = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        if len(saved) == 3:                # no rows
+            return tuple(torch.zeros_like(t) for t in saved) + (None, None)
+        proj, ys, wh, bn = saved
         design = ctx.designs["backward"]
         if ctx.variant is None:
             dproj, dwh, dbn = gru_backward(proj, ys, gy, wh, bn, ctx.dtype,

@@ -1,5 +1,6 @@
-"""Length-masked pooling over padded time axes (the JAX package's
-``ops/masking.py:24-90``; reference models/utils.py:22-84).
+"""Length-masked pooling over padded time axes, the segment mean and the
+masked softmax (the JAX package's ``ops/masking.py:24-119``; reference
+models/utils.py:22-105, models/text_encoder.py:51-58).
 
 The MIL poolings keep the reference's semantics: ``linear_softmax`` is
 ``Σx² / Σx`` over the valid frames, and ``exp_softmax`` normalises by the
@@ -60,6 +61,27 @@ def exp_softmax_with_lens(features: torch.Tensor,
     exp_f = torch.exp(normed)
     weight = exp_f / sum_with_lens(exp_f, lens)[:, None]
     return sum_with_lens(weight * features, lens)
+
+
+def mean_by_group(arr: torch.Tensor, group_ids: torch.Tensor,
+                  num_groups: int, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Segment mean: the rows of ``arr [total, ...]`` summed by their
+    ``group_ids [total]`` into ``num_groups`` rows, each divided by its
+    ``group_sizes`` entry (JAX ``masking.py:93``, one ``segment_sum``; an
+    empty group gives ``0 / size``)."""
+    summed = arr.new_zeros((num_groups,) + tuple(arr.shape[1:]))
+    summed.index_add_(0, group_ids.long(), arr)
+    denom = _trailing(group_sizes.to(summed.dtype), summed.ndim)
+    return summed / denom
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
+                   dim: int = -1) -> torch.Tensor:
+    """Softmax over ``dim`` with the positions where ``mask`` is False
+    filled with -1e10 first, so that they take ~0 weight (JAX
+    ``masking.py:108``, the reference's attention-pooling idiom)."""
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e10))
+    return torch.softmax(scores, dim=dim)
 
 
 POOLINGS = {"linear_softmax": linear_softmax_with_lens, "max": max_with_lens,

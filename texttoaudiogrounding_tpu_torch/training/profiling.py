@@ -1,19 +1,47 @@
-"""The step profiler and the throughput meter of the trainer's epoch log.
+"""The step profiler, a trace of any block, and the throughput meter of
+the trainer's epoch log.
 
 Port of ``texttoaudiogrounding_tpu/training/profiling.py:16-78``: the JAX
-package traces chosen training steps with ``jax.profiler``; here
-``torch.profiler`` traces them, and writes a Chrome trace (open it in
-``chrome://tracing`` or Perfetto) into ``exp_dir/profile/``.  The
-profiler records the card's activity (kernels, copies) when the model is
-on the card, and the host's operators only when it runs on the CPU.
+package traces chosen training steps, or the block under ``trace``, with
+``jax.profiler``; here ``torch.profiler`` traces them, and writes a
+Chrome trace (open it in ``chrome://tracing`` or Perfetto) into
+``exp_dir/profile/`` (the steps) or the given directory (``trace``).
+The profiler records the card's activity (kernels, copies) when the model
+is on the card, and the host's operators only when it runs on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 
 import torch
+
+from texttoaudiogrounding_tpu_torch.device import resolve_device
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path, device="cuda"):
+    """A ``torch.profiler`` trace of the enclosed block, written to
+    ``log_dir/trace.json`` (Chrome format) when the block ends, also when
+    it raises: the card's activity, or with ``device="cpu"`` the host's
+    operators.  Yields the path."""
+    device = resolve_device(device)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    path = log_dir / "trace.json"
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(activities=[
+        act.CUDA if device.type == "cuda" else act.CPU])
+    prof.start()
+    try:
+        yield path
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.stop()
+        prof.export_chrome_trace(str(path))
 
 
 class StepProfiler:

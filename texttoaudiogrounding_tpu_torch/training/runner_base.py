@@ -59,6 +59,7 @@ trains; the runner sets both ``torch.backends`` switches and logs it.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import sys
 import time
@@ -70,6 +71,7 @@ import torch
 
 from texttoaudiogrounding_tpu_torch.data.loader import build_loader
 from texttoaudiogrounding_tpu_torch.device import resolve_device
+from texttoaudiogrounding_tpu_torch.models.remat import checkpointed
 from texttoaudiogrounding_tpu_torch.parallel import tensor_parallel
 from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import (
     data_parallel,
@@ -107,6 +109,16 @@ def whole_batch_inputs(model) -> tuple:
     """The input keys ``model`` takes whole on every rank (its
     ``whole_batch_inputs``; none for most models)."""
     return tuple(getattr(model, "whole_batch_inputs", ()))
+
+
+def _check_finite(iteration, tensors: dict) -> None:
+    """``FloatingPointError`` naming the step and the first of
+    ``tensors`` that holds a NaN or an infinity (``trainer.debug_nans``;
+    reads them on the host)."""
+    for name, t in tensors.items():
+        if not bool(torch.isfinite(t.detach()).all()):
+            raise FloatingPointError(
+                f"step {iteration}: non-finite values in {name!r}")
 
 
 def init_logger(filename: Path, level: str = "INFO") -> logging.Logger:
@@ -207,17 +219,39 @@ class BaseRunner:
         return global_output(output, self.output_rows(batch), axis)
 
     def train_step(self, model, loss_fn, optimizer, batch: dict,
-                   output_transform: Callable) -> torch.Tensor:
+                   output_transform: Callable,
+                   iteration: int | None = None) -> torch.Tensor:
         """One optimizer step on ``batch`` (tensors on the device: the
         rank's rows); returns the global batch's loss, still on the
-        device."""
+        device.  ``trainer.remat`` recomputes the forward's activations in
+        the backward (``models/remat.py``, JAX ``jax.checkpoint``);
+        ``trainer.debug_nans`` runs the step under
+        ``torch.autograd.detect_anomaly`` (its forward traces kept for an
+        error in the backward) and raises ``FloatingPointError`` at a
+        non-finite output, loss or gradient, naming the step
+        (``iteration``) and the tensor; an infinity raises too, where
+        JAX's ``jax_debug_nans`` raises at a NaN only."""
+        trainer = self.config.get("trainer", {})
+        debug = trainer.get("debug_nans", False)
         model.train()
-        with data_parallel(self.mesh):
-            output = output_transform(
-                model({**batch, **self.static_train_inputs}), batch)
-        loss = loss_fn(self._global(output, batch))
-        optimizer.zero_grad()
-        loss.backward()
+        inputs = {**batch, **self.static_train_inputs}
+        with (torch.autograd.detect_anomaly(check_nan=False) if debug
+              else contextlib.nullcontext()):
+            with data_parallel(self.mesh):
+                raw = (checkpointed(model, inputs)
+                       if trainer.get("remat") else model(inputs))
+                output = output_transform(raw, batch)
+            loss = loss_fn(self._global(output, batch))
+            if debug:
+                _check_finite(iteration, {"loss": loss, **{
+                    k: v for k, v in raw.items() if torch.is_tensor(v)
+                    and v.is_floating_point()}})
+            optimizer.zero_grad()
+            loss.backward()
+        if debug:
+            _check_finite(iteration, {
+                name: p.grad for name, p in model.named_parameters()
+                if p.grad is not None})
         tensor_parallel.sync_grads(
             optimizer.params,
             None if self.mesh is None else self.mesh.axis("data"))
@@ -237,10 +271,14 @@ class BaseRunner:
     def fit(self, model, loss_fn, train_loader, val_loader,
             output_transform: Callable, exp_dir: Path) -> dict:
         """Epoch loop with plateau LR, early stop, best/last checkpoints
-        (reference run_strong.py:712-810).  Returns the run's record:
-        ``train_loss`` and ``val_loss`` per epoch, ``step_loss`` (every
-        step's loss), ``start_epoch`` and ``profile`` (the traces
-        written)."""
+        (reference run_strong.py:712-810).  ``trainer.lr_update_interval``
+        is ``"epoch"`` (the default: the scheduler's ``step``, where it
+        has one, after each validation) or ``"iteration"`` (a callable
+        scheduler's rate set before every step, JAX ``runner_base.py:
+        437-462``).  Returns the run's record: ``train_loss`` and
+        ``val_loss`` per epoch, ``step_loss`` and ``step_lr`` (every
+        step's loss and learning rate), ``start_epoch`` and ``profile``
+        (the traces written)."""
         trainer = self.config.get("trainer", {})
         epochs = trainer.get("epochs", 10)
         epoch_length = trainer.get("epoch_length")
@@ -270,6 +308,10 @@ class BaseRunner:
             scheduler = instantiate(self.config["lr_scheduler"])
         else:
             scheduler = ReduceLROnPlateau(mode=monitor["mode"])
+        # "iteration": a callable scheduler gives every step's rate from
+        # the fit's step count (from 0 in each fit, a resumed one too);
+        # "epoch": its ``step`` moves the rate after each validation
+        interval = trainer.get("lr_update_interval", "epoch")
         n_params = tensor_parallel.global_numel(model)
         n_train = sum(p.numel() * (by_param[p].axis.size if p in by_param
                                    else 1) for p in optimizer.params)
@@ -294,7 +336,7 @@ class BaseRunner:
                 not_improve_cnt = meta["not_improve_cnt"]
 
         record = {"train_loss": [], "val_loss": [], "step_loss": [],
-                  "start_epoch": start_epoch}
+                  "step_lr": [], "start_epoch": start_epoch}
         profiler = StepProfiler(trainer.get("profile") if self.is_main
                                 else None, exp_dir, self.device)
         meter = ThroughputMeter()
@@ -336,9 +378,13 @@ class BaseRunner:
 
             for batch, _, real_bs in device_feed(epoch_batches(), mesh,
                                                  self.device, whole=whole):
+                if interval == "iteration" and callable(scheduler):
+                    optimizer.lr = scheduler(iteration)
+                record["step_lr"].append(optimizer.lr)
                 profiler.step(iteration)
                 losses.append(self.train_step(
-                    model, loss_fn, optimizer, batch, output_transform))
+                    model, loss_fn, optimizer, batch, output_transform,
+                    iteration))
                 meter.update(real_bs)
                 iteration += 1
             profiler.close(iteration)
@@ -356,9 +402,10 @@ class BaseRunner:
             record["val_loss"].append(val_loss)
 
             lr = optimizer.lr
-            new_lr = scheduler.step(val_loss, lr)
-            if new_lr != lr:
-                optimizer.lr = lr = new_lr
+            if interval == "epoch" and hasattr(scheduler, "step"):
+                new_lr = scheduler.step(val_loss, lr)
+                if new_lr != lr:
+                    optimizer.lr = lr = new_lr
             self.logger.info(
                 f"epoch: {epoch}  train_loss: {train_loss:.4g}  "
                 f"val_loss: {val_loss:.4g}  lr: {lr:.2g}  "

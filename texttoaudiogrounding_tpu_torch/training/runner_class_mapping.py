@@ -17,9 +17,11 @@ output transform the labels; ``specaug`` reaches the train steps only.
 (``evaluation/tagging.py``, NumPy) and writes it as a TSV with ``csv``.
 
 On several ranks (``runner_base.py``) the mixup pairs (rows 2k, 2k + 1)
-stay within a rank, whose row count must then be even (``do_mixup``
-raises otherwise); the mixed outputs and labels have half the rank's rows
-and are gathered as the global batch's (:meth:`ClassMappingWeakRunner.
+of the global batch are mixed as on one rank: within a rank where its
+row count is even, else over the gathered rows, each rank mixing the
+pairs whose even row it holds (``do_mixup``: the ranks then hold unequal
+counts of mixed rows, one of them possibly none); the mixed outputs and
+labels are gathered as the global batch's (:meth:`ClassMappingWeakRunner.
 output_rows`), SpecAugment's stripes are drawn for the global batch and
 cut to the rank's rows, as dropout's masks are; evaluation forwards each
 rank's rows and gathers them (``eval_forward``), and rank 0 scores and
@@ -38,6 +40,7 @@ from texttoaudiogrounding_tpu_torch.evaluation.tagging import (
     average_precision,
 )
 from texttoaudiogrounding_tpu_torch.models.layers import do_mixup
+from texttoaudiogrounding_tpu_torch.parallel.kernel_shard import mixup_rows
 from texttoaudiogrounding_tpu_torch.training.runner_strong import StrongRunner
 from texttoaudiogrounding_tpu_torch.training.runner_weak_phrase import (
     weak_output_transform,
@@ -134,10 +137,16 @@ class ClassMappingWeakRunner(ClassMappingStrongRunner):
     ``specaug: true`` at the config's top level."""
 
     def output_rows(self, batch: dict) -> tuple:
-        """A mixup step's outputs (and mixed labels) have half the rank's
-        rows; the batch's other entries its rows."""
+        """A mixup step's outputs (and mixed labels) have the rank's mixed
+        rows (half the rank's rows, or each rank's count of the pairs whose
+        even row it holds: ``kernel_shard.mixup_rows``); the batch's other
+        entries its rows."""
         rows = batch["waveform"].shape[0]
-        return (rows, rows // 2) if "mixup_lambda" in batch else (rows,)
+        if "mixup_lambda" not in batch:
+            return (rows,)
+        axis = None if self.mesh is None else self.mesh.axis("data")
+        mixed = mixup_rows(rows, axis)
+        return (rows, mixed[0] if len(set(mixed)) == 1 else mixed)
 
     def fit(self, model, loss_fn, train_loader, val_loader,
             output_transform, exp_dir) -> dict:

@@ -548,7 +548,7 @@ class StrongRunner(BaseRunner):
         losses = []
         for i in range(iters):
             losses.append(float(self.train_step(
-                model, loss_fn, optimizer, batch, self.output_transform)))
+                model, loss_fn, optimizer, batch, self.output_transform, i)))
             if self.is_main:
                 print(f"debug iter {i}: loss={losses[-1]:.4f}")
         return losses
